@@ -1,0 +1,24 @@
+"""segmamba_tpu_torch — the PyTorch / CUDA port of ``segmamba_tpu``.
+
+The JAX package ``segmamba_tpu`` is the reference; this package mirrors its
+layout and is held against it by ``tests/test_torch_port_*.py``:
+
+- ``ops``      — plain-PyTorch selective scan, causal conv1d, mamba inner op,
+                 and the wrappers of the hand-written Hopper scan kernel
+                 (``csrc/gated_scan_fwd.cu``, built lazily by ``ops/_build.py``
+                 on first launch, never on import).
+- ``models``   — ``nn.Module``s: tri-oriented Mamba, GSC, encoder, UNETR
+                 blocks and the full SegMamba, with the reference torch
+                 ``state_dict`` names.
+- ``infer``    — sliding-window inference with gaussian blending and
+                 window-level mirror TTA.
+- ``utils``    — flax param tree <-> ``state_dict`` bridge.
+- ``inference`` — ``python -m segmamba_tpu_torch.inference``: model forward
+                 or the bench case's sliding-window inference on one card.
+
+Layouts: ``ops`` keep the JAX package's time-major ``(R, L, D)`` sequences
+and ``(R, L, N)`` B/C; ``models`` and ``infer`` use torch's NCDHW volumes.
+The package imports torch, numpy and scipy only.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,167 @@
+"""SegMamba: tri-oriented Mamba encoder + UNETR-style CNN decoder, NCDHW.
+
+Port of ``segmamba_tpu/models/segmamba.py`` (``MambaLayer``, ``MlpChannel``,
+``GSC``, ``MambaEncoder``, ``SegMamba``) without the mesh and remat
+arguments. Module names are the reference model's, so a reference
+``state_dict`` (``vit.downsample_layers.0.0.weight``, ``vit.stages.0.0.mamba.
+in_proj.weight``, ``decoder5.transp_conv.conv.weight``, ...) loads with
+``load_state_dict(strict=True)``.
+
+``dtype`` is the compute dtype; parameters stay float32 and are cast per op.
+LayerNorm eps is 1e-5, GELU is exact, logits come out float32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from segmamba_tpu_torch.models.layers import (
+    Conv3d,
+    InstanceNorm3d,
+    instance_norm,
+)
+from segmamba_tpu_torch.models.mamba import MambaV3
+from segmamba_tpu_torch.models.unetr_blocks import (
+    UnetOutBlock,
+    UnetrBasicBlock,
+    UnetrUpBlock,
+)
+
+
+class MambaLayer(nn.Module):
+    """Flatten the volume to (B, L, C) tokens, LayerNorm, tri-oriented Mamba,
+    reshape back, residual."""
+
+    def __init__(self, dim, num_slices=None, *, dtype=torch.float32,
+                 generator):
+        super().__init__()
+        self.dim, self.dtype = dim, dtype
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.mamba = MambaV3(dim, nslices=num_slices, dtype=dtype,
+                             generator=generator)
+
+    def forward(self, x):
+        b, c = x.shape[:2]
+        if c != self.dim:
+            raise ValueError(f"expected {self.dim} channels, got {c}")
+        spatial = x.shape[2:]
+        x_flat = x.flatten(2).transpose(1, 2)                 # (b, L, c)
+        x_norm = F.layer_norm(x_flat.float(), (c,), self.norm.weight,
+                              self.norm.bias, 1e-5).to(self.dtype)
+        y = self.mamba(x_norm)
+        return y.transpose(1, 2).reshape(b, c, *spatial) + x
+
+
+class MlpChannel(nn.Module):
+    """1x1x1 conv -> exact GELU -> 1x1x1 conv."""
+
+    def __init__(self, hidden_size, mlp_dim, *, dtype=torch.float32,
+                 generator):
+        super().__init__()
+        self.fc1 = Conv3d(hidden_size, mlp_dim, 1, dtype=dtype,
+                          generator=generator)
+        self.fc2 = Conv3d(mlp_dim, hidden_size, 1, dtype=dtype,
+                          generator=generator)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class GSC(nn.Module):
+    """Gated (by addition) spatial conv block."""
+
+    def __init__(self, in_channels, *, dtype=torch.float32, generator):
+        super().__init__()
+        c = in_channels
+        conv = lambda k, p: Conv3d(c, c, k, 1, p, dtype=dtype,
+                                   generator=generator)
+        self.proj, self.proj2 = conv(3, 1), conv(3, 1)
+        self.proj3, self.proj4 = conv(1, 0), conv(1, 0)
+
+    def forward(self, x):
+        cir = lambda conv, h: F.relu(instance_norm(conv(h)))
+        x1 = cir(self.proj2, cir(self.proj, x))
+        x2 = cir(self.proj3, x)
+        return cir(self.proj4, x1 + x2) + x
+
+
+class MambaEncoder(nn.Module):
+    """Four-stage Mamba encoder: stem k7 s2 p3, then 3x (IN + conv k2 s2);
+    per stage GSC -> depth x MambaLayer; per-stage head IN + MlpChannel."""
+
+    def __init__(self, in_chans=1, depths=(2, 2, 2, 2),
+                 dims=(48, 96, 192, 384), num_slices_list=(64, 32, 16, 8), *,
+                 dtype=torch.float32, generator):
+        super().__init__()
+        g = generator
+        self.downsample_layers = nn.ModuleList(
+            [nn.Sequential(Conv3d(in_chans, dims[0], 7, 2, 3, dtype=dtype,
+                                  generator=g))]
+            + [nn.Sequential(InstanceNorm3d(),
+                             Conv3d(dims[i], dims[i + 1], 2, 2, 0,
+                                    dtype=dtype, generator=g))
+               for i in range(3)])
+        self.gscs = nn.ModuleList(
+            [GSC(d, dtype=dtype, generator=g) for d in dims])
+        self.stages = nn.ModuleList(
+            [nn.Sequential(*[MambaLayer(dims[i],
+                                        num_slices=num_slices_list[i],
+                                        dtype=dtype, generator=g)
+                             for _ in range(depths[i])])
+             for i in range(4)])
+        self.mlps = nn.ModuleList(
+            [MlpChannel(d, 2 * d, dtype=dtype, generator=g) for d in dims])
+
+    def forward(self, x):
+        outs = []
+        for i in range(4):
+            x = self.stages[i](self.gscs[i](self.downsample_layers[i](x)))
+            outs.append(self.mlps[i](instance_norm(x)))
+        return tuple(outs)
+
+
+class SegMamba(nn.Module):
+    """Full segmentation model: (B, in_chans, D, H, W) float ->
+    (B, out_chans, D, H, W) float32 logits. Defaults are the BraTS config
+    (4 -> 4 channels, depths 2/2/2/2, feats 48/96/192/384, hidden 768)."""
+
+    def __init__(self, in_chans=4, out_chans=4, depths=(2, 2, 2, 2),
+                 feat_size: Sequence[int] = (48, 96, 192, 384),
+                 hidden_size=768, num_slices_list=(64, 32, 16, 8), *,
+                 dtype=torch.float32, generator=None, device=None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        f, kw = feat_size, dict(dtype=dtype, generator=generator)
+        self.dtype = dtype
+        self.vit = MambaEncoder(in_chans, depths, f, num_slices_list, **kw)
+        self.encoder1 = UnetrBasicBlock(in_chans, f[0], **kw)
+        self.encoder2 = UnetrBasicBlock(f[0], f[1], **kw)
+        self.encoder3 = UnetrBasicBlock(f[1], f[2], **kw)
+        self.encoder4 = UnetrBasicBlock(f[2], f[3], **kw)
+        self.encoder5 = UnetrBasicBlock(f[3], hidden_size, **kw)
+        self.decoder5 = UnetrUpBlock(hidden_size, f[3], **kw)
+        self.decoder4 = UnetrUpBlock(f[3], f[2], **kw)
+        self.decoder3 = UnetrUpBlock(f[2], f[1], **kw)
+        self.decoder2 = UnetrUpBlock(f[1], f[0], **kw)
+        self.decoder1 = UnetrBasicBlock(f[0], f[0], **kw)
+        self.out = UnetOutBlock(f[0], out_chans, **kw)
+        if device is not None:
+            self.to(device)
+
+    def forward(self, x_in):
+        outs = self.vit(x_in)
+        enc1 = self.encoder1(x_in)
+        enc2 = self.encoder2(outs[0])
+        enc3 = self.encoder3(outs[1])
+        enc4 = self.encoder4(outs[2])
+        enc_hidden = self.encoder5(outs[3])
+        dec3 = self.decoder5(enc_hidden, enc4)
+        dec2 = self.decoder4(dec3, enc3)
+        dec1 = self.decoder3(dec2, enc2)
+        dec0 = self.decoder2(dec1, enc1)
+        return self.out(self.decoder1(dec0)).float()

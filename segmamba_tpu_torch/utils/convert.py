@@ -1,0 +1,109 @@
+"""Flax param tree -> the port's ``state_dict``.
+
+The exact inverse of ``segmamba_tpu/utils/torch_convert.py``
+``convert_segmamba_state_dict`` (:83-156). The port's module names are the
+reference torch model's, so the same names serve both directions. Layout
+rules undone here:
+
+- DHWIO (kz, ky, kx, Cin, Cout) conv kernel   -> (Cout, Cin, kz, ky, kx)
+- ConvTranspose DHWIO kernel, spatially flipped -> (Cin, Cout, kz, ky, kx)
+- (in, out) matmul weight                      -> Linear (out, in)
+- depthwise (W, E) filter                      -> Conv1d (E, 1, W)
+- LayerNorm scale / bias                       -> weight / bias
+
+Leaves may be numpy arrays or anything ``numpy.asarray`` takes; no flax or
+JAX import is needed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _conv3d(k):
+    return np.transpose(np.asarray(k), (4, 3, 0, 1, 2))
+
+
+def _conv_transpose3d(k):
+    return np.transpose(np.asarray(k)[::-1, ::-1, ::-1], (3, 4, 0, 1, 2))
+
+
+def _linear(w):
+    return np.transpose(np.asarray(w), (1, 0))
+
+
+def _conv1d_depthwise(w):
+    return np.transpose(np.asarray(w), (1, 0))[:, None, :]
+
+
+def _mamba(sd, prefix, p):
+    sd[f"{prefix}.in_proj.weight"] = _linear(p["in_proj"])
+    sd[f"{prefix}.out_proj.weight"] = _linear(p["out_proj"])
+    for suf in ("", "_b", "_s"):
+        if f"x_proj{suf}" not in p:
+            continue
+        sd[f"{prefix}.conv1d{suf}.weight"] = _conv1d_depthwise(
+            p[f"conv1d{suf}_weight"])
+        sd[f"{prefix}.conv1d{suf}.bias"] = np.asarray(p[f"conv1d{suf}_bias"])
+        sd[f"{prefix}.x_proj{suf}.weight"] = _linear(p[f"x_proj{suf}"])
+        sd[f"{prefix}.dt_proj{suf}.weight"] = _linear(p[f"dt_proj{suf}"])
+        sd[f"{prefix}.dt_proj{suf}.bias"] = np.asarray(
+            p[f"dt_proj{suf}_bias"])
+        sd[f"{prefix}.A{suf}_log"] = np.asarray(p[f"A{suf}_log"])
+        sd[f"{prefix}.D{suf}"] = np.asarray(p[f"D{suf}"])
+
+
+def _res_block(sd, prefix, p):
+    for name in ("conv1", "conv2", "conv3"):
+        if name in p:
+            sd[f"{prefix}.{name}.conv.weight"] = _conv3d(p[name]["kernel"])
+
+
+def flax_to_state_dict(params):
+    """JAX ``{"params": ...}`` tree (numpy leaves) -> the port's
+    ``state_dict`` (float32 CPU tensors, reference torch names)."""
+    p = params["params"] if "params" in params else params
+    sd = {}
+    vit = p["vit"]
+    sd["vit.downsample_layers.0.0.weight"] = _conv3d(vit["stem"]["kernel"])
+    sd["vit.downsample_layers.0.0.bias"] = np.asarray(vit["stem"]["bias"])
+    for i in range(1, 4):
+        ds = vit[f"downsample{i}"]
+        sd[f"vit.downsample_layers.{i}.1.weight"] = _conv3d(ds["kernel"])
+        sd[f"vit.downsample_layers.{i}.1.bias"] = np.asarray(ds["bias"])
+    for i in range(4):
+        for name in ("proj", "proj2", "proj3", "proj4"):
+            c = vit[f"gsc{i}"][name]
+            sd[f"vit.gscs.{i}.{name}.weight"] = _conv3d(c["kernel"])
+            sd[f"vit.gscs.{i}.{name}.bias"] = np.asarray(c["bias"])
+        j = 0
+        while f"stage{i}_block{j}" in vit:
+            blk = vit[f"stage{i}_block{j}"]
+            pre = f"vit.stages.{i}.{j}"
+            sd[f"{pre}.norm.weight"] = np.asarray(blk["LayerNorm_0"]["scale"])
+            sd[f"{pre}.norm.bias"] = np.asarray(blk["LayerNorm_0"]["bias"])
+            _mamba(sd, f"{pre}.mamba", blk["mamba"])
+            j += 1
+        for fc in ("fc1", "fc2"):
+            c = vit[f"mlp{i}"][fc]
+            sd[f"vit.mlps.{i}.{fc}.weight"] = _conv3d(c["kernel"])
+            sd[f"vit.mlps.{i}.{fc}.bias"] = np.asarray(c["bias"])
+    for k in range(1, 6):
+        _res_block(sd, f"encoder{k}.layer", p[f"encoder{k}"]["layer"])
+    for k in range(2, 6):
+        dec = p[f"decoder{k}"]
+        sd[f"decoder{k}.transp_conv.conv.weight"] = _conv_transpose3d(
+            dec["transp_conv"]["kernel"])
+        _res_block(sd, f"decoder{k}.conv_block", dec["conv_block"])
+    _res_block(sd, "decoder1.layer", p["decoder1"]["layer"])
+    sd["out.conv.conv.weight"] = _conv3d(p["out"]["conv"]["kernel"])
+    sd["out.conv.conv.bias"] = np.asarray(p["out"]["conv"]["bias"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def load_flax_params(model, params):
+    """Load a JAX param tree into the port's ``SegMamba`` (strict)."""
+    model.load_state_dict(flax_to_state_dict(params), strict=True)
+    return model
