@@ -7,7 +7,10 @@ points a user calls, at the full width of the BraTS SegMamba, and checks it.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), a CUDA card
-   required, the scan kernel built from ``segmamba_tpu_torch/csrc``.
+   required, the forward scan kernel built from ``segmamba_tpu_torch/csrc``.
+1b. The backward scan kernel (``gated_scan_bwd.cu``), built in parallel with
+   the forward one (one nvcc each, from two threads): build time, ptxas
+   registers/spills.
 2. Kernel vs plain PyTorch at the main path's shapes (stage 0: R=1,
    L=262144, D=96; stage 3: R=1, L=512, D=768; N=16) for the three flag
    sets the path launches (dir reverse ungated, dir gate + acc, fused gate
@@ -23,6 +26,47 @@ Phases, in order; any failure raises and the script exits non-zero:
    1, bfloat16): one warm-up, then timed runs; logits finite; the scan
    launch counters must rise by exactly 128 (scan_dir) and 64 (scan_fused)
    per case (8 windows x 8 Mamba layers x 2 and x 1).
+5. Backward kernels vs the plain backward (autograd through the plain
+   forward, float32) at the train step's stage-0 (R=2, L=262144, D=96) and
+   stage-3 (R=2, L=512, D=768) shapes, three flag sets, all nine
+   gradients; float32 at 6e-4 / 2e-3, bfloat16 at 3e-2 / 5e-2 (compared in
+   float32). The reduced gradients (dA, dD, dbias: sums over all steps and
+   rows; dB, dC: sums over channels) use the absolute tolerance scaled by
+   max(1, max|plain|), since the two sides sum in different orders. Both
+   sides run, and are timed, at the full length. The plain backward runs
+   over channel slices in turn (channels are independent in the scan), as
+   few as keep each slice's predicted peak (bytes per element measured at
+   stage 3) under 3/4 of the card's free memory: one at stage 3, two at
+   stage 0. A CUDA forward with inputs that require grad must have a
+   grad_fn, and its backward must count.
+6. Full-width SegMamba, float32, 1x4x64^3: the parameter gradients of the
+   kernel path against the plain-scan path. All of them together within
+   1e-3 relative L2 (two plain compositions of the same math, dir2 and
+   per-direction, differ by 4.5e-5 at 32^3 on the CPU); each parameter within rtol 2e-3 and atol 5e-2 of the
+   larger of its own max |grad| and 1e-3 of the model's. The per-parameter
+   bound is a wiring check (a lost or wrong gradient is off by 100%): the
+   scans agree to ~1e-6 (phase 5), but the deepest blocks' instance norms
+   amplify that, and two plain compositions of the same math (dir2,
+   per-direction) already differ there by up to 3% of a parameter's max.
+7. The train step at the recipe shape: batch 2 x 4 x 128^3 from
+   numpy.random.default_rng(0), bfloat16 model with float32 parameters,
+   remat="convs", SGD (clip 12, wd 3e-5, nesterov 0.99) with poly LR, CE
+   on random labels. One warm-up step, then 5 timed steps (host clock after
+   torch.cuda.synchronize()); the loss is finite every step and falls;
+   scan launches per step exactly 16 + 8 forward and 16 + 8 backward. Peak
+   memory; one more step under torch.profiler, its device time by kernel
+   class and the device's idle share of the step; and the forward/backward
+   time of each top-level module run alone on the inputs it saw.
+8. The trainer end to end: ``segmamba_tpu_torch.train`` on six synthetic
+   4 x 144^3 cases in a temporary directory, 1 epoch x 4 steps with
+   validation on 2 patches, then ``--resume`` with 2 epochs: it continues
+   at the saved epoch 0 and step 4, as the JAX trainer does, and ends at
+   epoch 1, step 12; checkpoints must exist. First the
+   recipe's host augmentation chain is timed on two 2 x 4 x 128^3 batches
+   in this process (one core): it takes tens of seconds a batch, so the
+   trainer itself runs with ``--augmentation noaug`` (4 loader processes)
+   to keep the phase near 90 s; the chain's arrays are held against the
+   JAX package's by the CPU tests.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
@@ -33,28 +77,65 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import os
 import statistics
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from segmamba_tpu_torch.data import (
+    MedicalDataset,
+    PatchSampler,
+    get_train_transforms,
+)
+from segmamba_tpu_torch.data.synthetic import write_synthetic_cases
 from segmamba_tpu_torch.infer import sliding_window_inference
 from segmamba_tpu_torch.models import SegMamba
 from segmamba_tpu_torch.models.mamba import _dt_bias_init
+from segmamba_tpu_torch.models.segmamba import _call
 from segmamba_tpu_torch.ops import _build, scan_dir, scan_fused
+from segmamba_tpu_torch.train import poly_schedule
+from segmamba_tpu_torch.train.__main__ import main as train_main
+from segmamba_tpu_torch.train.losses import cross_entropy_loss
+from segmamba_tpu_torch.train.train_state import (
+    apply_gradients,
+    create_train_state,
+    train_step,
+)
 
-SOURCE = "segmamba_tpu_torch/csrc/gated_scan_fwd.cu"
+SOURCES = {"fwd": "segmamba_tpu_torch/csrc/gated_scan_fwd.cu",
+           "bwd": "segmamba_tpu_torch/csrc/gated_scan_bwd.cu"}
 REPLACES = {
     "scan_dir": "segmamba_tpu/ops/scan_pallas_dir.py:60",
     "scan_fused": "segmamba_tpu/ops/scan_pallas_fused.py:42",
 }
+BWD_REPLACES = {
+    "scan_dir": "segmamba_tpu/ops/scan_pallas_dir.py:119",
+    "scan_fused": "segmamba_tpu/ops/scan_pallas_fused.py:73",
+}
 SHAPES = {"stage0": (1, 262144, 96), "stage3": (1, 512, 768)}
+TRAIN_SHAPES = {"stage3": (2, 512, 768), "stage0": (2, 262144, 96)}
+GRADS = ("du", "ddt", "dz", "dacc", "dA", "dB", "dC", "dD", "dbias")
+REDUCED = ("dA", "dB", "dC", "dD", "dbias")
+PLAIN_BWD_SHARE = 0.75        # of the card's free memory, per plain slice
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+F32_FLOP_PER_S = 67e12        # float32 outside the tensor cores (data sheet)
+VARIANTS = {
+    "dir_reverse": ("scan_dir", dict(reverse=True, gate=False)),
+    "dir_gate_acc": ("scan_dir", dict(gate=True, acc=True)),
+    "fused_gate": ("scan_fused", {}),
+}
 N = 16
 TOL = {torch.float32: (6e-4, 2e-3), torch.bfloat16: (3e-2, 5e-2)}
 CASE_SHAPE = (150, 180, 150)
 ROI = (128, 128, 128)
+GRAD_SHAPE = (64, 64, 64)          # phase 6
+TRAINER_CASE = (144, 144, 144)     # phase 8
 
 
 def log(msg):
@@ -90,15 +171,26 @@ def plain_scans():
     """Route the model's scans to the plain PyTorch versions (comparison
     only; the wrappers' launch counters must not move)."""
     saved = scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused
-    counts = scan_dir.LAUNCHES, scan_fused.LAUNCHES
+    counts = launch_counts()
     scan_dir.mamba_scan_fused_dir = scan_dir.mamba_scan_fused_dir_ref
     scan_fused.mamba_scan_fused = scan_fused.mamba_scan_fused_ref
     try:
         yield
     finally:
         scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused = saved
-    if (scan_dir.LAUNCHES, scan_fused.LAUNCHES) != counts:
+    if launch_counts() != counts:
         raise AssertionError("a kernel launched inside plain_scans()")
+
+
+def launch_counts():
+    return {"scan_dir": scan_dir.LAUNCHES, "scan_fused": scan_fused.LAUNCHES,
+            "scan_dir_bwd": scan_dir.BWD_LAUNCHES,
+            "scan_fused_bwd": scan_fused.BWD_LAUNCHES}
+
+
+def reset_counts():
+    scan_dir.LAUNCHES = scan_fused.LAUNCHES = 0
+    scan_dir.BWD_LAUNCHES = scan_fused.BWD_LAUNCHES = 0
 
 
 def check_close(name, got, want, rtol, atol):
@@ -241,15 +333,15 @@ def phase_case():
 
     with torch.inference_mode():
         torch.cuda.reset_peak_memory_stats()
-        scan_dir.LAUNCHES = 0
-        scan_fused.LAUNCHES = 0
+        reset_counts()
         out = run()
         torch.cuda.synchronize()
-        launches = {"scan_dir": scan_dir.LAUNCHES,
-                    "scan_fused": scan_fused.LAUNCHES}
-        if launches != {"scan_dir": 128, "scan_fused": 64}:
+        launches = launch_counts()
+        if launches != {"scan_dir": 128, "scan_fused": 64, "scan_dir_bwd": 0,
+                        "scan_fused_bwd": 0}:
             raise AssertionError(f"scan launches per case {launches}, "
-                                 "expected scan_dir 128, scan_fused 64")
+                                 "expected scan_dir 128, scan_fused 64 and "
+                                 "no backward")
         if out.shape != (1, 4, *CASE_SHAPE) or not torch.isfinite(out).all():
             raise AssertionError(f"case logits: shape {tuple(out.shape)} or "
                                  "non-finite values")
@@ -267,6 +359,446 @@ def phase_case():
     return launches
 
 
+def scan_bound(direction, variant, R, L, D, dtype):
+    """Least time (ms) of one scan call at these shapes, and what bounds
+    it: the larger of the bytes the function must move (each input read
+    once, each output written once) over the HBM rate and its float32
+    operations over the f32 rate (exp counted as one operation). Operations
+    per (step, channel, state): forward 8 (delta A, exp, a x, delta u B and
+    the add, C x and its add); backward 25 (those 8 to recompute x, then
+    g = C dy + g, a g, dp = g x a, dA += dp delta, ddelta += dp A,
+    S += g B, and the dB and dC products and sums). Per (step, channel) 16
+    more (softplus, D-skip, gate and its derivative, sigmoid)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    seq, bc = R * L * D, R * L * N
+    gate, acc = variant != "dir_reverse", variant == "dir_gate_acc"
+    params = (D * N + 2 * D) * 4
+    if direction == "fwd":
+        nbytes = (2 + gate + acc + 1) * seq * es + 2 * bc * es + params
+        ops = seq * (8 * N + 16)
+    else:
+        states = R * -(-L // 128) * N * D * 4
+        nbytes = ((3 + gate + acc) + (2 + gate + acc)) * seq * es \
+            + 4 * bc * es + states + 2 * params
+        ops = seq * (25 * N + 16)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def grad_check(tag, got, want, dtype):
+    """Hold the nine gradients against the plain backward; returns the
+    largest absolute error."""
+    rtol, atol = TOL[dtype]
+    worst = 0.0
+    for name, g, w in zip(GRADS, got, want):
+        if w is None:
+            if g is not None:
+                raise AssertionError(f"{tag} {name}: unexpected gradient")
+            continue
+        a = atol * max(1.0, float(w.abs().max())) if name in REDUCED \
+            else atol
+        worst = max(worst, check_close(f"{tag} {name}", g, w, rtol, a))
+    return worst
+
+
+def plain_bwd_sliced(seq, params, dout, *, gate, reverse, width):
+    """The plain backward over channel slices of ``width``, run in turn.
+    The scan's channels are independent: du, ddt, dz, dacc, dA, dD and
+    dbias are the slices' results side by side, and dB, dC (sums over
+    channels) are the sums of the slices' results."""
+    dim = seq["u"].shape[-1]
+    parts = []
+    for d0 in range(0, dim, width):
+        sl = slice(d0, d0 + width)
+
+        def ch(t):
+            return None if t is None else t[..., sl]
+
+        parts.append(scan_dir.mamba_scan_fused_dir_bwd_ref(
+            ch(seq["u"]), ch(seq["dt"]), ch(seq["z"]), params[0][sl],
+            seq["B"], seq["C"], params[1][sl], params[2][sl], ch(dout),
+            acc=ch(seq["acc"]), gate=gate, reverse=reverse))
+    out = []
+    for name, gs in zip(GRADS, zip(*parts)):
+        if gs[0] is None:
+            out.append(None)
+        elif name in ("dB", "dC"):
+            out.append(torch.stack(gs).sum(0))
+        else:   # the channel axis: last for sequences, first for A, D, bias
+            out.append(torch.cat(gs, dim=0 if name in REDUCED else -1))
+    return tuple(out)
+
+
+def phase_backward(results):
+    """Backward kernels vs the plain backward at the train step's shapes;
+    fills ``results``."""
+    bytes_per_elem = None
+    for shape_name, (R, L, D) in TRAIN_SHAPES.items():
+        width = D
+        if bytes_per_elem is not None:
+            torch.cuda.empty_cache()
+            budget = PLAIN_BWD_SHARE * torch.cuda.mem_get_info()[0]
+            slices = math.ceil(bytes_per_elem * R * L * D * N / budget)
+            width = math.ceil(D / slices)
+        for dtype in (torch.float32, torch.bfloat16):
+            a = scan_inputs(R, L, D, dtype, seed=L + D + 1)
+            g = torch.Generator(device="cuda").manual_seed(L)
+            dout = torch.randn(R, L, D, generator=g, device="cuda").to(dtype)
+            for vname, (wrapper, flags) in VARIANTS.items():
+                gate = flags.get("gate", True)
+                reverse = flags.get("reverse", False)
+                seq = {k: a[k] for k in ("u", "dt", "B", "C")}
+                seq["z"] = a["z"] if gate else None
+                seq["acc"] = a["acc"] if flags.get("acc") else None
+                params = (a["A"], a["D"], a["bias"])
+
+                # kernel side through the wrapper and its autograd Function
+                leaves = {k: (None if v is None else
+                              v.detach().requires_grad_())
+                          for k, v in seq.items()}
+                pleaves = [p.detach().requires_grad_() for p in params]
+                mod = scan_dir if wrapper == "scan_dir" else scan_fused
+                before = mod.BWD_LAUNCHES
+                if wrapper == "scan_dir":
+                    out = scan_dir.mamba_scan_fused_dir(
+                        leaves["u"], leaves["dt"], leaves["z"], pleaves[0],
+                        leaves["B"], leaves["C"], pleaves[1], pleaves[2],
+                        acc=leaves["acc"], gate=gate, reverse=reverse)
+                else:
+                    out = scan_fused.mamba_scan_fused(
+                        leaves["u"], leaves["dt"], leaves["z"], pleaves[0],
+                        leaves["B"], leaves["C"], pleaves[1], pleaves[2])
+                if out.grad_fn is None:
+                    raise AssertionError(f"{vname}: CUDA forward with "
+                                         "requires_grad inputs has no "
+                                         "grad_fn")
+                out.backward(dout)
+                if mod.BWD_LAUNCHES != before + 1:
+                    raise AssertionError(f"{vname}: backward kernel launches "
+                                         f"{mod.BWD_LAUNCHES - before}")
+                order = ("u", "dt", "z", "acc")
+                got = [None if leaves[k] is None else leaves[k].grad
+                       for k in order]
+                got = got + [pleaves[0].grad, leaves["B"].grad,
+                             leaves["C"].grad, pleaves[1].grad,
+                             pleaves[2].grad]
+                del out, leaves, pleaves
+
+                def plain():
+                    return plain_bwd_sliced(seq, params, dout, gate=gate,
+                                            reverse=reverse, width=width)
+
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                want = plain()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                if shape_name == "stage3":
+                    bytes_per_elem = max(bytes_per_elem or 0.0,
+                                         peak / (R * L * D * N))
+                tag = f"bwd {vname} {shape_name} {str(dtype)[6:]}"
+                err = grad_check(tag, got, want, dtype)
+                del got, want
+
+                # the kernel alone at the full length
+                _, states = scan_dir._launch(
+                    seq["u"], seq["dt"], seq["z"], seq["acc"], *params[:1],
+                    seq["B"], seq["C"], *params[1:], reverse=reverse,
+                    gate=gate, chunk_size=scan_dir.DEF_CHUNK,
+                    return_states=True)
+
+                def kern():
+                    return scan_dir._launch_bwd(
+                        seq["u"], seq["dt"], seq["z"], seq["acc"], params[0],
+                        seq["B"], seq["C"], params[1], params[2], dout,
+                        states, reverse=reverse, gate=gate,
+                        chunk_size=scan_dir.DEF_CHUNK)
+
+                ms = cuda_ms(kern, 5 if L * D > 1e6 else 10)
+                plain_ms = cuda_ms(plain, 2)
+                bound, bound_by = scan_bound("bwd", vname, R, L, D, dtype)
+                log(f"kernel {tag}: max_abs_err {err:.3e}, kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms (channel slices "
+                    f"of {width} of {D} in turn, peak {peak / 2 ** 30:.2f} "
+                    f"GiB), bound {bound:.4f} ms ({bound_by})")
+                results.append(dict(wrapper=wrapper, variant=vname,
+                                    shape=shape_name, dtype=str(dtype)[6:],
+                                    max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound,
+                                    bound_by=bound_by))
+                del states
+                torch.cuda.empty_cache()
+            del a, dout
+            torch.cuda.empty_cache()
+        if shape_name == "stage3":
+            log(f"plain backward: {bytes_per_elem:.1f} bytes of peak memory "
+                "per (row, step, channel, state) at stage 3")
+
+
+def param_grads(model, x, labels):
+    model.zero_grad(set_to_none=True)
+    cross_entropy_loss(model(x), labels).backward()
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def phase_grads():
+    """Full-width f32 parameter gradients: kernel path vs plain scans."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 4, *GRAD_SHAPE)).astype(
+        np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 4, (1, *GRAD_SHAPE))).cuda()
+    model = SegMamba(in_chans=4, out_chans=4,
+                     generator=torch.Generator().manual_seed(0),
+                     device="cuda")
+    reset_counts()
+    got = param_grads(model, x, labels)
+    counts = launch_counts()
+    if counts != {"scan_dir": 16, "scan_fused": 8, "scan_dir_bwd": 16,
+                  "scan_fused_bwd": 8}:
+        raise AssertionError(f"full-width backward launches {counts}")
+    with plain_scans():
+        want = param_grads(model, x, labels)
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-3 * top)
+        err = check_close(f"grad {k}", got[k], w, 2e-3, 5e-2 * scale)
+        worst = max(worst, err / scale)
+    rel_l2 = (sum(float((got[k] - w).double().square().sum())
+                  for k, w in want.items())
+              / sum(float(w.double().square().sum())
+                    for w in want.values())) ** 0.5
+    if not rel_l2 <= 1e-3:
+        raise AssertionError(f"full-width gradients: relative L2 {rel_l2}")
+    log(f"full-width f32 gradients: {len(want)} parameters, max |grad| "
+        f"{top:.4e}, relative L2 {rel_l2:.3e}, worst max-abs-err / scale "
+        f"{worst:.3e}")
+    del model, got, want
+    torch.cuda.empty_cache()
+
+
+KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
+    ("scan backward (gated_scan_bwd)",
+     ("bwd_chunk_kernel", "bwd_carry_kernel", "bwd_grad_kernel")),
+    ("scan forward (gated_scan_fwd)",
+     ("chunk_exit_kernel", "chunk_carry_kernel", "chunk_output_kernel")),
+    ("cuDNN convolution (incl. layout transforms)",
+     ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "nchwtonhwc",
+      "nhwctonchw")),
+    ("cuBLAS matmul", ("gemm", "cutlass")),
+    ("optimizer (foreach, clip)", ("multi_tensor", "foreach")),
+    ("reductions (norms, sums, CE)",
+     ("reduce", "norm", "welford", "softmax", "nll")),
+    ("copies and fills", ("copy", "memcpy", "memset", "cat", "fill")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "pointwise")),
+)
+
+
+def profile_step(state, batch, sec):
+    """One train step under torch.profiler: device time by kernel class,
+    the top kernels, and the idle share against ``sec`` (the step's wall
+    time measured without the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
+    classes = {}
+    for e in kernels:
+        key = e.key.lower()
+        name = next((c for c, subs in KERNEL_CLASSES
+                     if any(x in key for x in subs)), "other")
+        classes[name] = classes.get(name, 0.0) + e.self_device_time_total
+    log(f"profiled step: device busy {busy:.2f} ms of {sec * 1e3:.2f} ms "
+        f"wall per step: idle share {1 - busy / (sec * 1e3):.4f}")
+    for name, us in sorted(classes.items(), key=lambda kv: -kv[1]):
+        log(f"  {name:44s} {us / 1e3:9.3f} ms  "
+            f"{100 * us / 1e3 / busy:5.1f}% of busy")
+    log("  top kernels:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4d} "
+            f"{e.key[:90]}")
+    return dict(busy_ms=busy, idle=1 - busy / (sec * 1e3))
+
+
+SPLIT_MODULES = (
+    [f"vit.downsample_layers.{i}" for i in range(4)]
+    + [f"vit.gscs.{i}" for i in range(4)]
+    + [f"vit.stages.{i}.{j}" for i in range(4) for j in range(2)]
+    + [f"vit.mlps.{i}" for i in range(4)]
+    + [f"encoder{i}" for i in range(1, 6)]
+    + [f"decoder{i}" for i in range(5, 0, -1)] + ["out"])
+
+
+def module_split(model, image):
+    """Forward and backward ms of each top-level module, run alone on the
+    inputs it saw (CUDA events; the UNETR blocks with their remat)."""
+    mods = dict(model.named_modules())
+    seen = {}
+    hooks = [mods[n].register_forward_pre_hook(
+        lambda m, args, n=n: seen.setdefault(
+            n, tuple(t.detach() for t in args)))
+        for n in SPLIT_MODULES]
+    with torch.no_grad():
+        model(image)
+    for h in hooks:
+        h.remove()
+    rows = []
+    for n in SPLIT_MODULES:
+        mod, remat = mods[n], n.startswith(("encoder", "decoder"))
+        times = []
+        for _ in range(2):   # the first run warms up
+            args = [t if t.data_ptr() == image.data_ptr()
+                    else t.clone().requires_grad_() for t in seen[n]]
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            out = _call(mod, remat, *args)
+            e[1].record()
+            out.backward(torch.ones_like(out))
+            e[2].record()
+            e[2].synchronize()
+            times = [e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])]
+            del out, args
+        rows.append((n, *times))
+    model.zero_grad(set_to_none=True)
+    return rows
+
+
+def phase_train():
+    """The train step at the recipe shape, counted and timed."""
+    rng = np.random.default_rng(0)
+    batch = {
+        "image": torch.from_numpy(rng.standard_normal(
+            (2, 4, *ROI)).astype(np.float32)).cuda(),
+        "label": torch.from_numpy(rng.integers(0, 4, (2, *ROI))).cuda()}
+    model = SegMamba(in_chans=4, out_chans=4, dtype=torch.bfloat16,
+                     remat="convs", generator=torch.Generator().manual_seed(0),
+                     device="cuda")
+    state = create_train_state(model,
+                               learning_rate=poly_schedule(1e-2, 1000 * 250))
+    train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = {"scan_dir": 16, "scan_fused": 8, "scan_dir_bwd": 16,
+                "scan_fused_bwd": 8}
+    losses, norms, times = [], [], []
+    reset_counts()
+    for i in range(5):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != per_step:
+            raise AssertionError(f"step {i}: scan launches {delta}, "
+                                 f"expected {per_step}")
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train-step losses {losses}: not finite or "
+                             "not falling")
+    sec = statistics.median(times)
+    log(f"train step (2x4x128^3, bf16, remat convs): {sec:.4f} s/step "
+        f"(median of 5: {', '.join(f'{t:.4f}' for t in times)}); peak "
+        f"device memory {peak_gib:.2f} GiB; losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; grad norms "
+        f"{', '.join(f'{v:.4f}' for v in norms)}; launches over 5 steps "
+        f"{launches}")
+    # where the step goes: kernel classes, then each module alone
+    prof_stats = profile_step(state, batch, sec)
+    rows = module_split(model, batch["image"])
+    logits = model(batch["image"]).detach().requires_grad_()
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    e[0].record()
+    loss = cross_entropy_loss(logits, batch["label"])
+    e[1].record()
+    loss.backward()
+    e[2].record()
+    e[2].synchronize()
+    rows.append(("loss (CE)", e[0].elapsed_time(e[1]),
+                 e[1].elapsed_time(e[2])))
+    train_step(state, batch)   # leaves gradients for the optimizer timing
+    torch.cuda.synchronize()
+    e[0].record()
+    apply_gradients(state)
+    e[1].record()
+    e[1].synchronize()
+    rows.append(("optimizer (clip + SGD)", e[0].elapsed_time(e[1]), 0.0))
+    total = sum(f + b for _, f, b in rows)
+    log(f"module split (each alone; sum {total:.2f} ms vs "
+        f"{sec * 1e3:.2f} ms per step):")
+    for n, f, b in sorted(rows, key=lambda r: -(r[1] + r[2])):
+        log(f"  {n:28s} fwd {f:8.3f} ms  bwd {b:8.3f} ms  "
+            f"{100 * (f + b) / total:5.1f}%")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return dict(sec=sec, peak_gib=peak_gib, launches=launches, **prof_stats)
+
+
+def phase_trainer():
+    """The host augmentation chain timed on one core, then
+    ``segmamba_tpu_torch.train`` end to end on synthetic cases and resumed
+    for one more epoch."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        paths = write_synthetic_cases(data, 6, TRAINER_CASE, seed=0)
+        t_data = time.perf_counter() - t0
+        sampler = PatchSampler(MedicalDataset(paths), ROI, batch_size=2,
+                               rng=np.random.default_rng(0))
+        chain = get_train_transforms()
+        aug = []
+        for seed in range(2):
+            batch = sampler.generate_train_batch()
+            t0 = time.perf_counter()
+            chain(batch, np.random.default_rng(seed))
+            aug.append(time.perf_counter() - t0)
+        log(f"host augmentation (default chain, 2 x 4 x {ROI[0]}^3, one "
+            f"process): {', '.join(f'{t:.2f}' for t in aug)} s per batch")
+        logdir = os.path.join(tmp, "logs")
+        common = ["--data-dir", data, "--logdir", logdir, "--batch-size",
+                  "2", "--val-every", "1", "--steps-per-epoch", "4",
+                  "--val-number", "2", "--num-workers", "4", "--split",
+                  "0.5", "0.5", "0.0", "--patch", *map(str, ROI),
+                  "--augmentation", "noaug"]
+        t0 = time.perf_counter()
+        tr = train_main(common + ["--max-epochs", "1"])
+        t_first = time.perf_counter() - t0
+        names = sorted(os.listdir(os.path.join(logdir, "model")))
+        if ([n.rsplit("_", 1)[0] for n in names]
+                != ["best_model", "final_model"] or tr.epoch != 0
+                or tr.global_step != 4 or not np.isfinite(tr.last_loss)):
+            raise AssertionError(f"trainer run: checkpoints {names}, epoch "
+                                 f"{tr.epoch}, step {tr.global_step}, loss "
+                                 f"{tr.last_loss}")
+        # as the JAX trainer, resume continues at the saved epoch (0) and
+        # step (4): epochs 0 and 1 run, to step 12
+        t0 = time.perf_counter()
+        tr = train_main(common + ["--max-epochs", "2", "--resume"])
+        t_resume = time.perf_counter() - t0
+        if (tr.epoch != 1 or tr.global_step != 12
+                or not np.isfinite(tr.last_loss)):
+            raise AssertionError(f"resumed run: epoch {tr.epoch}, step "
+                                 f"{tr.global_step}, loss {tr.last_loss}")
+        log(f"trainer: data {t_data:.1f} s, epoch 0 (4 steps + validation) "
+            f"{t_first:.1f} s, resumed at epoch 0 step 4 for epochs 0-1 "
+            f"{t_resume:.1f} s; "
+            f"checkpoints {sorted(os.listdir(os.path.join(logdir, 'model')))}")
+    torch.cuda.empty_cache()
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -276,17 +808,22 @@ def main():
     card = card_line()
     log(f"card: {card}")
     if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device available")
+        raise SystemExit("chip_smoke: no CUDA device is available")
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{kind}, count {torch.cuda.device_count()}")
-    scan_dir._lib()
-    info = _build.BUILD_INFO["gated_scan_fwd"]
-    log(f"built gated_scan_fwd in {info['seconds']:.1f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line.lower():
-            log(f"  ptxas: {line.strip()}")
-    log(f"phase 1 (device, build): {time.perf_counter() - t0:.1f} s")
+    # one nvcc per source, both started together (threads wait on them)
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(scan_dir._lib), pool.submit(scan_dir._bwd_lib)]:
+            f.result()
+    for name in ("gated_scan_fwd", "gated_scan_bwd"):
+        info = _build.BUILD_INFO[name]
+        log(f"built {name} in {info['seconds']:.1f} s (both sources in "
+            "parallel)")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line.lower():
+                log(f"  ptxas: {line.strip()}")
+    log(f"phase 1 + 1b (device, build): {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     results = []
@@ -298,21 +835,57 @@ def main():
     log(f"phase 3 (full-width forward): {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches = phase_case()
+    case_launches = phase_case()
     log(f"phase 4 (sliding-window case): {time.perf_counter() - t0:.1f} s")
-    log(f"total: {time.perf_counter() - t_all:.1f} s; "
-        f"ms per window {model_stats['ms_per_window']:.2f}")
 
+    t0 = time.perf_counter()
+    bwd_results = []
+    phase_backward(bwd_results)
+    log(f"phase 5 (backward kernels vs plain): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_grads()
+    log(f"phase 6 (full-width gradients): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    train_stats = phase_train()
+    log(f"phase 7 (train step): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_trainer()
+    log(f"phase 8 (trainer end to end): {time.perf_counter() - t0:.1f} s")
+    log(f"total: {time.perf_counter() - t_all:.1f} s; ms per window "
+        f"{model_stats['ms_per_window']:.2f}; s/step "
+        f"{train_stats['sec']:.4f}")
+
+    train_launches = train_stats["launches"]
     kernels = []
-    for wrapper, replaces in REPLACES.items():
-        rows = [r for r in results if r["wrapper"] == wrapper]
-        main_row = next(r for r in rows if r["shape"] == "stage0"
-                        and r["dtype"] == "bfloat16")
-        kernels.append(dict(
-            name=f"gated_scan_fwd[{wrapper}]", route="cuda", source=SOURCE,
-            replaces=replaces, launches=launches[wrapper],
-            max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=main_row["ms"], plain_ms=main_row["plain_ms"]))
+    for direction, table, rows_all in (("fwd", REPLACES, results),
+                                       ("bwd", BWD_REPLACES, bwd_results)):
+        for wrapper, replaces in table.items():
+            rows = [r for r in rows_all if r["wrapper"] == wrapper]
+            main_row = next(r for r in rows if r["shape"] == "stage0"
+                            and r["dtype"] == "bfloat16")
+            if direction == "fwd":
+                bound, bound_by = scan_bound(
+                    "fwd", main_row["variant"], *SHAPES["stage0"],
+                    torch.bfloat16)
+                launches = case_launches[wrapper]
+                by_path = {"inference_case": launches,
+                           "train_5_steps": train_launches[wrapper]}
+            else:
+                bound, bound_by = main_row["bound_ms"], main_row["bound_by"]
+                launches = train_launches[f"{wrapper}_bwd"]
+                by_path = {"train_5_steps": launches}
+            kernels.append(dict(
+                name=f"gated_scan_{direction}[{wrapper}]", route="cuda",
+                source=SOURCES[direction], replaces=replaces,
+                launches=launches, max_abs_err=max(
+                    r["max_abs_err"] for r in rows),
+                ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                bound_ms=bound, bound_by=bound_by, library_ms=None,
+                variant=main_row["variant"], launches_by_path=by_path))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,21 +4,28 @@ The JAX package ``segmamba_tpu`` is the reference; this package mirrors its
 layout and is held against it by ``tests/test_torch_port_*.py``:
 
 - ``ops``      — plain-PyTorch selective scan, causal conv1d, mamba inner op,
-                 and the wrappers of the hand-written Hopper scan kernel
-                 (``csrc/gated_scan_fwd.cu``, built lazily by ``ops/_build.py``
-                 on first launch, never on import).
+                 and the wrappers of the hand-written Hopper scan kernels
+                 (``csrc/gated_scan_fwd.cu``, ``csrc/gated_scan_bwd.cu``,
+                 built lazily by ``ops/_build.py`` on first launch, never on
+                 import), differentiable through ``torch.autograd``.
 - ``models``   — ``nn.Module``s: tri-oriented Mamba, GSC, encoder, UNETR
-                 blocks and the full SegMamba, with the reference torch
-                 ``state_dict`` names.
+                 blocks and the full SegMamba (with remat), with the
+                 reference torch ``state_dict`` names.
 - ``infer``    — sliding-window inference with gaussian blending and
                  window-level mirror TTA.
-- ``utils``    — flax param tree <-> ``state_dict`` bridge.
+- ``train``    — losses, LR schedules, the train state and step (the optax
+                 SGD chain), checkpoints, the Trainer;
+                 ``python -m segmamba_tpu_torch.train``.
+- ``data``     — copies of the JAX package's dataset, patch sampler,
+                 augmentation and loader (numpy + scipy).
+- ``utils``    — flax param tree <-> ``state_dict`` bridge, metric logging,
+                 determinism, step timing.
 - ``inference`` — ``python -m segmamba_tpu_torch.inference``: model forward
                  or the bench case's sliding-window inference on one card.
 
 Layouts: ``ops`` keep the JAX package's time-major ``(R, L, D)`` sequences
-and ``(R, L, N)`` B/C; ``models`` and ``infer`` use torch's NCDHW volumes.
-The package imports torch, numpy and scipy only.
+and ``(R, L, N)`` B/C; ``models``, ``infer``, ``train`` and ``data`` use
+torch's NCDHW volumes. The package imports torch, numpy and scipy only.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,13 @@
 """SegMamba: tri-oriented Mamba encoder + UNETR-style CNN decoder, NCDHW.
 
 Port of ``segmamba_tpu/models/segmamba.py`` (``MambaLayer``, ``MlpChannel``,
-``GSC``, ``MambaEncoder``, ``SegMamba``) without the mesh and remat
-arguments. Module names are the reference model's, so a reference
+``GSC``, ``MambaEncoder``, ``SegMamba``) without the mesh arguments.
+``remat`` is the JAX ``remat`` policy (:140-159, :199-213) through
+``torch.utils.checkpoint`` (non-reentrant): ``True`` recomputes every Mamba
+layer and UNETR block in the backward, ``"convs"`` only the UNETR blocks
+(``UnetrBasicBlock``/``UnetrUpBlock``). ``"convs"`` keeps the Mamba layers'
+activations: their scans already save only chunk exit states, and
+recomputing them would re-run the forward scan kernels in the backward. Module names are the reference model's, so a reference
 ``state_dict`` (``vit.downsample_layers.0.0.weight``, ``vit.stages.0.0.mamba.
 in_proj.weight``, ``decoder5.transp_conv.conv.weight``, ...) loads with
 ``load_state_dict(strict=True)``.
@@ -18,6 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from segmamba_tpu_torch.models.layers import (
     Conv3d,
@@ -30,6 +36,17 @@ from segmamba_tpu_torch.models.unetr_blocks import (
     UnetrBasicBlock,
     UnetrUpBlock,
 )
+
+
+REMAT = (False, "convs", True)
+
+
+def _call(module, remat, *args):
+    """``module(*args)``, recomputed in the backward when ``remat`` and a
+    gradient is being recorded."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
 
 
 class MambaLayer(nn.Module):
@@ -95,9 +112,10 @@ class MambaEncoder(nn.Module):
 
     def __init__(self, in_chans=1, depths=(2, 2, 2, 2),
                  dims=(48, 96, 192, 384), num_slices_list=(64, 32, 16, 8), *,
-                 dtype=torch.float32, generator):
+                 remat=False, dtype=torch.float32, generator):
         super().__init__()
         g = generator
+        self.remat_layers = remat is True
         self.downsample_layers = nn.ModuleList(
             [nn.Sequential(Conv3d(in_chans, dims[0], 7, 2, 3, dtype=dtype,
                                   generator=g))]
@@ -119,7 +137,9 @@ class MambaEncoder(nn.Module):
     def forward(self, x):
         outs = []
         for i in range(4):
-            x = self.stages[i](self.gscs[i](self.downsample_layers[i](x)))
+            x = self.gscs[i](self.downsample_layers[i](x))
+            for layer in self.stages[i]:
+                x = _call(layer, self.remat_layers, x)
             outs.append(self.mlps[i](instance_norm(x)))
         return tuple(outs)
 
@@ -132,13 +152,17 @@ class SegMamba(nn.Module):
     def __init__(self, in_chans=4, out_chans=4, depths=(2, 2, 2, 2),
                  feat_size: Sequence[int] = (48, 96, 192, 384),
                  hidden_size=768, num_slices_list=(64, 32, 16, 8), *,
-                 dtype=torch.float32, generator=None, device=None):
+                 remat=False, dtype=torch.float32, generator=None,
+                 device=None):
         super().__init__()
+        if remat not in REMAT:
+            raise ValueError(f"remat={remat!r}; one of {REMAT}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         f, kw = feat_size, dict(dtype=dtype, generator=generator)
-        self.dtype = dtype
-        self.vit = MambaEncoder(in_chans, depths, f, num_slices_list, **kw)
+        self.dtype, self.remat = dtype, remat
+        self.vit = MambaEncoder(in_chans, depths, f, num_slices_list,
+                                remat=remat, **kw)
         self.encoder1 = UnetrBasicBlock(in_chans, f[0], **kw)
         self.encoder2 = UnetrBasicBlock(f[0], f[1], **kw)
         self.encoder3 = UnetrBasicBlock(f[1], f[2], **kw)
@@ -155,13 +179,14 @@ class SegMamba(nn.Module):
 
     def forward(self, x_in):
         outs = self.vit(x_in)
-        enc1 = self.encoder1(x_in)
-        enc2 = self.encoder2(outs[0])
-        enc3 = self.encoder3(outs[1])
-        enc4 = self.encoder4(outs[2])
-        enc_hidden = self.encoder5(outs[3])
-        dec3 = self.decoder5(enc_hidden, enc4)
-        dec2 = self.decoder4(dec3, enc3)
-        dec1 = self.decoder3(dec2, enc2)
-        dec0 = self.decoder2(dec1, enc1)
-        return self.out(self.decoder1(dec0)).float()
+        r = bool(self.remat)
+        enc1 = _call(self.encoder1, r, x_in)
+        enc2 = _call(self.encoder2, r, outs[0])
+        enc3 = _call(self.encoder3, r, outs[1])
+        enc4 = _call(self.encoder4, r, outs[2])
+        enc_hidden = _call(self.encoder5, r, outs[3])
+        dec3 = _call(self.decoder5, r, enc_hidden, enc4)
+        dec2 = _call(self.decoder4, r, dec3, enc3)
+        dec1 = _call(self.decoder3, r, dec2, enc2)
+        dec0 = _call(self.decoder2, r, dec1, enc1)
+        return self.out(_call(self.decoder1, r, dec0)).float()

@@ -1,25 +1,38 @@
-"""Direction-aware fused gated selective scan, forward ("dir" variant).
+"""Direction-aware fused gated selective scan ("dir" variant), forward and
+backward.
 
 Port of ``segmamba_tpu/ops/scan_pallas_dir.py`` ``mamba_scan_fused_dir``
-(:382-444), whose Pallas kernel ``_dir_fwd_kernel`` (:60) runs here as the
-hand-written Hopper kernel ``csrc/gated_scan_fwd.cu`` with the flags
-``REVERSE``, ``GATE`` and ``HAS_ACC``. ``reverse=True`` scans right to left
-in place: inputs and output stay in their original order.
+(:382-444) and its custom VJP (``_make_dir_core`` :350-379). The Pallas
+kernels ``_dir_fwd_kernel`` (:60) and ``_dir_bwd_kernel`` (:119) run here as
+the hand-written Hopper kernels ``csrc/gated_scan_fwd.cu`` and
+``csrc/gated_scan_bwd.cu``, each with the flags ``REVERSE``, ``GATE`` and
+``HAS_ACC``. ``reverse=True`` scans right to left in place: inputs and
+output stay in their original order.
 
-- ``mamba_scan_fused_dir`` takes CPU tensors to the plain version and CUDA
-  tensors to the kernel; any other device raises. There is no fallback.
-- ``mamba_scan_fused_dir_ref`` is the plain PyTorch version: the chunked
+- ``mamba_scan_fused_dir`` takes CPU tensors to the plain versions and CUDA
+  tensors to the kernels; any other device raises. There is no fallback.
+  When grad is enabled and an input requires it, the call goes through
+  ``_GatedScan`` (a ``torch.autograd.Function``): its forward asks the
+  kernel for the chunk exit states and saves them, its backward launches
+  the backward kernel (CUDA) or the plain backward (CPU). Otherwise (no
+  grad, ``inference_mode``) nothing is saved and no states are asked for.
+- ``mamba_scan_fused_dir_ref`` is the plain PyTorch forward: the chunked
   doubling scan of ``selective_scan.py``, the reverse orientation as
   flip -> scan -> flip, then D-skip, ``acc`` and the ``silu(z)`` gate.
-- ``LAUNCHES`` counts this wrapper's kernel launches.
+- ``mamba_scan_fused_dir_bwd_ref`` is the plain backward: ``autograd.grad``
+  through the plain forward in float32.
+- ``LAUNCHES`` / ``BWD_LAUNCHES`` count this entry point's forward and
+  backward kernel launches.
 
-The launcher ``_launch`` is shared with ``scan_fused.py`` (K2 is the same
-template with REVERSE=0, GATE=1, HAS_ACC=0).
+The launchers ``_launch`` / ``_launch_bwd`` and ``_GatedScan`` are shared
+with ``scan_fused.py`` (K2/K4 are the same templates with REVERSE=0,
+GATE=1, HAS_ACC=0); each call counts on the module of its entry point.
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -32,8 +45,10 @@ from segmamba_tpu_torch.ops.selective_scan import (
 )
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 DEF_CHUNK = 128
 _LIB_NAME = "gated_scan_fwd"
+_BWD_LIB_NAME = "gated_scan_bwd"
 _KERNEL_N = 16
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -79,6 +94,29 @@ def mamba_scan_fused_dir_ref(u, dt, z, A, B, C, D, dt_bias, *, acc=None,
     return (y, states) if return_states else y
 
 
+def mamba_scan_fused_dir_bwd_ref(u, dt, z, A, B, C, D, dt_bias, dout, *,
+                                 acc=None, gate=True, reverse=False,
+                                 chunk_size=DEF_CHUNK):
+    """Plain PyTorch backward of ``mamba_scan_fused_dir``: ``autograd.grad``
+    of the plain forward, run in float32 on float32 copies of the inputs.
+
+    Returns (du, ddt, dz, dacc, dA, dB, dC, dD, dbias), float32, each in its
+    input's shape (a shared parameter's gradient summed over rows); dz is
+    None without the gate and dacc None without acc.
+    """
+    inputs = (u, dt, z if gate else None, acc, A, B, C, D, dt_bias)
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().float().requires_grad_()
+                  for t in inputs]
+        lu, ldt, lz, lacc, lA, lB, lC, lD, lbias = leaves
+        out = mamba_scan_fused_dir_ref(lu, ldt, lz, lA, lB, lC, lD, lbias,
+                                       acc=lacc, gate=gate, reverse=reverse,
+                                       chunk_size=chunk_size)
+        grads = iter(torch.autograd.grad(
+            out, [t for t in leaves if t is not None], dout.float()))
+    return tuple(None if t is None else next(grads) for t in leaves)
+
+
 def _block_threads(dim):
     """Threads per block (one channel each): the largest of 128/96/64/32
     that divides ``dim``, else a masked block of up to 128."""
@@ -111,9 +149,7 @@ def _param(t, name, R, shape, device):
 def _launch(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
             chunk_size, return_states):
     """Launch ``gated_scan_fwd`` on the current stream of u's card."""
-    if u.device.type != "cuda":
-        raise ValueError(f"the scan kernel runs on CUDA tensors; got "
-                         f"{u.device}")
+    _check_cuda(u)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         return _run_kernel(_lib(), stream, u, dt, z, acc, A, B, C, D,
@@ -122,10 +158,26 @@ def _launch(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
                            return_states=return_states)
 
 
-def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
-                gate, chunk_size, return_states):
-    """Validate the operands, allocate the output and scratch on u's device
-    and call the library's ``gated_scan_fwd`` on ``stream``."""
+def _launch_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, states, *,
+                reverse, gate, chunk_size):
+    """Launch ``gated_scan_bwd`` on the current stream of u's card."""
+    _check_cuda(u)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        return _run_bwd_kernel(_bwd_lib(), stream, u, dt, z, acc, A, B, C, D,
+                               dt_bias, dout, states, reverse=reverse,
+                               gate=gate, chunk_size=chunk_size)
+
+
+def _check_cuda(u):
+    if u.device.type != "cuda":
+        raise ValueError(f"the scan kernel runs on CUDA tensors; got "
+                         f"{u.device}")
+
+
+def _operands(u, dt, z, acc, A, B, C, D, dt_bias, *, gate, chunk_size):
+    """Validate the kernels' operands. Returns (R, L, dim, N, T, A, D,
+    dt_bias as float32 contiguous parameters, the 15 strides)."""
     if gate and z is None:
         raise ValueError("gate=True requires z")
     if u.dim() != 3:
@@ -159,8 +211,19 @@ def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
     Df, sD = _param(D, "D", R, (dim,), u.device)
     bf, sb = _param(dt_bias, "dt_bias", R, (dim,), u.device)
     strides += [sA, sD, sb]
+    return R, L, dim, N, min(chunk_size, L), Af, Df, bf, strides
 
-    T = min(chunk_size, L)
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
+                gate, chunk_size, return_states):
+    """Validate the operands, allocate the output and scratch on u's device
+    and call the library's ``gated_scan_fwd`` on ``stream``."""
+    R, L, dim, N, T, Af, Df, bf, strides = _operands(
+        u, dt, z, acc, A, B, C, D, dt_bias, gate=gate, chunk_size=chunk_size)
     nc = -(-L // T)
     out = torch.empty((R, L, dim), dtype=u.dtype, device=u.device)
     states = (torch.empty((R, nc, N, dim), dtype=torch.float32,
@@ -172,17 +235,81 @@ def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
         sdelta = torch.empty((R, nc, dim), dtype=torch.float32,
                              device=u.device)
 
-    ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.gated_scan_fwd(
-        ptr(u), ptr(dt), ptr(z) if gate else None, ptr(acc), ptr(B), ptr(C),
-        ptr(Af), ptr(Df), ptr(bf), ptr(out), ptr(states), ptr(hbuf),
-        ptr(sdelta), int(u.dtype == torch.bfloat16), int(reverse), int(gate),
-        int(acc is not None), R, L, dim, N, T, _block_threads(dim),
-        (ctypes.c_longlong * 15)(*strides), stream)
+        _ptr(u), _ptr(dt), _ptr(z) if gate else None, _ptr(acc), _ptr(B),
+        _ptr(C), _ptr(Af), _ptr(Df), _ptr(bf), _ptr(out), _ptr(states),
+        _ptr(hbuf), _ptr(sdelta), int(u.dtype == torch.bfloat16),
+        int(reverse), int(gate), int(acc is not None), R, L, dim, N, T,
+        _block_threads(dim), (ctypes.c_longlong * 15)(*strides), stream)
     if err != 0:
         msg = lib.gated_scan_error_string(err).decode()
         raise RuntimeError(f"gated_scan_fwd launch failed: {msg} ({err})")
     return (out, states) if return_states else out
+
+
+def _run_bwd_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, dout,
+                    states, *, reverse, gate, chunk_size):
+    """Validate the operands, allocate every gradient, partial and scratch
+    buffer on u's device, call the library's ``gated_scan_bwd`` on
+    ``stream`` and reduce the partials. Returns (du, ddt, dz, dacc, dA, dB,
+    dC, dD, dbias) in the shapes and dtypes of (u, dt, z, acc, A, B, C, D,
+    dt_bias); dz / dacc are None without z / acc."""
+    R, L, dim, N, T, Af, Df, bf, strides = _operands(
+        u, dt, z, acc, A, B, C, D, dt_bias, gate=gate, chunk_size=chunk_size)
+    nc = -(-L // T)
+    if tuple(states.shape) != (R, nc, N, dim) or (
+            states.dtype != torch.float32 or not states.is_contiguous()):
+        raise ValueError(f"states: {tuple(states.shape)} {states.dtype}, "
+                         f"expected contiguous float32 {(R, nc, N, dim)}")
+    dout = dout.to(u.dtype).contiguous()
+    if tuple(dout.shape) != (R, L, dim) or dout.device != u.device:
+        raise ValueError(f"dout: {tuple(dout.shape)} on {dout.device}, "
+                         f"expected {(R, L, dim)} on {u.device}")
+    threads = _block_threads(dim)
+    nbd = -(-dim // threads)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    seq = dict(dtype=u.dtype, device=u.device)
+    du = torch.empty((R, L, dim), **seq)
+    ddt = torch.empty((R, L, dim), **seq)
+    dz = torch.empty((R, L, dim), **seq) if gate else None
+    dacc_k = (torch.empty((R, L, dim), **seq)
+              if gate and acc is not None else None)
+    dA_p = torch.empty((R, nc, N, dim), **f32)
+    dD_p = torch.empty((R, nc, dim), **f32)
+    dbias_p = torch.empty((R, nc, dim), **f32)
+    dB_p = torch.empty((nbd, R, L, N), **f32)
+    dC_p = torch.empty((nbd, R, L, N), **f32)
+    gbuf = torch.empty((R, nc, N, dim), **f32) if nc > 1 else None
+    sdelta = torch.empty((R, nc, dim), **f32) if nc > 1 else None
+    ckpt = torch.empty((R, nc, -(-T // lib.gated_scan_bwd_sub_len()), N,
+                        dim), **f32)
+
+    err = lib.gated_scan_bwd(
+        _ptr(u), _ptr(dt), _ptr(z) if gate else None, _ptr(acc), _ptr(B),
+        _ptr(C), _ptr(dout), _ptr(Af), _ptr(Df), _ptr(bf), _ptr(states),
+        _ptr(du), _ptr(ddt), _ptr(dz), _ptr(dacc_k), _ptr(dA_p), _ptr(dD_p),
+        _ptr(dbias_p), _ptr(dB_p), _ptr(dC_p), _ptr(gbuf), _ptr(sdelta),
+        _ptr(ckpt), int(u.dtype == torch.bfloat16), int(reverse), int(gate),
+        int(acc is not None), R, L, dim, N, T, threads,
+        (ctypes.c_longlong * 15)(*strides), stream)
+    if err != 0:
+        msg = lib.gated_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"gated_scan_bwd launch failed: {msg} ({err})")
+
+    def reduce_param(partial, like):
+        """Per-chunk partials (R, nc, ...) -> the parameter's shape: summed
+        over chunks, and over rows when the parameter is shared."""
+        g = partial.sum(1)
+        if like.dim() == partial.dim() - 2:   # shared (row stride 0)
+            g = g.sum(0)
+        return g.to(like.dtype)
+
+    dA = reduce_param(dA_p.transpose(-1, -2), A)
+    dacc = dacc_k if dacc_k is not None else (
+        dout.to(acc.dtype) if acc is not None else None)
+    return (du, ddt, dz, dacc, dA, dB_p.sum(0).to(B.dtype),
+            dC_p.sum(0).to(C.dtype), reduce_param(dD_p, D),
+            reduce_param(dbias_p, dt_bias))
 
 
 _LIB = None
@@ -205,6 +332,102 @@ def _lib():
     return _LIB
 
 
+_BWD_LIB = None
+
+
+def _bwd_lib():
+    """The backward kernel library with its C signatures declared (built on
+    first use)."""
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = _build.load_library(_BWD_LIB_NAME)
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.gated_scan_bwd.argtypes = (
+            [vp] * 23 + [i] * 4 + [ll] * 3 + [i] * 3
+            + [ctypes.POINTER(ll), vp])
+        lib.gated_scan_bwd.restype = i
+        lib.gated_scan_bwd_sub_len.argtypes = []
+        lib.gated_scan_bwd_sub_len.restype = i
+        lib.gated_scan_bwd_error_string.argtypes = [i]
+        lib.gated_scan_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+class _GatedScan(torch.autograd.Function):
+    """The gated scan with its backward (the custom VJP of the JAX
+    package's ``_make_dir_core`` / ``_make_core``).
+
+    ``owner`` is the module of the entry point (``scan_dir`` or
+    ``scan_fused``), whose ``LAUNCHES`` / ``BWD_LAUNCHES`` count the kernel
+    launches. CUDA tensors run the kernels, CPU tensors the plain versions;
+    the wiring (which inputs get gradients, shared-parameter sums, dtype
+    casts, the ``acc`` link) is the same for both.
+    """
+
+    @staticmethod
+    def forward(ctx, owner, reverse, gate, chunk_size, u, dt, z, acc, A, B,
+                C, D, dt_bias):
+        if u.device.type == "cpu":
+            out, states = mamba_scan_fused_dir_ref(
+                u, dt, z, A, B, C, D, dt_bias, acc=acc, gate=gate,
+                reverse=reverse, chunk_size=chunk_size, return_states=True)
+        else:
+            out, states = _launch(u, dt, z, acc, A, B, C, D, dt_bias,
+                                  reverse=reverse, gate=gate,
+                                  chunk_size=chunk_size, return_states=True)
+            owner.LAUNCHES += 1
+        ctx.owner, ctx.flags = owner, (reverse, gate, chunk_size)
+        ctx.save_for_backward(u, dt, z, acc, A, B, C, D, dt_bias, states)
+        ctx.mark_non_differentiable(states)
+        return out, states
+
+    @staticmethod
+    def backward(ctx, dout, _dstates):
+        reverse, gate, chunk_size = ctx.flags
+        u, dt, z, acc, A, B, C, D, dt_bias, states = ctx.saved_tensors
+        if u.device.type == "cpu":
+            grads = mamba_scan_fused_dir_bwd_ref(
+                u, dt, z, A, B, C, D, dt_bias, dout, acc=acc, gate=gate,
+                reverse=reverse, chunk_size=chunk_size)
+        else:
+            grads = _launch_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout,
+                                states, reverse=reverse, gate=gate,
+                                chunk_size=chunk_size)
+            ctx.owner.BWD_LAUNCHES += 1
+        inputs = (u, dt, z, acc, A, B, C, D, dt_bias)
+        return (None, None, None, None) + tuple(
+            None if g is None or not need else g.to(t.dtype)
+            for g, t, need in zip(grads, inputs, ctx.needs_input_grad[4:]))
+
+
+def _scan(owner, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
+          chunk_size, return_states):
+    """Route one scan call: through ``_GatedScan`` when a gradient is to be
+    recorded, else straight to the kernel (CUDA) or the plain forward
+    (CPU)."""
+    if gate and z is None:
+        raise ValueError("gate=True requires z")
+    if not gate:
+        z = None
+    inputs = (u, dt, z, acc, A, B, C, D, dt_bias)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        out, states = _GatedScan.apply(owner, reverse, gate, chunk_size,
+                                       *inputs)
+        return (out, states) if return_states else out
+    if u.device.type == "cpu":
+        return mamba_scan_fused_dir_ref(
+            u, dt, z, A, B, C, D, dt_bias, acc=acc, gate=gate,
+            reverse=reverse, chunk_size=chunk_size,
+            return_states=return_states)
+    result = _launch(u, dt, z, acc, A, B, C, D, dt_bias, reverse=reverse,
+                     gate=gate, chunk_size=chunk_size,
+                     return_states=return_states)
+    owner.LAUNCHES += 1
+    return result
+
+
 def mamba_scan_fused_dir(u, dt, z, A, B, C, D, dt_bias, *, acc=None,
                          gate=True, reverse=False, chunk_size=DEF_CHUNK,
                          return_states=False):
@@ -218,16 +441,9 @@ def mamba_scan_fused_dir(u, dt, z, A, B, C, D, dt_bias, *, acc=None,
     ``silu(z)``. Returns (R, L, dim) in u.dtype, and with ``return_states``
     the float32 chunk exit states (R, nc, N, dim) in scan order.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain versions; CUDA tensors launch the kernels.
+    Differentiable in every tensor argument.
     """
-    if u.device.type == "cpu":
-        return mamba_scan_fused_dir_ref(
-            u, dt, z, A, B, C, D, dt_bias, acc=acc, gate=gate,
-            reverse=reverse, chunk_size=chunk_size,
-            return_states=return_states)
-    global LAUNCHES
-    result = _launch(u, dt, z, acc, A, B, C, D, dt_bias, reverse=reverse,
-                     gate=gate, chunk_size=chunk_size,
-                     return_states=return_states)
-    LAUNCHES += 1
-    return result
+    return _scan(sys.modules[__name__], u, dt, z, acc, A, B, C, D, dt_bias,
+                 reverse=reverse, gate=gate, chunk_size=chunk_size,
+                 return_states=return_states)

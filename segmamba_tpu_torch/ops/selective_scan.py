@@ -26,8 +26,11 @@ import torch
 
 def softplus(x):
     """``log(1 + exp(x))`` as ``logaddexp(x, 0)`` — JAX's ``jax.nn.softplus``
-    form, finite for large ``x`` (no threshold switch)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    form, finite for large ``x`` (no threshold switch). ``max(x, 0)`` is
+    ``torch.maximum``, which splits a tie's gradient, so that autograd gives
+    sigmoid(0) = 0.5 at x = 0 exactly, as JAX does (``clamp_min`` gives 1)."""
+    return (torch.maximum(x, torch.zeros_like(x))
+            + torch.log1p(torch.exp(-x.abs())))
 
 
 def _preprocess_delta(delta, delta_bias, delta_softplus):

@@ -1,0 +1,152 @@
+"""BraTS training on one card: SegMamba, SGD poly, CE over 4 classes.
+
+Port of ``3_train.py`` (with its ``BraTSTrainer``): patch 128^3, batch 2,
+250 steps per epoch, validation every 2 epochs on 100 patches with the
+TC/WT/ET dice, keep-best checkpoints; the full-width BraTS model with
+``remat="convs"``, bfloat16 compute and float32 parameters by default.
+
+    python -m segmamba_tpu_torch.train --data-dir ./data/fullres/train \\
+        --logdir ./logs/segmamba [--max-epochs 1000] [--device cuda]
+
+``--device`` defaults to ``cuda`` and never falls back to the CPU;
+``--device cpu`` runs on the CPU (small configurations only).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from segmamba_tpu_torch.data import get_train_val_test_loader_from_train
+from segmamba_tpu_torch.models import SegMamba
+from segmamba_tpu_torch.train.trainer import Trainer
+
+NOT_PORTED = {
+    "--data-parallel": "data parallelism is not ported yet (ROADMAP A9)",
+    "--seq-parallel": "sequence parallelism is not ported yet (ROADMAP A9)",
+    "--plan": "dataset plans (data/planning.py) are not ported yet "
+              "(ROADMAP A8)",
+}
+
+
+def brats_groups(labels):
+    """TC, WT, ET masks of a label map (1 necrosis, 2 edema, 3 enhancing)."""
+    return [(labels == 1) | (labels == 3),
+            (labels == 1) | (labels == 3) | (labels == 2),
+            labels == 3]
+
+
+class BraTSTrainer(Trainer):
+    """Dice on the BraTS TC/WT/ET composites (3_train.py's BraTSTrainer)."""
+
+    def validation_step(self, state, batch):
+        image, label = self.get_input(batch)
+        pred = self.predict(image).cpu().numpy()
+        label = label.cpu().numpy()
+        dices = []
+        for p, g in zip(brats_groups(pred), brats_groups(label)):
+            if p.sum() > 0 and g.sum() > 0:
+                dices.append(float(2.0 * (p & g).sum() / (p.sum() + g.sum())))
+            elif p.sum() == 0 and g.sum() == 0:
+                dices.append(1.0)
+            else:
+                dices.append(0.0)
+        return dices
+
+    def validation_end(self, state, val_outputs):
+        tc, wt, et = np.asarray(val_outputs).mean(axis=0)
+        mean_dice = float((tc + wt + et) / 3)
+        print(f"dices: tc={tc:.4f} wt={wt:.4f} et={et:.4f} "
+              f"mean={mean_dice:.4f}")
+        for k, v in [("tc", tc), ("wt", wt), ("et", et),
+                     ("mean_dice", mean_dice)]:
+            self.logger.log(k, v, self.epoch)
+        self.save_checkpoints(state, mean_dice)
+        return mean_dice
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--data-dir", default="./data/fullres/train")
+    ap.add_argument("--logdir", default="./logs/segmamba")
+    ap.add_argument("--max-epochs", type=int, default=1000)
+    ap.add_argument("--batch-size", type=int, default=2)
+    ap.add_argument("--val-every", type=int, default=2)
+    ap.add_argument("--steps-per-epoch", type=int, default=250)
+    ap.add_argument("--val-number", type=int, default=100)
+    ap.add_argument("--patch", type=int, nargs=3, default=[128, 128, 128])
+    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--loss", default="ce", choices=["ce", "dice_ce"])
+    ap.add_argument("--augmentation", default="default",
+                    choices=["default", "device", "nomirror", "onlymirror",
+                             "onlyspatial", "noaug"])
+    ap.add_argument("--num-workers", type=int, default=8)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=42)
+    # model-size overrides (small runs); defaults = the BraTS recipe
+    ap.add_argument("--feats", type=int, nargs=4, default=[48, 96, 192, 384])
+    ap.add_argument("--depths", type=int, nargs=4, default=[2, 2, 2, 2])
+    ap.add_argument("--hidden-size", type=int, default=768)
+    ap.add_argument("--num-slices", type=int, nargs=4,
+                    default=[64, 32, 16, 8])
+    ap.add_argument("--split", type=float, nargs=3, default=[0.7, 0.1, 0.2],
+                    help="train/val/test fractions (seed-42 shuffle)")
+    ap.add_argument("--print-config", action="store_true",
+                    help="print the resolved run config and exit")
+    ap.add_argument("--device", default="cuda")
+    # flags of 3_train.py whose machinery is not ported: they raise
+    ap.add_argument("--data-parallel", action="store_true")
+    ap.add_argument("--seq-parallel", type=int, default=1, metavar="N")
+    ap.add_argument("--plan", default=None, metavar="PLAN_JSON")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    asked = {"--data-parallel": args.data_parallel,
+             "--seq-parallel": args.seq_parallel != 1,
+             "--plan": args.plan is not None}
+    for flag, on in asked.items():
+        if on:
+            raise SystemExit(f"{flag}: {NOT_PORTED[flag]}")
+    if args.print_config:
+        print(json.dumps({"patch": list(args.patch),
+                          "num_slices": list(args.num_slices),
+                          "lr": args.lr, "loss": args.loss,
+                          "dtype": args.dtype, "device": args.device}))
+        return None
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = SegMamba(in_chans=4, out_chans=4, depths=tuple(args.depths),
+                     feat_size=tuple(args.feats),
+                     hidden_size=args.hidden_size,
+                     num_slices_list=tuple(args.num_slices), dtype=dtype,
+                     remat="convs",
+                     generator=torch.Generator().manual_seed(args.seed))
+    trainer = BraTSTrainer(
+        model, args.logdir, max_epochs=args.max_epochs,
+        batch_size=args.batch_size, val_every=args.val_every,
+        num_step_per_epoch=args.steps_per_epoch, val_number=args.val_number,
+        patch_size=tuple(args.patch),
+        augmentation=(True if args.augmentation == "default"
+                      else args.augmentation),
+        learning_rate=args.lr, scheduler_type="poly", loss=args.loss,
+        num_classes=4, num_workers=args.num_workers, seed=args.seed,
+        resume=args.resume, device=device)
+    train_ds, val_ds, _ = get_train_val_test_loader_from_train(
+        args.data_dir, train_rate=args.split[0], val_rate=args.split[1],
+        test_rate=args.split[2])
+    trainer.train(train_ds, val_ds)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,66 @@
+"""Checkpoints: the full train state with keep-best metric-named files.
+
+Port of ``segmamba_tpu/train/checkpoint.py`` with ``torch.save`` in place of
+orbax. A checkpoint holds the model's ``state_dict``, the optimizer's
+(momentum), the update count, the epoch and the metric, so a run can
+resume. Names keep the reference layout: ``<symbol>_<metric:.4f>.pt``
+(``best_model_0.8123.pt``, ``final_model_...``) with exactly one file per
+symbol (``save_new_and_delete_last``), plus ``tmp_model_ep{e}_{m:.4f}.pt``
+every 100 epochs. Reading a JAX orbax checkpoint is not supported.
+"""
+
+from __future__ import annotations
+
+import glob
+import math
+import os
+
+import torch
+
+
+def save_checkpoint(state, path, epoch=0, metric=None):
+    """Write the full state to ``path`` (through a temporary file, so a
+    crash never leaves half a checkpoint under the final name)."""
+    path = os.path.abspath(path)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "epoch": int(epoch),
+        "metric": float(metric) if metric is not None else math.nan,
+    }, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_checkpoint(state, path):
+    """Load a checkpoint written by ``save_checkpoint`` into ``state``;
+    returns (state, epoch)."""
+    device = next(state.model.parameters()).device
+    ck = torch.load(path, map_location=device, weights_only=True)
+    state.model.load_state_dict(ck["model"])
+    state.optimizer.load_state_dict(ck["optimizer"])
+    state.step = int(ck["step"])
+    return state, int(ck["epoch"])
+
+
+def save_new_and_delete_last(state, model_dir, symbol, metric, epoch):
+    """Keep exactly one ``<symbol>_<metric:.4f>.pt`` per symbol."""
+    os.makedirs(model_dir, exist_ok=True)
+    new_path = os.path.join(model_dir, f"{symbol}_{metric:.4f}.pt")
+    old = [p for p in glob.glob(os.path.join(model_dir, f"{symbol}_*.pt"))
+           if os.path.abspath(p) != os.path.abspath(new_path)]
+    save_checkpoint(state, new_path, epoch=epoch, metric=metric)
+    for p in old:
+        os.remove(p)
+    return new_path
+
+
+def find_checkpoint(model_dir, symbol="best_model"):
+    """The (single) checkpoint of a symbol; else any checkpoint; else
+    None."""
+    cands = sorted(glob.glob(os.path.join(model_dir, f"{symbol}_*.pt")))
+    if not cands:
+        cands = sorted(glob.glob(os.path.join(model_dir, "*_*.pt")))
+    return cands[-1] if cands else None

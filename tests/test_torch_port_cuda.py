@@ -1,4 +1,4 @@
-"""The Hopper scan kernel against its plain PyTorch version, on the card.
+"""The Hopper scan kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; the
 ``cuda`` fixture skips it where ``torch.cuda.is_available()`` is false (it
@@ -9,7 +9,10 @@ imports no JAX, so it also runs on a machine without it:
 
 Tolerances: float32 I/O rtol 6e-4 / atol 2e-3, bfloat16 I/O compared in
 float32 at rtol 3e-2 / atol 5e-2 (the port's f32 and bf16 tiers); chunk
-exit states are float32 either way and use the f32 tier.
+exit states are float32 either way and use the f32 tier. Gradients use the
+same tiers with the absolute part scaled by max(1, max|plain|) of each
+gradient: dA, dD, dbias, dB and dC are sums over steps or channels that
+the kernel and the plain backward take in different orders.
 """
 
 import itertools
@@ -126,6 +129,150 @@ def test_kernel_rejects_unsupported_operands(cuda):
     with pytest.raises(ValueError, match="dtype|bfloat16|float"):
         scan_fused.mamba_scan_fused(u, dt.to(torch.bfloat16), z, A, B, C, Dv,
                                     bias)
+
+
+def _grad_close(name, got, want, tol):
+    want = want.float()
+    atol = tol[1] * max(1.0, float(want.abs().max()))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.cpu().numpy(), rtol=tol[0], atol=atol,
+                               err_msg=name)
+
+
+GRADS = ("du", "ddt", "dz", "dacc", "dA", "dB", "dC", "dD", "dbias")
+
+
+@pytest.mark.parametrize("reverse,gate,has_acc", FLAGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_dir_backward_kernel_matches_plain(cuda, reverse, gate,
+                                                has_acc, dtype):
+    """Every gradient of the backward kernel against the plain backward,
+    through the autograd Function; ragged L and D, shared and per-row
+    parameters, strided operands, chunks of 128 and 32."""
+    for (R, L, D, T), per_row, strided in itertools.product(
+            [(2, 320, 96, 128), (1, 200, 50, 128), (1, 64, 136, 128),
+             (2, 7, 33, 128), (2, 300, 40, 32)],
+            [True, False], [False, True]):
+        u, dt, z, acc, B, C, A, Dv, bias = _inputs(
+            5, R, L, D, dtype, per_row, strided, cuda)
+        dout = torch.randn(R, L, D, device=cuda).to(dtype)
+        zz = z if gate else None
+        a = acc if has_acc else None
+        leaves = [None if t is None else t.detach().requires_grad_()
+                  for t in (u, dt, zz, a, A, B, C, Dv, bias)]
+        lu, ldt, lz, la, lA, lB, lC, lD, lb = leaves
+        out = scan_dir.mamba_scan_fused_dir(lu, ldt, lz, lA, lB, lC, lD, lb,
+                                            acc=la, gate=gate,
+                                            reverse=reverse, chunk_size=T)
+        out.backward(dout)
+        want = scan_dir.mamba_scan_fused_dir_bwd_ref(
+            u, dt, zz, A, B, C, Dv, bias, dout, acc=a, gate=gate,
+            reverse=reverse, chunk_size=T)
+        for name, leaf, w in zip(GRADS, leaves, want):
+            if leaf is None:
+                assert w is None
+                continue
+            assert leaf.grad.dtype == leaf.dtype
+            assert leaf.grad.shape == leaf.shape
+            _grad_close(f"{name} {(R, L, D, T)} per_row={per_row}",
+                        leaf.grad, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_fused_backward_kernel_matches_plain(cuda, dtype):
+    for (R, L, D), per_row in itertools.product(
+            [(2, 320, 96), (1, 200, 50), (3, 1000, 192)], [False, True]):
+        u, dt, z, _, B, C, A, Dv, bias = _inputs(
+            6, R, L, D, dtype, per_row, True, cuda)
+        dout = torch.randn(R, L, D, device=cuda).to(dtype)
+        leaves = [t.detach().requires_grad_()
+                  for t in (u, dt, z, A, B, C, Dv, bias)]
+        scan_fused.mamba_scan_fused(*leaves).backward(dout)
+        want = scan_fused.mamba_scan_fused_bwd_ref(u, dt, z, A, B, C, Dv,
+                                                   bias, dout)
+        want = [w for w in want if w is not None]
+        for name, leaf, w in zip(("du", "ddt", "dz", "dA", "dB", "dC", "dD",
+                                  "dbias"), leaves, want):
+            _grad_close(f"{name} {(R, L, D)}", leaf.grad, w, TOL[dtype])
+
+
+def test_cuda_forward_records_gradient(cuda):
+    """The repair of the first slice's silent gradient loss: a CUDA forward
+    through each wrapper with inputs that require grad has a ``grad_fn``,
+    launches the backward kernel once per call, and its gradients are the
+    plain backward's. Under ``inference_mode`` nothing is recorded."""
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(7, 2, 256, 64, torch.float32,
+                                               False, True, cuda)
+    dout = torch.randn(2, 256, 64, device=cuda)
+    calls = {
+        "scan_dir": (scan_dir, scan_dir.mamba_scan_fused_dir,
+                     dict(acc=acc, gate=True), scan_dir.
+                     mamba_scan_fused_dir_bwd_ref),
+        "scan_fused": (scan_fused, scan_fused.mamba_scan_fused, {},
+                       scan_fused.mamba_scan_fused_bwd_ref),
+    }
+    for name, (mod, fn, kw, bwd_ref) in calls.items():
+        lA = A.detach().requires_grad_()
+        before = mod.LAUNCHES, mod.BWD_LAUNCHES
+        out = fn(u, dt, z, lA, B, C, Dv, bias, **kw)
+        assert out.grad_fn is not None, name
+        out.backward(dout)
+        assert (mod.LAUNCHES, mod.BWD_LAUNCHES) == (before[0] + 1,
+                                                    before[1] + 1), name
+        ref_kw = {"acc": acc, "gate": True} if name == "scan_dir" else {}
+        want = bwd_ref(u, dt, z, A, B, C, Dv, bias, dout, **ref_kw)[4]
+        _grad_close(f"{name} dA", lA.grad, want, F32)
+        with torch.inference_mode():
+            out = fn(u, dt, z, lA, B, C, Dv, bias, **kw)
+        assert out.grad_fn is None and mod.BWD_LAUNCHES == before[1] + 1
+
+
+def _param_grads(model, x, labels):
+    model.zero_grad(set_to_none=True)
+    logits = model(x)
+    torch.nn.functional.cross_entropy(logits, labels).backward()
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def test_tiny_segmamba_grads_kernel_path_matches_plain(cuda):
+    """Every parameter gradient of the tiny model (f32): the kernel path
+    against the same model on the plain scans: all together within 1e-3
+    relative L2 (two plain compositions of the same math differ by ~5e-5),
+    and each within rtol 2e-3 / atol 5e-2 of the larger of the
+    parameter's own largest |gradient| and 1e-3 of the model's. The
+    per-parameter bound is a wiring check: a conv bias followed by
+    instance norm has a gradient that is zero up to rounding, and the
+    deepest blocks' instance norms over a few voxels amplify rounding (two
+    plain compositions of the same math already differ there by percents
+    of such a parameter's scale)."""
+    cfg = dict(in_chans=2, out_chans=3, depths=(1, 1, 1, 1),
+               feat_size=(4, 8, 16, 32), hidden_size=64,
+               num_slices_list=(8, 4, 2, 1))
+    model = SegMamba(generator=torch.Generator().manual_seed(0),
+                     device=cuda, **cfg)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((2, 2, 32, 32, 32)).astype(
+        np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 3, (2, 32, 32, 32))).to(cuda)
+    before = scan_dir.BWD_LAUNCHES, scan_fused.BWD_LAUNCHES
+    got = _param_grads(model, x, labels)
+    assert (scan_dir.BWD_LAUNCHES - before[0],
+            scan_fused.BWD_LAUNCHES - before[1]) == (8, 4)
+    saved = scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused
+    scan_dir.mamba_scan_fused_dir = scan_dir.mamba_scan_fused_dir_ref
+    scan_fused.mamba_scan_fused = scan_fused.mamba_scan_fused_ref
+    try:
+        want = _param_grads(model, x, labels)
+    finally:
+        scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused = saved
+    top = max(float(w.abs().max()) for w in want.values())
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-3 * top)
+        _close(got[k], w, (2e-3, 5e-2 * scale))
+    diff = sum(float((got[k] - w).double().square().sum())
+               for k, w in want.items())
+    norm = sum(float(w.double().square().sum()) for w in want.values())
+    assert (diff / norm) ** 0.5 <= 1e-3
 
 
 def test_tiny_segmamba_kernel_path_matches_plain(cuda):
