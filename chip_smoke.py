@@ -67,6 +67,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    trainer itself runs with ``--augmentation noaug`` (4 loader processes)
    to keep the phase near 90 s; the chain's arrays are held against the
    JAX package's by the CPU tests.
+9. K6 (``scan_core``, the templates' ``softplus=False`` mode) vs its plain
+   version at the LM prefill's shape (R=2, L=2048, D=5120, N=16) and a
+   ragged one (R=1, L=2000): forward y, chunk states and last state at the
+   float32 tier 6e-4 / 2e-3; backward through ``selective_scan_kernel``
+   (grad_fn present, one backward launch) with a nonzero gradient of the
+   last state, all five gradients, the reduced ones (dA, dB, dC: sums over
+   steps or channels) with the absolute tolerance scaled by
+   max(1, max|plain|). Times by CUDA events, and the bound.
+10. The Mamba LM serving path at the width of ``state-spaces/mamba-2.8b``
+   (its published config.json: d_model 2560, 64 layers, vocab 50277 padded
+   to 50280, RMSNorm, residual in float32, d_state 16, d_conv 4, expand 2),
+   random weights from seed 0 built on the card, after the SegMamba phases'
+   memory is freed; float32 matmuls without TF32:
+   a. float32 prefill of a 512-token prompt at batch 2 through K6 and
+      through the plain scans: last-position logits within 1e-3 relative L2,
+      every layer's SSM cache within rtol 2e-3 / atol 2e-3 x its max|plain|
+      (64 layers of float32 residual stream and RMSNorm amplify the scans'
+      ~1e-6 differences unevenly; an element-wise bound on the logits would
+      be set by the few that grow most, so the logits are held as a whole,
+      and each cache against its own scale); exactly 64 K6 launches;
+   b. the float32 full forward ``model(ids)``: exactly 64 K2 launches, no
+      K6, its last-position logits within 1e-3 relative L2 of (a)'s;
+   c. a gradient through the prefill (a loss on the logits and every
+      layer's last state, the embedding trainable): exactly 64 K6 backward
+      launches, finite gradients;
+   d. bfloat16 serving (float32 parameters): ``generate`` on a 2048-token
+      prompt, batch 1, 128 greedy new tokens, one warm-up, median of 3:
+      prefill ms (``generate`` of one token), decode ms per token, new
+      tokens per second, peak memory; tokens in range, logits finite; the
+      generate run launches 64 K6 and no other scan kernel (decoding
+      launches none);
+   e. ``from_pretrained`` on a tiny snapshot written to a temporary
+      directory loads strictly and gives the saved model's logits.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
@@ -76,6 +109,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -95,10 +129,10 @@ from segmamba_tpu_torch.data import (
 )
 from segmamba_tpu_torch.data.synthetic import write_synthetic_cases
 from segmamba_tpu_torch.infer import sliding_window_inference
-from segmamba_tpu_torch.models import SegMamba
+from segmamba_tpu_torch.models import MambaLMHeadModel, SegMamba
 from segmamba_tpu_torch.models.mamba import _dt_bias_init
 from segmamba_tpu_torch.models.segmamba import _call
-from segmamba_tpu_torch.ops import _build, scan_dir, scan_fused
+from segmamba_tpu_torch.ops import _build, scan_core, scan_dir, scan_fused
 from segmamba_tpu_torch.train import poly_schedule
 from segmamba_tpu_torch.train.__main__ import main as train_main
 from segmamba_tpu_torch.train.losses import cross_entropy_loss
@@ -107,6 +141,7 @@ from segmamba_tpu_torch.train.train_state import (
     create_train_state,
     train_step,
 )
+from segmamba_tpu_torch.utils.hf import from_pretrained
 
 SOURCES = {"fwd": "segmamba_tpu_torch/csrc/gated_scan_fwd.cu",
            "bwd": "segmamba_tpu_torch/csrc/gated_scan_bwd.cu"}
@@ -136,6 +171,15 @@ CASE_SHAPE = (150, 180, 150)
 ROI = (128, 128, 128)
 GRAD_SHAPE = (64, 64, 64)          # phase 6
 TRAINER_CASE = (144, 144, 144)     # phase 8
+DEVICE = "cuda"                    # phases 9 and 10
+CORE_SHAPES = {"prefill": (2, 2048, 5120), "ragged": (1, 2000, 5120)}
+CORE_REPLACES = {"fwd": "segmamba_tpu/ops/scan_pallas.py:162",
+                 "bwd": "segmamba_tpu/ops/scan_pallas.py:194"}
+CORE_GRADS = ("du", "ddelta", "dA", "dB", "dC")
+LM_CONFIG = dict(vocab_size=50277, d_model=2560, n_layer=64, rms_norm=True,
+                 pad_vocab_size_multiple=8)   # state-spaces/mamba-2.8b
+LM_CHECK = (2, 512)                # batch, prompt: float32 kernel vs plain
+LM_SERVE = (1, 2048, 128)          # batch, prompt, new tokens: bf16 serving
 
 
 def log(msg):
@@ -185,12 +229,20 @@ def plain_scans():
 def launch_counts():
     return {"scan_dir": scan_dir.LAUNCHES, "scan_fused": scan_fused.LAUNCHES,
             "scan_dir_bwd": scan_dir.BWD_LAUNCHES,
-            "scan_fused_bwd": scan_fused.BWD_LAUNCHES}
+            "scan_fused_bwd": scan_fused.BWD_LAUNCHES,
+            "scan_core": scan_core.LAUNCHES,
+            "scan_core_bwd": scan_core.BWD_LAUNCHES}
+
+
+def expected_counts(**nonzero):
+    """Every counter 0 but the ones named."""
+    return {**dict.fromkeys(launch_counts(), 0), **nonzero}
 
 
 def reset_counts():
-    scan_dir.LAUNCHES = scan_fused.LAUNCHES = 0
+    scan_dir.LAUNCHES = scan_fused.LAUNCHES = scan_core.LAUNCHES = 0
     scan_dir.BWD_LAUNCHES = scan_fused.BWD_LAUNCHES = 0
+    scan_core.BWD_LAUNCHES = 0
 
 
 def check_close(name, got, want, rtol, atol):
@@ -337,8 +389,7 @@ def phase_case():
         out = run()
         torch.cuda.synchronize()
         launches = launch_counts()
-        if launches != {"scan_dir": 128, "scan_fused": 64, "scan_dir_bwd": 0,
-                        "scan_fused_bwd": 0}:
+        if launches != expected_counts(scan_dir=128, scan_fused=64):
             raise AssertionError(f"scan launches per case {launches}, "
                                  "expected scan_dir 128, scan_fused 64 and "
                                  "no backward")
@@ -555,8 +606,8 @@ def phase_grads():
     reset_counts()
     got = param_grads(model, x, labels)
     counts = launch_counts()
-    if counts != {"scan_dir": 16, "scan_fused": 8, "scan_dir_bwd": 16,
-                  "scan_fused_bwd": 8}:
+    if counts != expected_counts(scan_dir=16, scan_fused=8, scan_dir_bwd=16,
+                                 scan_fused_bwd=8):
         raise AssertionError(f"full-width backward launches {counts}")
     with plain_scans():
         want = param_grads(model, x, labels)
@@ -596,16 +647,15 @@ KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
 )
 
 
-def profile_step(state, batch, sec):
-    """One train step under torch.profiler: device time by kernel class,
-    the top kernels, and the idle share against ``sec`` (the step's wall
-    time measured without the profiler)."""
+def profiled(fn):
+    """Run ``fn`` under torch.profiler; returns (device busy ms, device us
+    by kernel class, the device kernels' events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        train_step(state, batch)
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA
@@ -617,6 +667,14 @@ def profile_step(state, batch, sec):
         name = next((c for c, subs in KERNEL_CLASSES
                      if any(x in key for x in subs)), "other")
         classes[name] = classes.get(name, 0.0) + e.self_device_time_total
+    return busy, classes, kernels
+
+
+def profile_step(state, batch, sec):
+    """One train step under torch.profiler: device time by kernel class,
+    the top kernels, and the idle share against ``sec`` (the step's wall
+    time measured without the profiler)."""
+    busy, classes, kernels = profiled(lambda: train_step(state, batch))
     log(f"profiled step: device busy {busy:.2f} ms of {sec * 1e3:.2f} ms "
         f"wall per step: idle share {1 - busy / (sec * 1e3):.4f}")
     for name, us in sorted(classes.items(), key=lambda kv: -kv[1]):
@@ -687,8 +745,8 @@ def phase_train():
     train_step(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    per_step = {"scan_dir": 16, "scan_fused": 8, "scan_dir_bwd": 16,
-                "scan_fused_bwd": 8}
+    per_step = expected_counts(scan_dir=16, scan_fused=8, scan_dir_bwd=16,
+                               scan_fused_bwd=8)
     losses, norms, times = [], [], []
     reset_counts()
     for i in range(5):
@@ -799,6 +857,331 @@ def phase_trainer():
     torch.cuda.empty_cache()
 
 
+def core_inputs(R, L, D, seed):
+    """K6's float32 operands in the LM prefill's ranges: u unit normal,
+    delta = softplus(dt + bias) with the model's dt-bias init (the wrapper
+    applies softplus before the kernel), S4D-like A, and B, C column slices
+    of an x_dbl with mamba-2.8b's dt_rank (160) + 2N columns."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    cpu_g = torch.Generator().manual_seed(seed)
+    rn = lambda *s, sc=1.0: sc * torch.randn(*s, generator=g, device=DEVICE)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(D, 1)
+    A = (A * torch.exp(0.1 * torch.randn(D, N, generator=cpu_g))).to(DEVICE)
+    bias = _dt_bias_init((D,), 0.001, 0.1, 1e-4, cpu_g).to(DEVICE)
+    delta = torch.nn.functional.softplus(rn(R, L, D, sc=0.5) + bias)
+    xdbl = rn(R, L, 160 + 2 * N)
+    return rn(R, L, D), delta, A, xdbl[..., 160:160 + N], xdbl[..., 160 + N:]
+
+
+def core_bound(direction, R, L, D):
+    """Least time (ms) of one K6 call and what bounds it: each input read
+    once and each output written once over the HBM rate, against the
+    float32 operations over the f32 rate (exp as one operation). Forward:
+    reads u, delta (R L D), B, C (R L N), A; writes y and the chunk states;
+    8 operations per (step, channel, state) + 1 per (step, channel).
+    Backward: reads u, delta, dy, B, C, A, the states and dlast; writes du,
+    ddelta, dA, dB, dC; 25 + 2 operations, as ``scan_bound``."""
+    seq, bc = R * L * D, R * L * N
+    states = R * -(-L // scan_core.DEF_CHUNK) * N * D * 4
+    if direction == "fwd":
+        nbytes = 3 * seq * 4 + 2 * bc * 4 + D * N * 4 + states
+        ops = seq * (8 * N + 1)
+    else:
+        nbytes = (5 * seq * 4 + 4 * bc * 4 + 2 * D * N * 4 + states
+                  + R * N * D * 4)
+        ops = seq * (25 * N + 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_core(results):
+    """K6 forward and backward vs plain at the prefill and a ragged shape;
+    fills ``results``."""
+    T = scan_core.DEF_CHUNK
+    rtol, atol = TOL[torch.float32]
+    for shape_name, (R, L, D) in CORE_SHAPES.items():
+        u, delta, A, B, C = core_inputs(R, L, D, seed=L + D + 2)
+        y, st = scan_core._launch(u, delta, A, B, C, T)
+        y_p, st_p = scan_core.selective_scan_core_ref(u, delta, A, B, C, T,
+                                                      return_states=True)
+        torch.cuda.synchronize()
+        tag = f"K6 {shape_name} {(R, L, D)}"
+        err = max(check_close(f"{tag} y", y, y_p, rtol, atol),
+                  check_close(f"{tag} states", st, st_p, rtol, atol),
+                  check_close(f"{tag} last state", scan_core._last_state(st),
+                              scan_core._last_state(st_p), rtol, atol))
+        ms = cuda_ms(lambda: scan_core._launch(u, delta, A, B, C, T), 10)
+        plain_ms = cuda_ms(lambda: scan_core.selective_scan_core_ref(
+            u, delta, A, B, C, T, return_states=True), 3)
+        bound, bound_by = core_bound("fwd", R, L, D)
+        log(f"kernel {tag} fwd: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        results.append(dict(direction="fwd", shape=shape_name,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=bound_by))
+        del y, y_p, st_p
+
+        # backward through the public wrapper and its autograd Function
+        g = torch.Generator(device=DEVICE).manual_seed(L)
+        dy = torch.randn(R, L, D, generator=g, device=DEVICE)
+        dlast = torch.randn(R, D, N, generator=g, device=DEVICE)
+        leaves = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
+        before = scan_core.BWD_LAUNCHES
+        out, last = scan_core.selective_scan_kernel(*leaves,
+                                                    return_last_state=True)
+        if out.grad_fn is None or last.grad_fn is None:
+            raise AssertionError(f"{tag}: CUDA forward with requires_grad "
+                                 "inputs has no grad_fn")
+        torch.autograd.backward((out, last), (dy, dlast))
+        if scan_core.BWD_LAUNCHES != before + 1:
+            raise AssertionError(f"{tag}: backward kernel launches "
+                                 f"{scan_core.BWD_LAUNCHES - before}")
+        got = [t.grad for t in leaves]
+        del out, last, leaves
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        want = scan_core.selective_scan_core_bwd_ref(u, delta, A, B, C, dy,
+                                                     dlast, T)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        err = 0.0
+        for name, gk, w in zip(CORE_GRADS, got, want):
+            a = atol * max(1.0, float(w.abs().max())) \
+                if name in ("dA", "dB", "dC") else atol
+            err = max(err, check_close(f"{tag} {name}", gk, w, rtol, a))
+        del got, want
+        ms = cuda_ms(lambda: scan_core._launch_bwd(u, delta, A, B, C, dy,
+                                                   dlast, st, T), 10)
+        plain_ms = cuda_ms(lambda: scan_core.selective_scan_core_bwd_ref(
+            u, delta, A, B, C, dy, dlast, T), 2)
+        bound, bound_by = core_bound("bwd", R, L, D)
+        log(f"kernel {tag} bwd: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (peak {peak / 2 ** 30:.2f} GiB), "
+            f"bound {bound:.4f} ms ({bound_by})")
+        results.append(dict(direction="bwd", shape=shape_name,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=bound_by))
+        del u, delta, A, B, C, st, dy, dlast
+        torch.cuda.empty_cache()
+
+
+def build_lm(dtype, **overrides):
+    """The mamba-2.8b-wide LM with random weights from seed 0, drawn on the
+    card."""
+    return MambaLMHeadModel(
+        **{**LM_CONFIG, **overrides}, dtype=dtype,
+        generator=torch.Generator(device=DEVICE).manual_seed(0),
+        device=DEVICE).eval()
+
+
+def set_scan_impl(model, impl):
+    for blk in model.backbone.layers:
+        blk.mixer.scan_impl = impl
+
+
+def rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def phase_lm():
+    """The Mamba LM serving path at mamba-2.8b width; returns its stats."""
+    n_layer = LM_CONFIG["n_layer"]
+    t0 = time.perf_counter()
+    model = build_lm(torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"LM: {n_params / 1e9:.3f} B parameters (vocab {model.vocab_size}),"
+        f" built on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    batch, L = LM_CHECK
+    ids = torch.from_numpy(rng.integers(0, LM_CONFIG["vocab_size"],
+                                        (batch, L))).to(DEVICE)
+
+    # a. float32 prefill, kernel vs plain scans
+    with torch.inference_mode():
+        reset_counts()
+        h, caches = model.backbone.prefill(ids)
+        torch.cuda.synchronize()
+        prefill_counts = launch_counts()
+        if prefill_counts != expected_counts(scan_core=n_layer):
+            raise AssertionError(f"prefill launches {prefill_counts}, "
+                                 f"expected scan_core {n_layer} only")
+        logits = model._logits(h[:, -1])
+        set_scan_impl(model, "chunked")
+        h_p, caches_p = model.backbone.prefill(ids)
+        set_scan_impl(model, "auto")
+        logits_p = model._logits(h_p[:, -1])
+        torch.cuda.synchronize()
+        if launch_counts() != prefill_counts:
+            raise AssertionError("a kernel launched in the plain prefill")
+        err = rel_l2(logits, logits_p)
+        if not err <= 1e-3 or not torch.isfinite(logits).all():
+            raise AssertionError(f"f32 prefill logits: relative L2 {err}")
+        worst = 0.0
+        for i, (c, cp) in enumerate(zip(caches, caches_p)):
+            scale = float(cp["ssm"].abs().max())
+            e = check_close(f"layer {i} ssm cache", c["ssm"], cp["ssm"],
+                            2e-3, 2e-3 * scale)
+            worst = max(worst, e / scale)
+        log(f"f32 prefill {LM_CHECK}: logits relative L2 {err:.3e} (kernel "
+            f"vs plain scans); worst SSM cache max-abs-err / max {worst:.3e};"
+            f" launches {prefill_counts}")
+        del h_p, caches_p, logits_p, caches
+
+        # b. float32 full forward through K2
+        reset_counts()
+        full = model(ids)
+        torch.cuda.synchronize()
+        fwd_counts = launch_counts()
+        if fwd_counts != expected_counts(scan_fused=n_layer):
+            raise AssertionError(f"full forward launches {fwd_counts}")
+        err_fwd = rel_l2(full[:, -1], logits)
+        if not err_fwd <= 1e-3:
+            raise AssertionError(f"full forward vs prefill logits: relative "
+                                 f"L2 {err_fwd}")
+        log(f"f32 full forward: logits {tuple(full.shape)}, last position "
+            f"vs prefill relative L2 {err_fwd:.3e}; launches {fwd_counts}")
+        del full, h, logits
+
+    # c. a gradient through the prefill: K6 backward in every layer
+    model.requires_grad_(False)
+    model.backbone.embedding.weight.requires_grad_(True)
+    reset_counts()
+    h, caches = model.backbone.prefill(ids[:1])
+    loss = model._logits(h[:, -1]).logsumexp(-1).mean() + sum(
+        c["ssm"].square().mean() for c in caches)
+    loss.backward()
+    torch.cuda.synchronize()
+    grad_counts = launch_counts()
+    if grad_counts != expected_counts(scan_core=n_layer,
+                                      scan_core_bwd=n_layer):
+        raise AssertionError(f"prefill gradient launches {grad_counts}")
+    grad = model.backbone.embedding.weight.grad
+    if not torch.isfinite(grad).all() or not grad.abs().max() > 0:
+        raise AssertionError("prefill gradient: not finite or all zero")
+    log(f"prefill gradient (1 x {L}): loss {float(loss.detach()):.5f}, "
+        f"max |d embedding| {float(grad.abs().max()):.4e}; launches "
+        f"{grad_counts}")
+    del model, h, caches, loss, grad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. bfloat16 serving
+    model = build_lm(torch.bfloat16)
+    batch, L, new = LM_SERVE
+    ids = torch.from_numpy(rng.integers(0, LM_CONFIG["vocab_size"],
+                                        (batch, L))).to(DEVICE)
+    with torch.inference_mode():
+        h, caches = model.backbone.prefill(ids)
+        logits = model._logits(h[:, -1])
+        h1, _ = model.backbone.step(logits.argmax(-1), caches)
+        if not (torch.isfinite(logits).all()
+                and torch.isfinite(model._logits(h1)).all()):
+            raise AssertionError("bf16 prefill or step logits not finite")
+        del h, caches, logits, h1
+    model.generate(ids, new)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_s, total_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model.generate(ids, 1)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = model.generate(ids, new)
+        torch.cuda.synchronize()
+        total_s.append(time.perf_counter() - t0)
+        gen_counts = launch_counts()
+        if gen_counts != expected_counts(scan_core=n_layer):
+            raise AssertionError(f"generate launches {gen_counts}: "
+                                 f"expected {n_layer} K6, none decoding")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    toks = out[:, L:]
+    if (out.shape != (batch, L + new) or not torch.equal(out[:, :L], ids)
+            or int(toks.min()) < 0 or int(toks.max()) >= model.vocab_size):
+        raise AssertionError(f"generate: shape {tuple(out.shape)} or tokens "
+                             "out of range")
+    prefill_ms = statistics.median(prefill_s) * 1e3
+    total_ms = statistics.median(total_s) * 1e3
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    log(f"bf16 generate ({batch} x {L} prompt, {new} greedy tokens): "
+        f"prefill {prefill_ms:.2f} ms, total {total_ms:.2f} ms (medians of "
+        f"3: {', '.join(f'{t * 1e3:.2f}' for t in total_s)}), decode "
+        f"{decode_ms:.3f} ms/token, {batch * new / (total_ms / 1e3):.2f} new "
+        f"tokens/s; peak device memory {peak_gib:.2f} GiB; launches per "
+        f"generate {gen_counts}")
+    decode_stats = profile_decode(model, ids)
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # e. from_pretrained on a tiny snapshot
+    with tempfile.TemporaryDirectory() as tmp:
+        src = MambaLMHeadModel(50, 64, 2, rms_norm=True,
+                               pad_vocab_size_multiple=8,
+                               generator=torch.Generator().manual_seed(1))
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(dict(d_model=64, n_layer=2, vocab_size=50,
+                           pad_vocab_size_multiple=8), f)
+        sd = dict(src.state_dict(), **{
+            "lm_head.weight": src.backbone.embedding.weight.detach()})
+        torch.save(sd, os.path.join(tmp, "pytorch_model.bin"))
+        loaded = from_pretrained(tmp, device=DEVICE)
+        src = src.to(DEVICE).eval()
+        small = torch.from_numpy(rng.integers(0, 50, (2, 40))).to(DEVICE)
+        with torch.inference_mode():
+            if not torch.equal(loaded(small), src(small)):
+                raise AssertionError("from_pretrained: logits differ")
+    log("from_pretrained: tiny snapshot (vocab 50 -> 56, tied lm_head) "
+        "loaded strictly, same logits")
+    return dict(prefill_counts=prefill_counts, grad_counts=grad_counts,
+                gen_counts=gen_counts, prefill_ms=prefill_ms,
+                decode_ms=decode_ms, peak_gib=peak_gib, **decode_stats)
+
+
+def profile_decode(model, ids, steps=8):
+    """Where a decode token's time goes: ``steps`` greedy steps after a
+    prefill, wall time per token (host clock, unprofiled), then the same
+    steps under torch.profiler: device busy time per token, the idle share,
+    kernel launches per token and device time by kernel class."""
+    with torch.inference_mode():
+        h, caches = model.backbone.prefill(ids)
+        tok = model._logits(h[:, -1]).argmax(-1)
+
+        def run():
+            nonlocal tok, caches
+            for _ in range(steps):
+                h, caches = model.backbone.step(tok, caches)
+                tok = model._logits(h).argmax(-1)
+
+        run()                                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        busy, classes, kernels = profiled(run)
+    busy /= steps
+    launches = sum(e.count for e in kernels) / steps
+    log(f"decode profile ({steps} steps): {wall:.3f} ms/token wall, device "
+        f"busy {busy:.3f} ms/token, idle share {1 - busy / wall:.4f}, "
+        f"{launches:.0f} kernel launches per token")
+    for name, us in sorted(classes.items(), key=lambda kv: -kv[1]):
+        log(f"  {name:44s} {us / 1e3 / steps:9.3f} ms/token  "
+            f"{100 * us / 1e3 / steps / busy:5.1f}% of busy")
+    log("  top kernels (per token):")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms "
+            f"x{e.count / steps:<5.0f} {e.key[:90]}")
+    return dict(decode_wall_ms=wall, decode_busy_ms=busy,
+                decode_launches=launches)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -855,9 +1238,22 @@ def main():
     t0 = time.perf_counter()
     phase_trainer()
     log(f"phase 8 (trainer end to end): {time.perf_counter() - t0:.1f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    core_results = []
+    phase_core(core_results)
+    log(f"phase 9 (K6 vs plain): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    lm_stats = phase_lm()
+    log(f"phase 10 (Mamba LM serving, mamba-2.8b width): "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s; ms per window "
         f"{model_stats['ms_per_window']:.2f}; s/step "
-        f"{train_stats['sec']:.4f}")
+        f"{train_stats['sec']:.4f}; LM decode ms/token "
+        f"{lm_stats['decode_ms']:.3f}")
 
     train_launches = train_stats["launches"]
     kernels = []
@@ -886,6 +1282,25 @@ def main():
                 ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                 bound_ms=bound, bound_by=bound_by, library_ms=None,
                 variant=main_row["variant"], launches_by_path=by_path))
+    for direction in ("fwd", "bwd"):
+        rows = [r for r in core_results if r["direction"] == direction]
+        main_row = next(r for r in rows if r["shape"] == "prefill")
+        if direction == "fwd":
+            by_path = {"lm_generate": lm_stats["gen_counts"]["scan_core"],
+                       "lm_prefill_f32":
+                           lm_stats["prefill_counts"]["scan_core"]}
+            launches = by_path["lm_generate"]
+        else:
+            launches = lm_stats["grad_counts"]["scan_core_bwd"]
+            by_path = {"lm_prefill_grad": launches}
+        kernels.append(dict(
+            name=f"gated_scan_{direction}[scan_core]", route="cuda",
+            source=SOURCES[direction], replaces=CORE_REPLACES[direction],
+            launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=None, variant="core", launches_by_path=by_path))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,31 @@
 // Gated selective scan, backward, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package with one template:
+// Replaces three Pallas TPU kernels of the JAX package with one template:
 //   K3  segmamba_tpu/ops/scan_pallas_dir.py:119   _dir_bwd_kernel
 //       (flags REVERSE, GATE, HAS_ACC; driven by _dir_bwd_call :270 and the
 //       custom VJP of _make_dir_core :350)
 //   K4  segmamba_tpu/ops/scan_pallas_fused.py:73  _bwd_kernel
 //       (= REVERSE=0, GATE=1, HAS_ACC=0; _bwd_call :168, _make_core :225)
+//   K6  segmamba_tpu/ops/scan_pallas.py:194       _bwd_kernel
+//       (= SOFTPLUS=0, REVERSE=0, GATE=0, HAS_ACC=0, float32, D and bias
+//       zero; _bwd_call :281, _make_core :333): the ungated core's adjoint,
+//       seeded by dlast, the gradient of the returned last state. du and
+//       ddt are then du and ddelta; the wrapper keeps du, ddelta, dA, dB, dC.
 // It is the adjoint of csrc/gated_scan_fwd.cu and reads that kernel's chunk
 // exit states (R, nc, N, D), float32, in scan order.
 //
 // Per row r, channel d, state n (N = 16) and scan-order step s, in float32:
-//   delta = softplus(dt + bias),  a = exp(delta A),  x_s = a_s x_{s-1} + delta_s B_s u_s
+//   delta = softplus(dt + bias) (SOFTPLUS=0: dt + bias),  a = exp(delta A),
+//   x_s   = a_s x_{s-1} + delta_s B_s u_s
 //   dy    = dout * silu(z)                (GATE; else dy = dout)
 //   dz    = dout * ytot * (sig + silu (1 - sig)),  ytot = C.x + D u (+ acc)
 //   dacc  = dy                            (GATE and HAS_ACC; the ungated link's
 //                                          dacc = dout is set by the wrapper)
-//   g_s   = C_s dy_s + a_{s+1} g_{s+1}    (adjoint, reverse scan order)
+//   g_s   = C_s dy_s + a_{s+1} g_{s+1}    (adjoint, reverse scan order;
+//                                          the last step's a g is dlast, or 0)
 //   dp    = g_s x_{s-1} a_s;  S = sum_n g B
-//   du    = S delta + dy D;   ddelta = sum_n dp A + S u;  ddt = ddelta sigmoid(dt + bias)
+//   du    = S delta + dy D;   ddelta = sum_n dp A + S u;
+//   ddt   = ddelta sigmoid(dt + bias)     (SOFTPLUS=0: ddelta)
 //   dA    = sum_s dp delta;   dD = sum_s dy u;  dbias = sum_s ddt
 //   dB_s  = sum_d g delta u;  dC_s = sum_d x dy
 // du, ddt, dz and dacc are written in the storage dtype (float32 or
@@ -42,19 +50,21 @@
 //                  not x) and writes the chunk's zero-entry adjoint exit and
 //                  its sum of delta (its decay is exp(A * sum delta)).
 //   2. bwd_carry:  one thread per (row, state, channel) combines the chunk
-//                  summaries in reverse scan order and leaves each chunk's
-//                  adjoint entry in place.
+//                  summaries in reverse scan order, starting from dlast (or
+//                  0), and leaves each chunk's adjoint entry in place.
 //   3. bwd_grad:   one block per (channel block, chunk, row) re-runs its
 //                  chunk as above and forms every gradient. The sums over
 //                  channels (dB, dC) are taken in shared memory per
 //                  sub-chunk, one partial per channel block.
+// With one chunk there is no carry pass, and pass 3 starts from dlast itself.
 // Chunks are the forward's (multiples of T on the original layout). With
 // REVERSE the chunks and the steps in a chunk are walked in the mirrored
 // order on the same layout, so the ragged tail chunk is the first in scan
 // order and masked steps never enter any state or gradient.
 //
 // The kernel allocates nothing: the caller passes every output, partial and
-// scratch buffer.
+// scratch buffer. At K6's prefill shape (R = 2, L = 2048, D = 5120) the
+// dB/dC partials (nbd, R, L, N) are 40 x 2 x 2048 x 16 floats, 10.5 MB each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,6 +87,7 @@ struct Params {
   const float* Dv;       // (R|1, D)
   const float* bias;     // (R|1, D)
   const float* states;   // (R, nc, NS, D), scan order (forward exit states)
+  const float* dlast;    // (R, NS, D) adjoint seed of the last state, or null
   void* du;              // (R, L, D) contiguous, storage dtype
   void* ddt;
   void* dz;
@@ -118,6 +129,12 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + __expf(-x));
 }
 
+// delta from dt + bias: softplus of it, or (K6) as it is.
+template <bool SOFTPLUS>
+__device__ __forceinline__ float delta_of(float x) {
+  return SOFTPLUS ? softplus_f(x) : x;
+}
+
 // Stage rows [t0, t0 + len) of B and/or C of row r into shared memory.
 template <typename S, bool WITH_B, bool WITH_C>
 __device__ __forceinline__ void stage_bc(const Params& p, long long r,
@@ -146,7 +163,7 @@ __device__ __forceinline__ float dy_at(const S* dout, const S* z,
 }
 
 // Pass 1: zero-entry adjoint over each chunk, in reverse scan order.
-template <typename S, bool REVERSE, bool GATE>
+template <typename S, bool REVERSE, bool GATE, bool SOFTPLUS>
 __global__ void bwd_chunk_kernel(Params p) {
   extern __shared__ float smem[];
   float* sC = smem;
@@ -173,7 +190,7 @@ __global__ void bwd_chunk_kernel(Params p) {
   for (int i = len - 1; i >= 0; --i) {  // scan order, last step first
     const int t = REVERSE ? len - 1 - i : i;
     const long long tt = t0 + t;
-    const float delta = softplus_f(to_f(dt[tt * p.sdt_l]) + bias);
+    const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
     const float dy = dy_at<S, GATE>(dout, z, tt, p.sz_l, p.D);
     sd += delta;
     const float* cc = sC + t * NS;
@@ -187,8 +204,9 @@ __global__ void bwd_chunk_kernel(Params p) {
   p.sdelta[(r * p.nc + c) * p.D + d] = sd;
 }
 
-// Pass 2: adjoint carry over the chunk summaries, last scan chunk first;
-// leaves each chunk's adjoint entry (a_{s+1} g_{s+1} at its last step).
+// Pass 2: adjoint carry over the chunk summaries, last scan chunk first,
+// from the seed dlast (or 0); leaves each chunk's adjoint entry
+// (a_{s+1} g_{s+1} at its last step).
 template <bool REVERSE>
 __global__ void bwd_carry_kernel(Params p) {
   const long long r = blockIdx.y;
@@ -197,7 +215,7 @@ __global__ void bwd_carry_kernel(Params p) {
   const int n = (int)(idx / p.D);
   const long long d = idx % p.D;
   const float a = p.A[r * p.sA_r + d * NS + n];
-  float carry = 0.f;
+  float carry = p.dlast != nullptr ? p.dlast[(r * NS + n) * p.D + d] : 0.f;
   for (int i = 0; i < p.nc; ++i) {
     const long long c = REVERSE ? i : p.nc - 1 - i;
     const long long hi = ((r * p.nc + c) * NS + n) * p.D + d;
@@ -214,7 +232,7 @@ __global__ void bwd_carry_kernel(Params p) {
 // (SUB ld each: dy, dt + bias, u; u becomes delta u in the walk), with the
 // channel fastest and ld = blockDim.x + 1 so that the per-step sums over
 // channels do not hit one bank.
-template <typename S, bool REVERSE, bool GATE, bool HAS_ACC>
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS>
 __global__ void bwd_grad_kernel(Params p) {
   extern __shared__ float smem[];
   const int nt = blockDim.x;
@@ -282,7 +300,7 @@ __global__ void bwd_grad_kernel(Params p) {
       }
       const int t = REVERSE ? len - 1 - i : i;
       const long long tt = t0 + t;
-      const float delta = softplus_f(to_f(dt[tt * p.sdt_l]) + bias);
+      const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
       const float dlu = delta * to_f(u[tt * p.su_l]);
       const float* b = sB + t * NS;
 #pragma unroll
@@ -297,8 +315,11 @@ __global__ void bwd_grad_kernel(Params p) {
     g[n] = 0.f;
     dA[n] = 0.f;
   }
-  if (on && p.nc > 1) {  // adjoint entry left by bwd_carry
-    const float* gb = p.gbuf + ((r * p.nc + c) * NS) * p.D + d;
+  // adjoint entry: left by bwd_carry, or with one chunk the seed itself
+  const float* gb = p.nc > 1 ? p.gbuf + ((r * p.nc + c) * NS) * p.D + d
+                    : p.dlast != nullptr ? p.dlast + r * NS * p.D + d
+                                         : nullptr;
+  if (on && gb != nullptr) {
 #pragma unroll
     for (int n = 0; n < NS; ++n) g[n] = gb[n * p.D];
   }
@@ -320,7 +341,7 @@ __global__ void bwd_grad_kernel(Params p) {
         const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
         const long long tt = t0 + t;
         const float dtraw = to_f(dt[tt * p.sdt_l]) + bias;
-        const float delta = softplus_f(dtraw);
+        const float delta = delta_of<SOFTPLUS>(dtraw);
         const float uu = to_f(u[tt * p.su_l]);
         const float dlu = delta * uu;
         const float* b = sB + t * NS;
@@ -375,7 +396,7 @@ __global__ void bwd_grad_kernel(Params p) {
         const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
         const long long tt = t0 + t;
         const float dtraw = dtrs[k * ld + tid];
-        const float delta = softplus_f(dtraw);
+        const float delta = delta_of<SOFTPLUS>(dtraw);
         const float uu = us[k * ld + tid];
         const float dy = dys[k * ld + tid];
         const float* b = sB + t * NS;
@@ -395,7 +416,7 @@ __global__ void bwd_grad_kernel(Params p) {
           xs[(k * NS + n) * ld + tid] = gn;
         }
         const float ddelta = ddl + Ssum * uu;
-        const float ddt_v = ddelta * sigmoid_f(dtraw);
+        const float ddt_v = SOFTPLUS ? ddelta * sigmoid_f(dtraw) : ddelta;
         du[tt * p.D] = from_f<S>(Ssum * delta + dy * Dv);
         ddt[tt * p.D] = from_f<S>(ddt_v);
         dDs += dy * uu;
@@ -431,20 +452,20 @@ size_t grad_smem(int T, int threads) {
   return (2 * (size_t)T * NS + SUB * NS * ld + 3 * SUB * ld) * sizeof(float);
 }
 
-template <typename S, bool REVERSE, bool GATE, bool HAS_ACC>
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS>
 cudaError_t launch_grad(const Params& p, dim3 grid, int threads,
                         cudaStream_t stream) {
   const size_t smem = grad_smem(p.T, threads);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC>,
+      bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC>
+  bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS>
       <<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename S, bool REVERSE>
+template <typename S, bool REVERSE, bool SOFTPLUS>
 cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
                    cudaStream_t stream) {
   const dim3 grid((unsigned)((p.D + threads - 1) / threads), (unsigned)p.nc,
@@ -452,20 +473,34 @@ cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
   cudaError_t err;
   if (p.nc > 1) {
     const size_t smem = (size_t)p.T * NS * sizeof(float);
-    if (gate)
-      bwd_chunk_kernel<S, REVERSE, true><<<grid, threads, smem, stream>>>(p);
+    if constexpr (!SOFTPLUS)  // K6: ungated
+      bwd_chunk_kernel<S, REVERSE, false, false>
+          <<<grid, threads, smem, stream>>>(p);
+    else if (gate)
+      bwd_chunk_kernel<S, REVERSE, true, true>
+          <<<grid, threads, smem, stream>>>(p);
     else
-      bwd_chunk_kernel<S, REVERSE, false><<<grid, threads, smem, stream>>>(p);
+      bwd_chunk_kernel<S, REVERSE, false, true>
+          <<<grid, threads, smem, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const dim3 g2((unsigned)((NS * p.D + CARRY_THREADS - 1) / CARRY_THREADS),
                   (unsigned)p.R);
     bwd_carry_kernel<REVERSE><<<g2, CARRY_THREADS, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if (gate && has_acc)
-    return launch_grad<S, REVERSE, true, true>(p, grid, threads, stream);
-  if (gate) return launch_grad<S, REVERSE, true, false>(p, grid, threads, stream);
-  return launch_grad<S, REVERSE, false, false>(p, grid, threads, stream);
+  if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
+    return launch_grad<S, REVERSE, false, false, false>(p, grid, threads,
+                                                        stream);
+  } else {
+    if (gate && has_acc)
+      return launch_grad<S, REVERSE, true, true, true>(p, grid, threads,
+                                                       stream);
+    if (gate)
+      return launch_grad<S, REVERSE, true, false, true>(p, grid, threads,
+                                                        stream);
+    return launch_grad<S, REVERSE, false, false, true>(p, grid, threads,
+                                                       stream);
+  }
 }
 
 }  // namespace
@@ -475,20 +510,25 @@ extern "C" {
 // strides: u_r, u_l, dt_r, dt_l, z_r, z_l, acc_r, acc_l, B_r, B_l, C_r, C_l,
 //          A_r, Dv_r, bias_r (elements; host array of 15), as gated_scan_fwd.
 // ckpt holds ceil(T / gated_scan_bwd_sub_len()) sub-chunk checkpoints per
-// chunk: (R, nc, nsub, N, D) float32.
+// chunk: (R, nc, nsub, N, D) float32. dlast (R, N, D) float32 or null seeds
+// the adjoint of the last state in scan order. softplus = 0 is K6's mode:
+// float32, no reverse, no gate, no acc.
 // Returns a cudaError_t value (0 = launched).
 int gated_scan_bwd(const void* u, const void* dt, const void* z,
                    const void* acc, const void* B, const void* C,
                    const void* dout, const float* A, const float* Dv,
-                   const float* bias, const float* states, void* du,
-                   void* ddt, void* dz, void* dacc, float* dA_p, float* dD_p,
-                   float* dbias_p, float* dB_p, float* dC_p, float* gbuf,
-                   float* sdelta, float* ckpt, int is_bf16, int reverse,
-                   int gate, int has_acc, long long R, long long L,
+                   const float* bias, const float* states,
+                   const float* dlast, void* du, void* ddt, void* dz,
+                   void* dacc, float* dA_p, float* dD_p, float* dbias_p,
+                   float* dB_p, float* dC_p, float* gbuf, float* sdelta,
+                   float* ckpt, int is_bf16, int reverse, int gate,
+                   int has_acc, int softplus, long long R, long long L,
                    long long D, int N, int T, int threads,
                    const long long* strides, void* stream) {
   if (N != NS || T < 1 || T > 256 || threads < 32 || threads > 1024 ||
       threads % 32 != 0 || R < 1 || L < 1 || D < 1 || R > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (!softplus && (is_bf16 || reverse || gate || has_acc))
     return (int)cudaErrorInvalidValue;
   const long long nc = (L + T - 1) / T;
   if (nc > 65535) return (int)cudaErrorInvalidValue;
@@ -500,7 +540,7 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
     return (int)cudaErrorInvalidValue;
   Params p;
   p.u = u; p.dt = dt; p.z = z; p.acc = acc; p.B = B; p.C = C; p.dout = dout;
-  p.A = A; p.Dv = Dv; p.bias = bias; p.states = states;
+  p.A = A; p.Dv = Dv; p.bias = bias; p.states = states; p.dlast = dlast;
   p.du = du; p.ddt = ddt; p.dz = dz; p.dacc = dacc;
   p.dA_p = dA_p; p.dD_p = dD_p; p.dbias_p = dbias_p; p.dB_p = dB_p;
   p.dC_p = dC_p; p.gbuf = gbuf; p.sdelta = sdelta; p.ckpt = ckpt;
@@ -516,12 +556,14 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool g = gate != 0, a = has_acc != 0;
   cudaError_t err;
-  if (is_bf16)
-    err = reverse ? launch<__nv_bfloat16, true>(p, g, a, threads, st)
-                  : launch<__nv_bfloat16, false>(p, g, a, threads, st);
+  if (!softplus)
+    err = launch<float, false, false>(p, false, false, threads, st);
+  else if (is_bf16)
+    err = reverse ? launch<__nv_bfloat16, true, true>(p, g, a, threads, st)
+                  : launch<__nv_bfloat16, false, true>(p, g, a, threads, st);
   else
-    err = reverse ? launch<float, true>(p, g, a, threads, st)
-                  : launch<float, false>(p, g, a, threads, st);
+    err = reverse ? launch<float, true, true>(p, g, a, threads, st)
+                  : launch<float, false, true>(p, g, a, threads, st);
   return (int)err;
 }
 

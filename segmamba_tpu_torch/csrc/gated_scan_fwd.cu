@@ -1,13 +1,21 @@
 // Gated selective scan, forward, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package with one template:
+// Replaces three Pallas TPU kernels of the JAX package with one template:
 //   K1  segmamba_tpu/ops/scan_pallas_dir.py:60   _dir_fwd_kernel
 //       (flags REVERSE, GATE, HAS_ACC; entry mamba_scan_fused_dir :382)
 //   K2  segmamba_tpu/ops/scan_pallas_fused.py:42 _fwd_kernel
 //       (= REVERSE=0, GATE=1, HAS_ACC=0; entry mamba_scan_fused :250)
+//   K6  segmamba_tpu/ops/scan_pallas.py:162      _fwd_kernel
+//       (= SOFTPLUS=0, REVERSE=0, GATE=0, HAS_ACC=0, float32 I/O, D and bias
+//       zero; entry selective_scan_pallas :361): the ungated core
+//       (u, delta, A, B, C) -> (y, chunk exit states). Its wrapper applies
+//       bias and softplus before the kernel and D-skip and the silu(z) gate
+//       after it, in float32, as the JAX entry does; the last state is the
+//       last chunk's exit state.
 //
 // Per row r, channel d, state n (N = 16) and step t, in float32:
-//   delta = softplus(dt + bias)                  (logaddexp(x, 0) form)
+//   delta = softplus(dt + bias)                  (logaddexp(x, 0) form;
+//                                                  SOFTPLUS=0: dt + bias)
 //   x_t   = exp(delta A) x_{t-1} + delta B_t u_t  (REVERSE: x_{t+1}, suffix
 //                                                  order, same layout)
 //   y_t   = C_t . x_t + D u_t (+ acc_t) (* silu(z_t))
@@ -19,8 +27,11 @@
 // exp rate and the bytes of u/dt/z/acc/out bound it, not the tensor cores
 // (no wgmma/TMA needed). The sequence dimension is long (262,144 tokens at
 // stage 0 of a 128^3 window) while R = 1 and D = 96, so a walk of L in one
-// thread per (row, channel) would use 96 threads of one SM. The design
-// cuts L into chunks of T steps, as the TPU kernel's saved chunk states do:
+// thread per (row, channel) would use 96 threads of one SM. (K6 on the LM's
+// prefill is the other way round: R = 2, L = 2048, D = 5120, 40 channel
+// blocks of 128 per row and chunk; the same passes fill the card.) The
+// design cuts L into chunks of T steps, as the TPU kernel's saved chunk
+// states do:
 //   1. chunk_exit:   one thread per (row, chunk, channel) runs its chunk
 //                    from a zero state, keeping the 16 states in registers;
 //                    writes the exit state and the chunk's sum of delta
@@ -39,7 +50,8 @@
 // along the last axis, and no vector alignment is assumed. Ragged L and D
 // are masked: a thread whose channel is out of range only helps stage B/C,
 // and a chunk's steps stop at L, so the reverse scan starts at the last
-// real step and no masked step enters any state.
+// real step and no masked step enters any state. (The JAX K6 pads L with
+// delta = 0, identity steps, so its last state is exact too.)
 //
 // The kernel allocates nothing: the caller passes the output, the optional
 // exit-state output (R, nc, N, D) and the scratch (R, nc, N, D) + (R, nc, D).
@@ -91,6 +103,12 @@ __device__ __forceinline__ float softplus_f(float x) {
   return fmaxf(x, 0.f) + log1pf(__expf(-fabsf(x)));
 }
 
+// delta from dt + bias: softplus of it, or (K6) as it is.
+template <bool SOFTPLUS>
+__device__ __forceinline__ float delta_of(float x) {
+  return SOFTPLUS ? softplus_f(x) : x;
+}
+
 // Stage rows [t0, t0 + len) of B (and C) of row r into shared memory.
 template <typename S, bool WITH_C>
 __device__ __forceinline__ void stage_bc(const Params& p, long long r,
@@ -107,7 +125,7 @@ __device__ __forceinline__ void stage_bc(const Params& p, long long r,
   __syncthreads();
 }
 
-template <typename S, bool REVERSE>
+template <typename S, bool REVERSE, bool SOFTPLUS>
 __global__ void chunk_exit_kernel(Params p) {
   extern __shared__ float smem[];
   float* sB = smem;
@@ -133,7 +151,7 @@ __global__ void chunk_exit_kernel(Params p) {
   for (int i = 0; i < len; ++i) {
     const int t = REVERSE ? len - 1 - i : i;
     const long long tt = t0 + t;
-    const float delta = softplus_f(to_f(dt[tt * p.sdt_l]) + bias);
+    const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
     const float du = delta * to_f(u[tt * p.su_l]);
     sd += delta;
     const float* b = sB + t * NS;
@@ -165,7 +183,7 @@ __global__ void chunk_carry_kernel(Params p) {
   }
 }
 
-template <typename S, bool REVERSE, bool GATE, bool HAS_ACC>
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS>
 __global__ void chunk_output_kernel(Params p) {
   extern __shared__ float smem[];
   float* sB = smem;
@@ -201,7 +219,7 @@ __global__ void chunk_output_kernel(Params p) {
   for (int i = 0; i < len; ++i) {
     const int t = REVERSE ? len - 1 - i : i;
     const long long tt = t0 + t;
-    const float delta = softplus_f(to_f(dt[tt * p.sdt_l]) + bias);
+    const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
     const float uu = to_f(u[tt * p.su_l]);
     const float du = delta * uu;
     const float* b = sB + t * NS;
@@ -228,7 +246,7 @@ __global__ void chunk_output_kernel(Params p) {
   }
 }
 
-template <typename S, bool REVERSE>
+template <typename S, bool REVERSE, bool SOFTPLUS>
 cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
                    cudaStream_t stream) {
   const dim3 grid((unsigned)((p.D + threads - 1) / threads), (unsigned)p.nc,
@@ -236,25 +254,29 @@ cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
   const size_t smem = (size_t)p.T * NS * sizeof(float);
   cudaError_t err;
   if (p.nc > 1) {
-    chunk_exit_kernel<S, REVERSE><<<grid, threads, smem, stream>>>(p);
+    chunk_exit_kernel<S, REVERSE, SOFTPLUS><<<grid, threads, smem, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const dim3 g2((unsigned)((NS * p.D + CARRY_THREADS - 1) / CARRY_THREADS),
                   (unsigned)p.R);
     chunk_carry_kernel<REVERSE><<<g2, CARRY_THREADS, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if (gate && has_acc)
-    chunk_output_kernel<S, REVERSE, true, true>
+  if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
+    chunk_output_kernel<S, REVERSE, false, false, false>
         <<<grid, threads, 2 * smem, stream>>>(p);
-  else if (gate)
-    chunk_output_kernel<S, REVERSE, true, false>
+  } else if (gate && has_acc) {
+    chunk_output_kernel<S, REVERSE, true, true, true>
         <<<grid, threads, 2 * smem, stream>>>(p);
-  else if (has_acc)
-    chunk_output_kernel<S, REVERSE, false, true>
+  } else if (gate) {
+    chunk_output_kernel<S, REVERSE, true, false, true>
         <<<grid, threads, 2 * smem, stream>>>(p);
-  else
-    chunk_output_kernel<S, REVERSE, false, false>
+  } else if (has_acc) {
+    chunk_output_kernel<S, REVERSE, false, true, true>
         <<<grid, threads, 2 * smem, stream>>>(p);
+  } else {
+    chunk_output_kernel<S, REVERSE, false, false, true>
+        <<<grid, threads, 2 * smem, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -264,16 +286,20 @@ extern "C" {
 
 // strides: u_r, u_l, dt_r, dt_l, z_r, z_l, acc_r, acc_l, B_r, B_l, C_r, C_l,
 //          A_r, Dv_r, bias_r (elements; host array of 15).
+// softplus = 0 is K6's mode: float32, no reverse, no gate, no acc.
 // Returns a cudaError_t value (0 = launched).
 int gated_scan_fwd(const void* u, const void* dt, const void* z,
                    const void* acc, const void* B, const void* C,
                    const float* A, const float* Dv, const float* bias,
                    void* out, float* states, float* hbuf, float* sdelta,
                    int is_bf16, int reverse, int gate, int has_acc,
-                   long long R, long long L, long long D, int N, int T,
-                   int threads, const long long* strides, void* stream) {
+                   int softplus, long long R, long long L, long long D, int N,
+                   int T, int threads, const long long* strides,
+                   void* stream) {
   if (N != NS || T < 1 || T > 256 || threads < 32 || threads > 1024 ||
       threads % 32 != 0 || R < 1 || L < 1 || D < 1 || R > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (!softplus && (is_bf16 || reverse || gate || has_acc))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.u = u; p.dt = dt; p.z = z; p.acc = acc; p.B = B; p.C = C;
@@ -295,12 +321,14 @@ int gated_scan_fwd(const void* u, const void* dt, const void* z,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool g = gate != 0, a = has_acc != 0;
   cudaError_t err;
-  if (is_bf16)
-    err = reverse ? launch<__nv_bfloat16, true>(p, g, a, threads, st)
-                  : launch<__nv_bfloat16, false>(p, g, a, threads, st);
+  if (!softplus)
+    err = launch<float, false, false>(p, false, false, threads, st);
+  else if (is_bf16)
+    err = reverse ? launch<__nv_bfloat16, true, true>(p, g, a, threads, st)
+                  : launch<__nv_bfloat16, false, true>(p, g, a, threads, st);
   else
-    err = reverse ? launch<float, true>(p, g, a, threads, st)
-                  : launch<float, false>(p, g, a, threads, st);
+    err = reverse ? launch<float, true, true>(p, g, a, threads, st)
+                  : launch<float, false, true>(p, g, a, threads, st);
   return (int)err;
 }
 

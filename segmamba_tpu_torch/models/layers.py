@@ -8,8 +8,9 @@ ported: convs here are ``F.conv3d`` / ``F.conv_transpose3d``.
 
 Casting mirrors the JAX package: parameters are float32 and are cast to the
 layer's compute ``dtype`` per op; the input is cast to it too.
-Initialisation draws from an explicit CPU ``torch.Generator``, so a seed
-gives the same weights on every device.
+Initialisation draws from an explicit ``torch.Generator`` on the device
+of that generator: a CPU generator gives the same weights on every device,
+a CUDA one builds a large model on the card.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ def torch_bias_uniform(shape, fan_in, generator):
 
 
 def uniform(shape, bound, generator):
-    t = torch.empty(shape, dtype=torch.float32)
+    """U(-bound, bound), float32, on the generator's device."""
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     if bound > 0:
         return t.uniform_(-bound, bound, generator=generator)
     return t.zero_()

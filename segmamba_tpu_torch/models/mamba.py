@@ -43,8 +43,10 @@ SCAN_IMPLS = ("dir2", "per_direction")
 
 
 def _dt_bias_init(shape, dt_min, dt_max, dt_init_floor, generator):
-    """Inverse softplus of a log-uniform sample in [dt_min, dt_max]."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    """Inverse softplus of a log-uniform sample in [dt_min, dt_max], on the
+    generator's device."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
     dt = torch.exp(u * (math.log(dt_max) - math.log(dt_min))
                    + math.log(dt_min))
     dt = torch.clamp_min(dt, dt_init_floor)

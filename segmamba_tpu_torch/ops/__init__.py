@@ -1,6 +1,7 @@
-"""Op layer of the port: plain-PyTorch scans and convs, and the wrappers of
-the hand-written Hopper scan kernels (``csrc/gated_scan_fwd.cu``,
-``csrc/gated_scan_bwd.cu``).
+"""Op layer of the port: plain-PyTorch scans, convs, decode steps and
+norms, and the wrappers of the hand-written Hopper scan kernels
+(``csrc/gated_scan_fwd.cu``, ``csrc/gated_scan_bwd.cu``: K1-K4 through
+``scan_dir`` / ``scan_fused``, K6 through ``scan_core``).
 
 Counterpart of ``segmamba_tpu/ops``. Importing this package builds nothing;
 the kernel library is compiled at its first launch (``_build.py``).
@@ -9,8 +10,15 @@ the kernel library is compiled at its first launch (``_build.py``).
 from segmamba_tpu_torch.ops.causal_conv1d import (
     causal_conv1d,
     causal_conv1d_directional,
+    causal_conv1d_update,
 )
+from segmamba_tpu_torch.ops.fused_norm import layer_norm_fn, rms_norm_fn
 from segmamba_tpu_torch.ops.mamba_inner import mamba_inner
+from segmamba_tpu_torch.ops.scan_core import (
+    selective_scan_core_bwd_ref,
+    selective_scan_core_ref,
+    selective_scan_kernel,
+)
 from segmamba_tpu_torch.ops.scan_dir import (
     mamba_scan_fused_dir,
     mamba_scan_fused_dir_bwd_ref,
@@ -21,14 +29,21 @@ from segmamba_tpu_torch.ops.scan_fused import (
     mamba_scan_fused_bwd_ref,
     mamba_scan_fused_ref,
 )
+# the dispatcher ``selective_scan`` stays under its module's path:
+# ``segmamba_tpu_torch.ops.selective_scan`` names the module
 from segmamba_tpu_torch.ops.selective_scan import (
     selective_scan_chunked,
     selective_scan_ref,
+)
+from segmamba_tpu_torch.ops.selective_state_update import (
+    selective_state_update,
 )
 
 __all__ = [
     "causal_conv1d",
     "causal_conv1d_directional",
+    "causal_conv1d_update",
+    "layer_norm_fn",
     "mamba_inner",
     "mamba_scan_fused",
     "mamba_scan_fused_bwd_ref",
@@ -36,6 +51,11 @@ __all__ = [
     "mamba_scan_fused_dir",
     "mamba_scan_fused_dir_bwd_ref",
     "mamba_scan_fused_dir_ref",
+    "rms_norm_fn",
     "selective_scan_chunked",
+    "selective_scan_core_bwd_ref",
+    "selective_scan_core_ref",
+    "selective_scan_kernel",
     "selective_scan_ref",
+    "selective_state_update",
 ]

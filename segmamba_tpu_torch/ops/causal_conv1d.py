@@ -1,7 +1,8 @@
 """Depthwise causal 1-D convolution, time-major, in plain PyTorch.
 
-Port of ``segmamba_tpu/ops/causal_conv1d.py`` ``causal_conv1d`` and
-``causal_conv1d_directional`` (G = 2 and G = 3). In the JAX package these
+Port of ``segmamba_tpu/ops/causal_conv1d.py`` ``causal_conv1d``,
+``causal_conv1d_directional`` (G = 2 and G = 3) and the decode step
+``causal_conv1d_update``. In the JAX package these
 are XLA ops (shifted multiply-adds); here they are the same shifted
 multiply-adds in torch, computed in float32 and cast back to x's dtype.
 Layout is time-major ``(batch, L, dim)``; filters are ``(width, dim)`` as in
@@ -110,3 +111,26 @@ def causal_conv1d_directional(x, weight, bias, activation=None,
     if bias is not None:
         y = y + bias.float()[:, None, None, :]
     return _activate(y, activation).to(x.dtype)
+
+
+def causal_conv1d_update(x_new, conv_state, weight, bias=None,
+                         activation=None):
+    """One decode token: shift the conv window and produce one output.
+
+    x_new: (batch, dim); conv_state: (batch, width, dim), time-major, oldest
+    first; weight: (width, dim); bias: (dim,) or None. The new token is
+    appended and the oldest dropped. Returns (out (batch, dim) in x_new's
+    dtype, float32 math; new_state (batch, width, dim) in conv_state's
+    dtype). Functional: conv_state is not changed.
+    """
+    _check_activation(activation)
+    width = weight.shape[0]
+    if conv_state.shape[1] != width:
+        raise ValueError(f"conv_state {tuple(conv_state.shape)}: window "
+                         f"must be {width}")
+    new_state = torch.cat([conv_state[:, 1:],
+                           x_new[:, None, :].to(conv_state.dtype)], dim=1)
+    out = torch.einsum("bwd,wd->bd", new_state.float(), weight.float())
+    if bias is not None:
+        out = out + bias.float()
+    return _activate(out, activation).to(x_new.dtype), new_state

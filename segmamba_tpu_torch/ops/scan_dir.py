@@ -27,6 +27,8 @@ output stay in their original order.
 The launchers ``_launch`` / ``_launch_bwd`` and ``_GatedScan`` are shared
 with ``scan_fused.py`` (K2/K4 are the same templates with REVERSE=0,
 GATE=1, HAS_ACC=0); each call counts on the module of its entry point.
+``scan_core.py`` (K6) launches the same templates with ``softplus=False``
+(delta final, ungated) and, in the backward, the adjoint seed ``dlast``.
 """
 
 from __future__ import annotations
@@ -147,7 +149,7 @@ def _param(t, name, R, shape, device):
 
 
 def _launch(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
-            chunk_size, return_states):
+            chunk_size, return_states, softplus=True):
     """Launch ``gated_scan_fwd`` on the current stream of u's card."""
     _check_cuda(u)
     with torch.cuda.device(u.device):
@@ -155,18 +157,19 @@ def _launch(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
         return _run_kernel(_lib(), stream, u, dt, z, acc, A, B, C, D,
                            dt_bias, reverse=reverse, gate=gate,
                            chunk_size=chunk_size,
-                           return_states=return_states)
+                           return_states=return_states, softplus=softplus)
 
 
 def _launch_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, states, *,
-                reverse, gate, chunk_size):
+                reverse, gate, chunk_size, softplus=True, dlast=None):
     """Launch ``gated_scan_bwd`` on the current stream of u's card."""
     _check_cuda(u)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         return _run_bwd_kernel(_bwd_lib(), stream, u, dt, z, acc, A, B, C, D,
                                dt_bias, dout, states, reverse=reverse,
-                               gate=gate, chunk_size=chunk_size)
+                               gate=gate, chunk_size=chunk_size,
+                               softplus=softplus, dlast=dlast)
 
 
 def _check_cuda(u):
@@ -219,9 +222,11 @@ def _ptr(t):
 
 
 def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
-                gate, chunk_size, return_states):
+                gate, chunk_size, return_states, softplus=True):
     """Validate the operands, allocate the output and scratch on u's device
-    and call the library's ``gated_scan_fwd`` on ``stream``."""
+    and call the library's ``gated_scan_fwd`` on ``stream``. With
+    ``softplus=False`` (K6) dt is the final delta, and the call must be
+    float32, forward, ungated and without acc."""
     R, L, dim, N, T, Af, Df, bf, strides = _operands(
         u, dt, z, acc, A, B, C, D, dt_bias, gate=gate, chunk_size=chunk_size)
     nc = -(-L // T)
@@ -239,8 +244,9 @@ def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
         _ptr(u), _ptr(dt), _ptr(z) if gate else None, _ptr(acc), _ptr(B),
         _ptr(C), _ptr(Af), _ptr(Df), _ptr(bf), _ptr(out), _ptr(states),
         _ptr(hbuf), _ptr(sdelta), int(u.dtype == torch.bfloat16),
-        int(reverse), int(gate), int(acc is not None), R, L, dim, N, T,
-        _block_threads(dim), (ctypes.c_longlong * 15)(*strides), stream)
+        int(reverse), int(gate), int(acc is not None), int(softplus), R, L,
+        dim, N, T, _block_threads(dim), (ctypes.c_longlong * 15)(*strides),
+        stream)
     if err != 0:
         msg = lib.gated_scan_error_string(err).decode()
         raise RuntimeError(f"gated_scan_fwd launch failed: {msg} ({err})")
@@ -248,12 +254,15 @@ def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
 
 
 def _run_bwd_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, dout,
-                    states, *, reverse, gate, chunk_size):
+                    states, *, reverse, gate, chunk_size, softplus=True,
+                    dlast=None):
     """Validate the operands, allocate every gradient, partial and scratch
     buffer on u's device, call the library's ``gated_scan_bwd`` on
     ``stream`` and reduce the partials. Returns (du, ddt, dz, dacc, dA, dB,
     dC, dD, dbias) in the shapes and dtypes of (u, dt, z, acc, A, B, C, D,
-    dt_bias); dz / dacc are None without z / acc."""
+    dt_bias); dz / dacc are None without z / acc. ``dlast`` (R, N, dim)
+    float32, or None for zero, is the gradient of the last state in scan
+    order; ``softplus=False`` as in ``_run_kernel``."""
     R, L, dim, N, T, Af, Df, bf, strides = _operands(
         u, dt, z, acc, A, B, C, D, dt_bias, gate=gate, chunk_size=chunk_size)
     nc = -(-L // T)
@@ -265,6 +274,12 @@ def _run_bwd_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, dout,
     if tuple(dout.shape) != (R, L, dim) or dout.device != u.device:
         raise ValueError(f"dout: {tuple(dout.shape)} on {dout.device}, "
                          f"expected {(R, L, dim)} on {u.device}")
+    if dlast is not None and (
+            tuple(dlast.shape) != (R, N, dim) or dlast.device != u.device
+            or dlast.dtype != torch.float32 or not dlast.is_contiguous()):
+        raise ValueError(f"dlast: {tuple(dlast.shape)} {dlast.dtype} on "
+                         f"{dlast.device}, expected contiguous float32 "
+                         f"{(R, N, dim)} on {u.device}")
     threads = _block_threads(dim)
     nbd = -(-dim // threads)
     f32 = dict(dtype=torch.float32, device=u.device)
@@ -287,11 +302,11 @@ def _run_bwd_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, dout,
     err = lib.gated_scan_bwd(
         _ptr(u), _ptr(dt), _ptr(z) if gate else None, _ptr(acc), _ptr(B),
         _ptr(C), _ptr(dout), _ptr(Af), _ptr(Df), _ptr(bf), _ptr(states),
-        _ptr(du), _ptr(ddt), _ptr(dz), _ptr(dacc_k), _ptr(dA_p), _ptr(dD_p),
-        _ptr(dbias_p), _ptr(dB_p), _ptr(dC_p), _ptr(gbuf), _ptr(sdelta),
-        _ptr(ckpt), int(u.dtype == torch.bfloat16), int(reverse), int(gate),
-        int(acc is not None), R, L, dim, N, T, threads,
-        (ctypes.c_longlong * 15)(*strides), stream)
+        _ptr(dlast), _ptr(du), _ptr(ddt), _ptr(dz), _ptr(dacc_k),
+        _ptr(dA_p), _ptr(dD_p), _ptr(dbias_p), _ptr(dB_p), _ptr(dC_p),
+        _ptr(gbuf), _ptr(sdelta), _ptr(ckpt), int(u.dtype == torch.bfloat16),
+        int(reverse), int(gate), int(acc is not None), int(softplus), R, L,
+        dim, N, T, threads, (ctypes.c_longlong * 15)(*strides), stream)
     if err != 0:
         msg = lib.gated_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"gated_scan_bwd launch failed: {msg} ({err})")
@@ -323,7 +338,7 @@ def _lib():
         lib = _build.load_library(_LIB_NAME)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.gated_scan_fwd.argtypes = (
-            [vp] * 13 + [i] * 4 + [ll] * 3 + [i] * 3
+            [vp] * 13 + [i] * 5 + [ll] * 3 + [i] * 3
             + [ctypes.POINTER(ll), vp])
         lib.gated_scan_fwd.restype = i
         lib.gated_scan_error_string.argtypes = [i]
@@ -343,7 +358,7 @@ def _bwd_lib():
         lib = _build.load_library(_BWD_LIB_NAME)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.gated_scan_bwd.argtypes = (
-            [vp] * 23 + [i] * 4 + [ll] * 3 + [i] * 3
+            [vp] * 24 + [i] * 5 + [ll] * 3 + [i] * 3
             + [ctypes.POINTER(ll), vp])
         lib.gated_scan_bwd.restype = i
         lib.gated_scan_bwd_sub_len.argtypes = []

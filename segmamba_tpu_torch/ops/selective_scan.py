@@ -1,9 +1,9 @@
-"""Selective SSM scan in plain PyTorch.
+"""Selective SSM scan: the plain PyTorch cores and the dispatcher.
 
 Port of ``segmamba_tpu/ops/selective_scan.py`` (``selective_scan_ref``,
-``_core_ref``, ``_core_chunked``, ``_preprocess_delta``, ``_postprocess``)
-for real, time-varying ``(batch, L, N)`` B/C. Per batch row, channel ``d``,
-state ``n`` and step ``t``::
+``_core_ref``, ``_core_chunked``, ``_expand_groups``, ``_wdtype``,
+``_preprocess_delta``, ``_postprocess`` and the ``selective_scan``
+dispatcher). Per batch row, channel ``d``, state ``n`` and step ``t``::
 
     delta = softplus(delta_raw + delta_bias)           (optional)
     x[t]  = exp(delta[t] * A) * x[t-1] + delta[t] * B[t] * u[t]
@@ -11,12 +11,16 @@ state ``n`` and step ``t``::
     out   = y * silu(z)                                (optional gate)
 
 Time-major like the JAX package: sequences ``(batch, L, dim)``. ``A`` may be
-shared ``(dim, N)`` or per-row ``(batch, dim, N)``. The recurrence runs in
-float32 whatever the input dtype; the output is cast back to ``u.dtype``.
+shared ``(dim, N)`` or per-row ``(batch, dim, N)``. B and C may be
+time-varying ``(batch, L, N)``, grouped ``(batch, L, G, N)`` (channel ``d``
+uses group ``d // (dim / G)``) or static ``(dim, N)``; A, B and C may be
+complex (complex64 weights, output folded as ``2 Re``), as the reference CUDA
+op allows. The recurrence runs in float32 (complex64 with complex weights)
+whatever the input dtype; the output is cast back to ``u.dtype``.
 
 These cores are the plain versions the scan kernel's wrappers
-(``scan_dir.py``, ``scan_fused.py``) use for CPU tensors and are compared
-with on the card.
+(``scan_dir.py``, ``scan_fused.py``, ``scan_core.py``) use for CPU tensors
+and are compared with on the card.
 """
 
 from __future__ import annotations
@@ -62,20 +66,63 @@ def _per_row(A):
     return A[:, None] if A.dim() == 3 else A
 
 
+def _wdtype(*ts):
+    """Weight compute dtype: complex64 if any operand is complex (the CUDA
+    op's complex-weight path), else float32."""
+    return (torch.complex64 if any(t.is_complex() for t in ts)
+            else torch.float32)
+
+
+def _expand_groups(M, dim):
+    """Grouped (batch, L, G, N) -> per-channel (batch, L, dim, N),
+    group-major: channel d uses group d // (dim / G)."""
+    G = M.shape[2]
+    if dim % G:
+        raise ValueError(f"dim={dim} not divisible by n_groups={G}")
+    return M.repeat_interleave(dim // G, dim=2)
+
+
+def _per_step(M):
+    """B or C -> broadcastable against (batch, L, dim, N): static (dim, N)
+    as is, time-varying (batch, L, N) with a channel axis, per-channel
+    (batch, L, dim, N) as is."""
+    return M[:, :, None, :] if M.dim() == 3 else M
+
+
+def _contract_c(x, C, shared):
+    """y = sum_n C x over (..., dim, N) states. ``shared``: C is (..., N),
+    one row for every channel (time-varying B/C, cut to x's leading axes);
+    else C broadcasts against x (static (dim, N) or per-channel)."""
+    C = C.to(x.dtype)
+    if shared:
+        return torch.einsum("...dn,...n->...d", x, C)
+    return (x * C).sum(-1)
+
+
+def _fold(y):
+    """The reference's complex-output fold: 2 Re(y)."""
+    return 2.0 * y.real if y.is_complex() else y
+
+
 def _core_ref(u, delta, A, B, C):
     """Sequential loop over time (test oracle, small L). u/delta: (b, L, D)
-    f32; A: (D, N) or (b, D, N); B, C: (b, L, N). Returns (y, last_state)."""
+    f32; A: (D, N) or (b, D, N); B, C: (b, L, N), (b, L, G, N) or (D, N),
+    real or complex. Returns (y, last_state)."""
     batch, seqlen, dim = u.shape
     dstate = A.shape[-1]
+    B, C = (_expand_groups(M, dim) if M.dim() == 4 else M for M in (B, C))
     Ab = A[:, None] if A.dim() == 3 else A[None, None]       # (b|1, 1, D, N)
-    x = torch.zeros(batch, dim, dstate, dtype=torch.float32, device=u.device)
+    x = torch.zeros(batch, dim, dstate, dtype=_wdtype(A, B, C),
+                    device=u.device)
+    at = lambda M, t: M if M.dim() == 2 else _per_step(M)[:, t]
     ys = []
     for t in range(seqlen):
         a = torch.exp(delta[:, t, :, None] * Ab[:, 0])
-        b = (delta[:, t] * u[:, t])[..., None] * B[:, t, None, :]
+        b = (delta[:, t] * u[:, t])[..., None] * at(B, t)
         x = a * x + b
-        ys.append(torch.einsum("bdn,bn->bd", x, C[:, t]))
-    return torch.stack(ys, dim=1), x
+        ys.append(_contract_c(x, C if C.dim() == 2 else C[:, t],
+                              C.dim() == 3))
+    return _fold(torch.stack(ys, dim=1)), x
 
 
 def _hs_scan(a, b, dim):
@@ -101,47 +148,56 @@ def _core_chunked(u, delta, A, B, C, chunk_size=128,
 
     The ragged tail is padded with identity steps (delta = 0 => a = 1,
     b = 0), so the last chunk's exit state is the state at the last real
-    step. Returns (y (b, L, D), last_state (b, D, N)), or with
-    ``return_chunk_states`` (y, exit states (b, nc, N, D)) in the kernel's
-    layout.
+    step. B and C as ``_core_ref`` takes them. Returns (y (b, L, D),
+    last_state (b, D, N)), or with ``return_chunk_states`` (y, exit states
+    (b, nc, N, D)) in the kernel's layout.
     """
     batch, seqlen, dim = u.shape
     dstate = A.shape[-1]
+    B, C = (_expand_groups(M, dim) if M.dim() == 4 else M for M in (B, C))
     T = min(chunk_size, max(seqlen, 1))
     pad = (-seqlen) % T
     if pad:
-        zpad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad))
+        # time is axis 1 of the sequences and of time-varying B/C
+        zpad = lambda t: (t if t.dim() == 2 else torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad)))
         u, delta, B, C = zpad(u), zpad(delta), zpad(B), zpad(C)
     L = seqlen + pad
     nc = L // T
 
     a = torch.exp(delta[..., None] * _per_row(A))            # (b, L, D, N)
-    b = (delta * u)[..., None] * B[:, :, None, :]
+    b = (delta * u)[..., None] * _per_step(B)
     a = a.reshape(batch, nc, T, dim, dstate)
     b = b.reshape(batch, nc, T, dim, dstate)
     a_cum, b_cum = _hs_scan(a, b, dim=2)
     _, carry = _hs_scan(a_cum[:, :, -1], b_cum[:, :, -1], dim=1)  # exits
     entry = torch.cat([torch.zeros_like(carry[:, :1]), carry[:, :-1]], 1)
     x = b_cum + a_cum * entry[:, :, None]                    # (b, nc, T, D, N)
-    y = torch.einsum("bctdn,bctn->bctd", x,
-                     C.reshape(batch, nc, T, dstate)).reshape(batch, L, dim)
+    Cc = C if C.dim() == 2 else C.reshape(batch, nc, T, *C.shape[2:])
+    y = _fold(_contract_c(x, Cc, C.dim() == 3)).reshape(batch, L, dim)
     y = y[:, :seqlen]
     if return_chunk_states:
         return y, carry.transpose(-1, -2).contiguous()
     return y, carry[:, -1]
 
 
+def _weights(*ts):
+    """Each of A, B, C in its own weight dtype (float32 or complex64)."""
+    return tuple(t.to(_wdtype(t)) for t in ts)
+
+
 def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
                        delta_softplus=False, return_last_state=False):
     """Exact sequential selective scan (test oracle).
 
-    u, delta: (batch, L, dim); A: (dim, N) or (batch, dim, N);
-    B, C: (batch, L, N); D, delta_bias: (dim,) or (batch, dim);
-    z: (batch, L, dim) or None. Returns out (batch, L, dim) in u.dtype, and
-    the last state (batch, dim, N) if ``return_last_state``.
+    u, delta: (batch, L, dim); A: (dim, N) or (batch, dim, N), real or
+    complex; B, C: (batch, L, N), (batch, L, G, N) or (dim, N), real or
+    complex; D, delta_bias: (dim,) or (batch, dim); z: (batch, L, dim) or
+    None. Returns out (batch, L, dim) in u.dtype, and the last state
+    (batch, dim, N) if ``return_last_state`` (complex when the weights are).
     """
     d = _preprocess_delta(delta, delta_bias, delta_softplus)
-    y, last = _core_ref(u.float(), d, A.float(), B.float(), C.float())
+    y, last = _core_ref(u.float(), d, *_weights(A, B, C))
     out = _postprocess(y, u, D, z, u.dtype)
     return (out, last) if return_last_state else out
 
@@ -150,9 +206,59 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, z=None, delta_bias=None,
                            delta_softplus=False, return_last_state=False,
                            chunk_size=128):
     """Chunked doubling-scan selective scan; same surface as
-    ``selective_scan_ref``."""
+    ``selective_scan_ref``, grouped, static and complex B/C included."""
     d = _preprocess_delta(delta, delta_bias, delta_softplus)
-    y, last = _core_chunked(u.float(), d, A.float(), B.float(), C.float(),
+    y, last = _core_chunked(u.float(), d, *_weights(A, B, C),
                             chunk_size=chunk_size)
     out = _postprocess(y, u, D, z, u.dtype)
     return (out, last) if return_last_state else out
+
+
+IMPLS = ("auto", "pallas", "chunked", "ref", "mxu")
+
+
+def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+                   delta_softplus=False, return_last_state=False,
+                   impl="auto", chunk_size=128):
+    """Selective scan with implementation dispatch, by the JAX package's
+    ``impl`` names:
+
+    - ``"auto"``: the hand-written kernel (``scan_core``, K6) for CUDA
+      tensors, the chunked plain core for CPU tensors;
+    - ``"pallas"``: ``scan_core.selective_scan_kernel`` on either device
+      (the kernel on CUDA, its chunked plain version on the CPU);
+    - ``"chunked"`` / ``"ref"``: the plain cores;
+    - ``"mxu"``: the matrix-unit scan K7 (``scan_pallas_mxu.py``) is not
+      ported (ROADMAP B4): raises for CUDA tensors, takes the chunked core
+      for CPU tensors.
+
+    Grouped, static or complex B/C take the chunked plain core on either
+    device, as the JAX dispatcher sends them to its XLA core.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"unknown selective_scan impl: {impl!r}")
+    on_card = u.device.type == "cuda"
+    if impl == "mxu":
+        if on_card:
+            raise NotImplementedError(
+                "impl='mxu' is the matrix-unit scan K7 "
+                "(segmamba_tpu/ops/scan_pallas_mxu.py), not ported to the "
+                "card yet (ROADMAP B4)")
+        impl = "chunked"
+    if impl in ("auto", "pallas") and (
+            B.dim() != 3 or C.dim() != 3
+            or any(t.is_complex() for t in (A, B, C))):
+        impl = "chunked"
+    if impl == "auto":
+        impl = "pallas" if on_card else "chunked"
+    if impl == "ref":
+        return selective_scan_ref(u, delta, A, B, C, D, z, delta_bias,
+                                  delta_softplus, return_last_state)
+    if impl == "chunked":
+        return selective_scan_chunked(u, delta, A, B, C, D, z, delta_bias,
+                                      delta_softplus, return_last_state,
+                                      chunk_size=chunk_size)
+    from segmamba_tpu_torch.ops import scan_core   # imports this module
+    return scan_core.selective_scan_kernel(
+        u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+        return_last_state, chunk_size=chunk_size)

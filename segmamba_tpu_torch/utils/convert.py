@@ -1,9 +1,12 @@
 """Flax param tree -> the port's ``state_dict``.
 
-The exact inverse of ``segmamba_tpu/utils/torch_convert.py``
-``convert_segmamba_state_dict`` (:83-156). The port's module names are the
-reference torch model's, so the same names serve both directions. Layout
-rules undone here:
+``flax_to_state_dict`` is the exact inverse of
+``segmamba_tpu/utils/torch_convert.py`` ``convert_segmamba_state_dict``
+(:83-156); ``lm_flax_to_state_dict`` that of
+``segmamba_tpu/utils/hf.py`` ``convert_lm_state_dict`` (:34-69), for the
+Mamba language model. The port's module names are the reference torch
+model's, so the same names serve both directions. Layout rules undone
+here:
 
 - DHWIO (kz, ky, kx, Cin, Cout) conv kernel   -> (Cout, Cin, kz, ky, kx)
 - ConvTranspose DHWIO kernel, spatially flipped -> (Cin, Cout, kz, ky, kx)
@@ -100,6 +103,39 @@ def flax_to_state_dict(params):
     sd["out.conv.conv.weight"] = _conv3d(p["out"]["conv"]["kernel"])
     sd["out.conv.conv.bias"] = np.asarray(p["out"]["conv"]["bias"])
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def lm_flax_to_state_dict(params):
+    """JAX ``MambaLMHeadModel`` ``{"params": ...}`` tree (numpy leaves) ->
+    the port's ``MambaLMHeadModel`` ``state_dict`` (float32 CPU tensors,
+    reference torch names, no ``lm_head.weight``: the head is tied)."""
+    p = params["params"] if "params" in params else params
+    bb = p["backbone"]
+    sd = {"backbone.embedding.weight": np.asarray(bb["embedding"])}
+    i = 0
+    while f"layers_{i}" in bb:
+        layer, pre = bb[f"layers_{i}"], f"backbone.layers.{i}"
+        m = layer["mixer"]
+        sd[f"{pre}.mixer.in_proj.weight"] = _linear(m["in_proj"])
+        sd[f"{pre}.mixer.conv1d.weight"] = _conv1d_depthwise(
+            m["conv1d_weight"])
+        sd[f"{pre}.mixer.conv1d.bias"] = np.asarray(m["conv1d_bias"])
+        sd[f"{pre}.mixer.x_proj.weight"] = _linear(m["x_proj"])
+        sd[f"{pre}.mixer.dt_proj.weight"] = _linear(m["dt_proj"])
+        sd[f"{pre}.mixer.dt_proj.bias"] = np.asarray(m["dt_proj_bias"])
+        sd[f"{pre}.mixer.A_log"] = np.asarray(m["A_log"])
+        sd[f"{pre}.mixer.D"] = np.asarray(m["D"])
+        sd[f"{pre}.mixer.out_proj.weight"] = _linear(m["out_proj"])
+        sd[f"{pre}.norm.weight"] = np.asarray(layer["norm_weight"])
+        if "norm_bias" in layer:
+            sd[f"{pre}.norm.bias"] = np.asarray(layer["norm_bias"])
+        i += 1
+    sd["backbone.norm_f.weight"] = np.asarray(bb["norm_f_weight"])
+    if "norm_f_bias" in bb:
+        sd["backbone.norm_f.bias"] = np.asarray(bb["norm_f_bias"])
+    # copies: leaves may be read-only views of the caller's arrays
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}
 
 

@@ -1,4 +1,5 @@
-"""The Hopper scan kernels against their plain PyTorch versions, on the card.
+"""The Hopper scan kernels against their plain PyTorch versions, on the card
+(K1-K4 through ``scan_dir`` / ``scan_fused``, K6 through ``scan_core``).
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; the
 ``cuda`` fixture skips it where ``torch.cuda.is_available()`` is false (it
@@ -21,8 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from segmamba_tpu_torch.models import SegMamba
-from segmamba_tpu_torch.ops import scan_dir, scan_fused
+from segmamba_tpu_torch.models import MambaLMHeadModel, SegMamba
+from segmamba_tpu_torch.ops import scan_core, scan_dir, scan_fused
+from segmamba_tpu_torch.ops.selective_scan import selective_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -61,9 +63,9 @@ def _inputs(seed, R, L, D, dtype, per_row, strided, device):
 
 
 def _close(got, want, tol):
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), rtol=tol[0],
-                               atol=tol[1])
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               want.detach().float().cpu().numpy(),
+                               rtol=tol[0], atol=tol[1])
 
 
 FLAGS = [(True, False, False), (False, True, True), (False, True, False),
@@ -295,3 +297,85 @@ def test_tiny_segmamba_kernel_path_matches_plain(cuda):
             scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused = saved
     scale = float(want.abs().max())
     _close(got, want, (2e-3, 1e-2 * scale))
+
+
+def _core_inputs(seed, R, L, D, device, N_=N):
+    """K6's float32 operands: positive delta (softplus already applied),
+    B and C column slices of an x_dbl, as the LM's prefill passes them."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.standard_normal(s)).astype(np.float32)).to(device)
+    u = f(R, L, D)
+    delta = torch.nn.functional.softplus(f(R, L, D, sc=0.5) - 1.0)
+    xdbl = f(R, L, 5 + 2 * N_)
+    A = -torch.exp(f(D, N_, sc=0.5))
+    return u, delta, A, xdbl[..., 5:5 + N_], xdbl[..., 5 + N_:]
+
+
+@pytest.mark.parametrize("R,L,D,T", [(2, 256, 96, 128), (1, 200, 50, 128),
+                                     (2, 300, 136, 32), (1, 64, 40, 128)])
+def test_scan_core_kernel_matches_plain(cuda, R, L, D, T):
+    """K6 forward (y, chunk states, last state) and backward (du, ddelta,
+    dA, dB, dC with a nonzero gradient of the last state), ragged L and D,
+    one chunk and many."""
+    u, delta, A, B, C = _core_inputs(9, R, L, D, cuda)
+    y, st = scan_core._launch(u, delta, A, B, C, T)
+    y_p, st_p = scan_core.selective_scan_core_ref(u, delta, A, B, C, T,
+                                                  return_states=True)
+    _close(y, y_p, F32)
+    _close(st, st_p, F32)
+    dy = torch.randn(R, L, D, device=cuda)
+    dlast = torch.randn(R, D, N, device=cuda)
+    leaves = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
+    before = scan_core.BWD_LAUNCHES
+    yk, last = scan_core._ScanCore.apply(T, *leaves)
+    _close(last, scan_core._last_state(st_p), F32)
+    torch.autograd.backward((yk, last), (dy, dlast))
+    assert scan_core.BWD_LAUNCHES == before + 1
+    want = scan_core.selective_scan_core_bwd_ref(u, delta, A, B, C, dy,
+                                                 dlast, T)
+    for name, leaf, w in zip(("du", "ddelta", "dA", "dB", "dC"), leaves,
+                             want):
+        _grad_close(f"{name} {(R, L, D, T)}", leaf.grad, w, F32)
+
+
+def test_selective_scan_on_cuda_records_gradient(cuda):
+    """``selective_scan`` on CUDA tensors launches K6 forward, has a
+    ``grad_fn``, and its backward launches K6 backward once."""
+    u, delta, A, B, C = _core_inputs(10, 2, 200, 64, cuda)
+    lu = u.detach().requires_grad_()
+    before = scan_core.LAUNCHES, scan_core.BWD_LAUNCHES
+    y, last = selective_scan(lu, delta, A, B, C, D=torch.ones(64,
+                                                              device=cuda),
+                             delta_softplus=True, return_last_state=True)
+    assert y.grad_fn is not None and last.grad_fn is not None
+    (y.sum() + last.square().sum()).backward()
+    assert (scan_core.LAUNCHES, scan_core.BWD_LAUNCHES) == (before[0] + 1,
+                                                            before[1] + 1)
+    assert torch.isfinite(lu.grad).all() and lu.grad.abs().max() > 0
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+        selective_scan(u, delta, A, B, C, impl="mxu")
+
+
+def test_scan_core_rejects_n_other_than_16(cuda):
+    u, delta, A, B, C = _core_inputs(11, 1, 64, 32, cuda, N_=8)
+    with pytest.raises(ValueError, match="N=16"):
+        scan_core.selective_scan_kernel(u, delta, A, B, C)
+
+
+def test_tiny_lm_generate_kernel_path_matches_plain(cuda):
+    """Greedy tokens of a tiny LM on the card: K6 prefill (one launch per
+    layer, no scan launch while decoding) equals the plain scans."""
+    model = MambaLMHeadModel(64, 32, 3, rms_norm=True,
+                             generator=torch.Generator().manual_seed(0),
+                             device=cuda)
+    ids = torch.from_numpy(np.random.default_rng(12).integers(
+        0, 64, (2, 300))).to(cuda)
+    before = scan_core.LAUNCHES
+    got = model.generate(ids, 8)
+    assert scan_core.LAUNCHES == before + 3
+    for blk in model.backbone.layers:
+        blk.mixer.scan_impl = "chunked"
+    want = model.generate(ids, 8)
+    assert scan_core.LAUNCHES == before + 3
+    assert torch.equal(got, want)
