@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), a CUDA card
    required, the forward scan kernel built from ``segmamba_tpu_torch/csrc``.
-1b. The backward scan kernel (``gated_scan_bwd.cu``), built in parallel with
-   the forward one (one nvcc each, from two threads): build time, ptxas
-   registers/spills.
+1b. The backward scan kernel (``gated_scan_bwd.cu``) and the
+   projection-fused kernels (``proj_scan_fwd.cu``, ``proj_scan_bwd.cu``),
+   built in parallel with the forward one (one nvcc each, from four
+   threads): build times, ptxas registers/spills.
 2. Kernel vs plain PyTorch at the main path's shapes (stage 0: R=1,
    L=262144, D=96; stage 3: R=1, L=512, D=768; N=16) for the three flag
    sets the path launches (dir reverse ungated, dir gate + acc, fused gate
@@ -74,7 +75,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (grad_fn present, one backward launch) with a nonzero gradient of the
    last state, all five gradients, the reduced ones (dA, dB, dC: sums over
    steps or channels) with the absolute tolerance scaled by
-   max(1, max|plain|). Times by CUDA events, and the bound.
+   max(1, max|plain|). Times by CUDA events, and the bound. Then K6 at
+   N = 4 and N = 64 (ceil(N / 16) launches of 16 states each way) vs its
+   plain version at R=1, L=2048, D=1024, forward and backward.
 10. The Mamba LM serving path at the width of ``state-spaces/mamba-2.8b``
    (its published config.json: d_model 2560, 64 layers, vocab 50277 padded
    to 50280, RMSNorm, residual in float32, d_state 16, d_conv 4, expand 2),
@@ -101,6 +104,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    e. ``from_pretrained`` on a tiny snapshot written to a temporary
       directory loads strictly and gives the saved model's logits.
 
+11. K5 (the slice-order scan, ``scan_dir.mamba_scan_fused_slice``) and K8
+   (the projection-fused scan, ``scan_proj.mamba_scan_proj``) vs their
+   plain versions at stage 0 (L=262144, d_inner 96, S=64, dt_rank 3):
+   K5 forward at R=1 and 2 beside the interleave-copy form it replaces
+   (K2 on interleaved copies, de-interleaved), K5 backward at R=1 and 2
+   with the plain backward over channel slices as in phase 5, both also
+   at stage 3's shape (L=512, d_inner 768 over several channel blocks,
+   S=8); K8 forward at
+   R=2 in the three flag sets of the "proj" chain (slice ungated, reverse
+   + acc, forward + acc + gate), K8 backward at R=1 (its plain backward
+   cannot be split by channel: its peak is measured at L=16384 and the
+   full length must fit the card first). float32 and bfloat16 at the
+   phase-2/5 tiers; times, plain times and bounds.
+12. The compositions at full width, built by
+   ``Config(model=ModelConfig(scan_impl=...)).build_model()`` with the
+   same seed-0 weights: "dir2", "dir", "dir" with ``slice_kernel=True``
+   set on every MambaV3 (K5) and "proj" (K8 at stage 0, K1/K2 deeper):
+   the float32 window's logits vs dir2's (rtol 2e-4, atol 1e-4 x
+   max|dir2|; the compositions rearrange one computation, and on an
+   H100 they differ by 4.3e-6 to 4.6e-6 at a max|dir2| of 5.2), the
+   bfloat16 window's relative L2 vs dir2's (<= 1.5e-2; 7.0e-3 there), exact
+   launch counts per window and per bench case, ms per
+   window and s/case (median of 3), each in turn.
+13. The recipe train step (phase 7's) under the same four compositions in
+   turn: s/step (median of 4 after a warm-up), peak memory, losses
+   finite and falling over 5 steps, exact forward and backward launches
+   per step; the forward and backward ms of a stage-0 and a stage-1
+   Mamba layer run alone.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
 non-zero before printing any result.
@@ -110,6 +142,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -122,6 +155,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from segmamba_tpu_torch.config import Config, ModelConfig
 from segmamba_tpu_torch.data import (
     MedicalDataset,
     PatchSampler,
@@ -129,10 +163,16 @@ from segmamba_tpu_torch.data import (
 )
 from segmamba_tpu_torch.data.synthetic import write_synthetic_cases
 from segmamba_tpu_torch.infer import sliding_window_inference
-from segmamba_tpu_torch.models import MambaLMHeadModel, SegMamba
+from segmamba_tpu_torch.models import MambaLMHeadModel, MambaV3, SegMamba
 from segmamba_tpu_torch.models.mamba import _dt_bias_init
 from segmamba_tpu_torch.models.segmamba import _call
-from segmamba_tpu_torch.ops import _build, scan_core, scan_dir, scan_fused
+from segmamba_tpu_torch.ops import (
+    _build,
+    scan_core,
+    scan_dir,
+    scan_fused,
+    scan_proj,
+)
 from segmamba_tpu_torch.train import poly_schedule
 from segmamba_tpu_torch.train.__main__ import main as train_main
 from segmamba_tpu_torch.train.losses import cross_entropy_loss
@@ -145,6 +185,8 @@ from segmamba_tpu_torch.utils.hf import from_pretrained
 
 SOURCES = {"fwd": "segmamba_tpu_torch/csrc/gated_scan_fwd.cu",
            "bwd": "segmamba_tpu_torch/csrc/gated_scan_bwd.cu"}
+PROJ_SOURCES = {"fwd": "segmamba_tpu_torch/csrc/proj_scan_fwd.cu",
+                "bwd": "segmamba_tpu_torch/csrc/proj_scan_bwd.cu"}
 REPLACES = {
     "scan_dir": "segmamba_tpu/ops/scan_pallas_dir.py:60",
     "scan_fused": "segmamba_tpu/ops/scan_pallas_fused.py:42",
@@ -160,6 +202,7 @@ REDUCED = ("dA", "dB", "dC", "dD", "dbias")
 PLAIN_BWD_SHARE = 0.75        # of the card's free memory, per plain slice
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12        # float32 outside the tensor cores (data sheet)
+BF16_TC_FLOP_PER_S = 989e12   # bf16 on the tensor cores, dense (data sheet)
 VARIANTS = {
     "dir_reverse": ("scan_dir", dict(reverse=True, gate=False)),
     "dir_gate_acc": ("scan_dir", dict(gate=True, acc=True)),
@@ -176,6 +219,19 @@ CORE_SHAPES = {"prefill": (2, 2048, 5120), "ragged": (1, 2000, 5120)}
 CORE_REPLACES = {"fwd": "segmamba_tpu/ops/scan_pallas.py:162",
                  "bwd": "segmamba_tpu/ops/scan_pallas.py:194"}
 CORE_GRADS = ("du", "ddelta", "dA", "dB", "dC")
+CORE_N_SHAPE = (1, 2048, 1024)     # phase 9: K6 at N != 16 (state groups)
+SLICE_REPLACES = {"fwd": "segmamba_tpu/ops/scan_pallas_dir.py:477",
+                  "bwd": "segmamba_tpu/ops/scan_pallas_dir.py:514"}
+PROJ_REPLACES = {"fwd": "segmamba_tpu/ops/scan_pallas_proj.py:71",
+                 "bwd": "segmamba_tpu/ops/scan_pallas_proj.py:134"}
+STAGE0 = (262144, 96, 64, 3)       # L, d_inner, nslices, dt_rank
+PROJ_CHAIN = {                     # K8's flag sets on the "proj" chain
+    "slice": dict(z=False, acc=False, reverse=False),
+    "reverse_acc": dict(z=False, acc=True, reverse=True),
+    "forward_acc_gate": dict(z=True, acc=True, reverse=False),
+}
+COMPOSITIONS = ("dir2", "dir", "dir_slice", "proj")   # phases 12 and 13
+PROJ_PLAIN_SHARE = 0.85            # of free memory, the plain K8 backward
 LM_CONFIG = dict(vocab_size=50277, d_model=2560, n_layer=64, rms_norm=True,
                  pad_vocab_size_multiple=8)   # state-spaces/mamba-2.8b
 LM_CHECK = (2, 512)                # batch, prompt: float32 kernel vs plain
@@ -214,14 +270,18 @@ def cuda_ms(fn, reps, warmup=1):
 def plain_scans():
     """Route the model's scans to the plain PyTorch versions (comparison
     only; the wrappers' launch counters must not move)."""
-    saved = scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused
+    names = ((scan_dir, "mamba_scan_fused_dir"),
+             (scan_dir, "mamba_scan_fused_slice"),
+             (scan_fused, "mamba_scan_fused"), (scan_proj, "mamba_scan_proj"))
+    saved = [getattr(mod, n) for mod, n in names]
     counts = launch_counts()
-    scan_dir.mamba_scan_fused_dir = scan_dir.mamba_scan_fused_dir_ref
-    scan_fused.mamba_scan_fused = scan_fused.mamba_scan_fused_ref
+    for mod, n in names:
+        setattr(mod, n, getattr(mod, f"{n}_ref"))
     try:
         yield
     finally:
-        scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused = saved
+        for (mod, n), fn in zip(names, saved):
+            setattr(mod, n, fn)
     if launch_counts() != counts:
         raise AssertionError("a kernel launched inside plain_scans()")
 
@@ -231,7 +291,11 @@ def launch_counts():
             "scan_dir_bwd": scan_dir.BWD_LAUNCHES,
             "scan_fused_bwd": scan_fused.BWD_LAUNCHES,
             "scan_core": scan_core.LAUNCHES,
-            "scan_core_bwd": scan_core.BWD_LAUNCHES}
+            "scan_core_bwd": scan_core.BWD_LAUNCHES,
+            "scan_dir_slice": scan_dir.SLICE_LAUNCHES,
+            "scan_dir_slice_bwd": scan_dir.SLICE_BWD_LAUNCHES,
+            "scan_proj": scan_proj.LAUNCHES,
+            "scan_proj_bwd": scan_proj.BWD_LAUNCHES}
 
 
 def expected_counts(**nonzero):
@@ -240,9 +304,9 @@ def expected_counts(**nonzero):
 
 
 def reset_counts():
-    scan_dir.LAUNCHES = scan_fused.LAUNCHES = scan_core.LAUNCHES = 0
-    scan_dir.BWD_LAUNCHES = scan_fused.BWD_LAUNCHES = 0
-    scan_core.BWD_LAUNCHES = 0
+    for mod in (scan_dir, scan_fused, scan_core, scan_proj):
+        mod.LAUNCHES = mod.BWD_LAUNCHES = 0
+    scan_dir.SLICE_LAUNCHES = scan_dir.SLICE_BWD_LAUNCHES = 0
 
 
 def check_close(name, got, want, rtol, atol):
@@ -453,11 +517,13 @@ def grad_check(tag, got, want, dtype):
     return worst
 
 
-def plain_bwd_sliced(seq, params, dout, *, gate, reverse, width):
-    """The plain backward over channel slices of ``width``, run in turn.
-    The scan's channels are independent: du, ddt, dz, dacc, dA, dD and
-    dbias are the slices' results side by side, and dB, dC (sums over
-    channels) are the sums of the slices' results."""
+def plain_bwd_sliced(seq, params, dout, *, gate, reverse, width,
+                     nslices=0):
+    """The plain backward (dir, or with ``nslices`` the slice-order scan)
+    over channel slices of ``width``, run in turn. The scan's channels are
+    independent: du, ddt, dz, dacc, dA, dD and dbias are the slices'
+    results side by side, and dB, dC (sums over channels) are the sums of
+    the slices' results."""
     dim = seq["u"].shape[-1]
     parts = []
     for d0 in range(0, dim, width):
@@ -466,10 +532,11 @@ def plain_bwd_sliced(seq, params, dout, *, gate, reverse, width):
         def ch(t):
             return None if t is None else t[..., sl]
 
-        parts.append(scan_dir.mamba_scan_fused_dir_bwd_ref(
-            ch(seq["u"]), ch(seq["dt"]), ch(seq["z"]), params[0][sl],
-            seq["B"], seq["C"], params[1][sl], params[2][sl], ch(dout),
-            acc=ch(seq["acc"]), gate=gate, reverse=reverse))
+        parts.append(scan_dir._plain_bwd(
+            ch(seq["u"]), ch(seq["dt"]), ch(seq["z"]), ch(seq["acc"]),
+            params[0][sl], seq["B"], seq["C"], params[1][sl], params[2][sl],
+            ch(dout), gate=gate, reverse=reverse,
+            chunk_size=scan_dir.DEF_CHUNK, nslices=nslices))
     out = []
     for name, gs in zip(GRADS, zip(*parts)):
         if gs[0] is None:
@@ -586,6 +653,7 @@ def phase_backward(results):
         if shape_name == "stage3":
             log(f"plain backward: {bytes_per_elem:.1f} bytes of peak memory "
                 "per (row, step, channel, state) at stage 3")
+    return bytes_per_elem
 
 
 def param_grads(model, x, labels):
@@ -696,21 +764,21 @@ SPLIT_MODULES = (
     + [f"decoder{i}" for i in range(5, 0, -1)] + ["out"])
 
 
-def module_split(model, image):
-    """Forward and backward ms of each top-level module, run alone on the
+def module_split(model, image, names=SPLIT_MODULES):
+    """Forward and backward ms of each named module, run alone on the
     inputs it saw (CUDA events; the UNETR blocks with their remat)."""
     mods = dict(model.named_modules())
     seen = {}
     hooks = [mods[n].register_forward_pre_hook(
         lambda m, args, n=n: seen.setdefault(
             n, tuple(t.detach() for t in args)))
-        for n in SPLIT_MODULES]
+        for n in names]
     with torch.no_grad():
         model(image)
     for h in hooks:
         h.remove()
     rows = []
-    for n in SPLIT_MODULES:
+    for n in names:
         mod, remat = mods[n], n.startswith(("encoder", "decoder"))
         times = []
         for _ in range(2):   # the first run warms up
@@ -1182,6 +1250,501 @@ def profile_decode(model, ids, steps=8):
                 decode_launches=launches)
 
 
+def proj_bound(direction, flags, R, L, E, rank, dtype):
+    """Least time (ms) of one K8 call and what bounds it, as
+    ``scan_bound``: bytes of xc (and z, acc) read once and of the output
+    written once (backward: dout and the states read, dxc, dz, dacc and the
+    weight gradients written), against its operations at the peak rate of
+    their type. The scan's are float32: per (step, channel, state) 8
+    forward / 25 backward, plus 16 per (step, channel), and the delta
+    product 2 R E per step and row (three times backward: recomputed, and
+    its two adjoints). The x_proj product, 2 E (R + 2N) per step and row
+    (three times backward likewise), is bf16 x bf16 -> f32 when the I/O is
+    bf16, which the tensor cores run at BF16_TC_FLOP_PER_S, else float32.
+    The two units run side by side, so the operations' time is the larger
+    of theirs."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    seq = R * L * E
+    z, acc = flags["z"], flags["acc"]
+    ncol = rank + 2 * N
+    params = (E * ncol + rank * E + E * N + 2 * E) * 4
+    times = 1 if direction == "fwd" else 3
+    xproj_ops = times * R * L * 2 * E * ncol
+    f32_ops = times * R * L * 2 * rank * E
+    if direction == "fwd":
+        nbytes = (2 + z + acc) * seq * es + params
+        f32_ops += seq * (8 * N + 16)
+    else:
+        states = R * -(-L // scan_proj.DEF_CHUNK) * N * E * 4
+        n_seq = (2 + z + (z and acc)) + (1 + z + (z and acc))
+        nbytes = n_seq * seq * es + states + 2 * params
+        f32_ops += seq * (25 * N + 16)
+    if dtype == torch.bfloat16:
+        t_ops = max(f32_ops / F32_FLOP_PER_S, xproj_ops / BF16_TC_FLOP_PER_S)
+    else:
+        t_ops = (f32_ops + xproj_ops) / F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def proj_inputs(R, L, E, rank, dtype, seed):
+    """K8's operands in the model's ranges: unit-normal xc, z, acc, x_proj
+    N(0, 0.1^2), dt_proj N(0, 0.3^2), the model's dt-bias init, S4D-like
+    A, unit-normal D."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cpu_g = torch.Generator().manual_seed(seed)
+    rn = lambda *s, sc=1.0: sc * torch.randn(*s, generator=g, device="cuda")
+    A = -torch.arange(1, N + 1, dtype=torch.float32).repeat(E, 1)
+    A = (A * torch.exp(0.1 * torch.randn(E, N, generator=cpu_g))).cuda()
+    bias = _dt_bias_init((E,), 0.001, 0.1, 1e-4, cpu_g).cuda()
+    return dict(xc=rn(R, L, E).to(dtype), z=rn(R, L, E).to(dtype),
+                acc=rn(R, L, E).to(dtype),
+                x_proj=rn(E, rank + 2 * N, sc=0.1).to(dtype),
+                dt_proj=rn(rank, E, sc=0.3), dt_bias=bias, A=A, D=rn(E))
+
+
+PROJ_ARGS = ("xc", "x_proj", "dt_proj", "dt_bias", "A", "D")
+PROJ_GRADS = ("dxc", "dx_proj", "ddt_proj", "ddt_bias", "dA", "dD", "dz",
+              "dacc")
+
+
+SLICE_SHAPES = {"stage0": (262144, 96, 64), "stage3": (512, 768, 8)}
+
+
+def phase_slice_kernel(results, bytes_per_elem):
+    """K5 forward and backward vs plain at the shapes of the first and the
+    last stage (L, E, S = 262144, 96, 64: one channel block; 512, 768, 8:
+    several), each at R = 1 and the train step's 2; fills ``results``.
+    Beside the forward kernel, the interleave-copy form it replaces: K2 on
+    interleaved copies of u, dt, z, B, C and the de-interleave of its
+    output."""
+    for (stage, (L, E, S)), R, dtype in itertools.product(
+            SLICE_SHAPES.items(), (1, 2), (torch.float32, torch.bfloat16)):
+        a = scan_inputs(R, L, E, dtype, seed=L + E + 3 + R)
+        rtol, atol = TOL[dtype]
+        args = (a["u"], a["dt"], a["z"], a["A"], a["B"], a["C"], a["D"],
+                a["bias"])
+        kern = lambda s=False: scan_dir.mamba_scan_fused_slice(
+            *args, nslices=S, return_states=s)
+        plain = lambda s=False: scan_dir.mamba_scan_fused_slice_ref(
+            *args, nslices=S, return_states=s)
+        il = lambda t: scan_dir._interleave(t, S)
+
+        def copy_form():
+            u, dt, z, A, B, C, D, bias = args
+            return scan_dir._deinterleave(scan_fused.mamba_scan_fused(
+                il(u), il(dt), il(z), A, il(B), il(C), D, bias), S)
+
+        out_k, st_k = kern(True)
+        out_p, st_p = plain(True)
+        torch.cuda.synchronize()
+        tag = f"K5 fwd {stage} R={R} {str(dtype)[6:]}"
+        err = check_close(f"{tag} out", out_k, out_p, rtol, atol)
+        err_st = check_close(f"{tag} states", st_k, st_p,
+                             *TOL[torch.float32])
+        err_copy = check_close(f"{tag} vs interleave copy", copy_form(),
+                               out_p, rtol, atol)
+        del out_k, st_k, out_p, st_p
+        ms = cuda_ms(kern, 5)
+        copy_ms = cuda_ms(copy_form, 5)
+        plain_ms = cuda_ms(plain, 3)
+        bound, bound_by = scan_bound("fwd", "fused_gate", R, L, E, dtype)
+        log(f"kernel {tag}: max_abs_err {err:.3e} (states {err_st:.3e}, "
+            f"interleave-copy form {err_copy:.3e}), kernel {ms:.4f} ms, "
+            f"interleave copies + K2 {copy_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        results.append(dict(direction="fwd", stage=stage, R=R,
+                            dtype=str(dtype)[6:],
+                            max_abs_err=max(err, err_st), ms=ms,
+                            copy_ms=copy_ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=bound_by))
+        # backward, the plain backward over channel slices as in
+        # phase 5
+        g = torch.Generator(device="cuda").manual_seed(L + R)
+        dout = torch.randn(R, L, E, generator=g, device="cuda").to(dtype)
+        leaves = [t.detach().requires_grad_() for t in args]
+        before = scan_dir.SLICE_BWD_LAUNCHES
+        out = scan_dir.mamba_scan_fused_slice(*leaves, nslices=S)
+        if out.grad_fn is None:
+            raise AssertionError(f"{tag}: no grad_fn")
+        out.backward(dout)
+        if scan_dir.SLICE_BWD_LAUNCHES != before + 1:
+            raise AssertionError(f"{tag}: backward launches "
+                                 f"{scan_dir.SLICE_BWD_LAUNCHES - before}")
+        lu, ldt, lz, lA, lB, lC, lD, lb = leaves
+        got = (lu.grad, ldt.grad, lz.grad, None, lA.grad, lB.grad,
+               lC.grad, lD.grad, lb.grad)
+        del out, leaves
+        torch.cuda.empty_cache()
+        budget = PLAIN_BWD_SHARE * torch.cuda.mem_get_info()[0]
+        width = math.ceil(E / math.ceil(
+            bytes_per_elem * R * L * E * N / budget))
+        seq = dict(u=a["u"], dt=a["dt"], z=a["z"], acc=None, B=a["B"],
+                   C=a["C"])
+        params = (a["A"], a["D"], a["bias"])
+
+        def plain_bwd():
+            return plain_bwd_sliced(seq, params, dout, gate=True,
+                                    reverse=False, width=width,
+                                    nslices=S)
+
+        want = plain_bwd()
+        tag = f"K5 bwd {stage} R={R} {str(dtype)[6:]}"
+        err = grad_check(tag, got, want, dtype)
+        del got, want
+        _, states = scan_dir._launch(
+            a["u"], a["dt"], a["z"], None, a["A"], a["B"], a["C"],
+            a["D"], a["bias"], reverse=False, gate=True,
+            chunk_size=scan_dir.DEF_CHUNK, return_states=True,
+            nslices=S)
+        ms = cuda_ms(lambda: scan_dir._launch_bwd(
+            a["u"], a["dt"], a["z"], None, a["A"], a["B"], a["C"],
+            a["D"], a["bias"], dout, states, reverse=False, gate=True,
+            chunk_size=scan_dir.DEF_CHUNK, nslices=S), 5)
+        plain_ms = cuda_ms(plain_bwd, 2)
+        bound, bound_by = scan_bound("bwd", "fused_gate", R, L, E, dtype)
+        log(f"kernel {tag}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (channel slices of {width}), "
+            f"bound {bound:.4f} ms ({bound_by})")
+        results.append(dict(direction="bwd", stage=stage, R=R,
+                            dtype=str(dtype)[6:],
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=bound_by))
+        del a, dout, states
+        torch.cuda.empty_cache()
+
+
+def proj_plain_bwd(a, flags, dout):
+    kw = dict(z=a["z"] if flags["z"] else None,
+              acc=a["acc"] if flags["acc"] else None,
+              reverse=flags["reverse"])
+    return scan_proj.mamba_scan_proj_bwd_ref(*(a[k] for k in PROJ_ARGS),
+                                             dout, **kw)
+
+
+def phase_proj_kernel(results):
+    """K8 forward (R = 2) and backward (R = 1) vs plain at stage 0, in the
+    three flag sets of the "proj" chain; fills ``results``. The plain
+    backward cannot be split by channel (the projections mix them): its
+    peak per (row, step, channel, state) is measured at L = 16384 first,
+    and the full length must fit in PROJ_PLAIN_SHARE of free memory."""
+    L, E, _, rank = STAGE0
+    for dtype in (torch.float32, torch.bfloat16):
+        a = proj_inputs(2, L, E, rank, dtype, seed=L + 7)
+        rtol, atol = TOL[dtype]
+        for fname, flags in PROJ_CHAIN.items():
+            kw = dict(z=a["z"] if flags["z"] else None,
+                      acc=a["acc"] if flags["acc"] else None,
+                      reverse=flags["reverse"])
+            args = [a[k] for k in PROJ_ARGS]
+            kern = lambda s=False: scan_proj.mamba_scan_proj(
+                *args, return_states=s, **kw)
+            plain = lambda s=False: scan_proj.mamba_scan_proj_ref(
+                *args, return_states=s, **kw)
+            out_k, st_k = kern(True)
+            out_p, st_p = plain(True)
+            torch.cuda.synchronize()
+            tag = f"K8 fwd {fname} R=2 {str(dtype)[6:]}"
+            err = check_close(f"{tag} out", out_k, out_p, rtol, atol)
+            err_st = check_close(f"{tag} states", st_k, st_p,
+                                 *TOL[torch.float32])
+            del out_k, st_k, out_p, st_p
+            ms = cuda_ms(kern, 5)
+            plain_ms = cuda_ms(plain, 3)
+            bound, bound_by = proj_bound("fwd", flags, 2, L, E, rank, dtype)
+            log(f"kernel {tag}: max_abs_err {err:.3e} (states {err_st:.3e}),"
+                f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({bound_by})")
+            results.append(dict(direction="fwd", variant=fname,
+                                dtype=str(dtype)[6:],
+                                max_abs_err=max(err, err_st), ms=ms,
+                                plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=bound_by))
+        del a
+        torch.cuda.empty_cache()
+
+    # the plain backward's peak at a short length, then the full length
+    short = 16384
+    a = proj_inputs(1, short, E, rank, torch.float32, seed=5)
+    dout = torch.randn(1, short, E, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    proj_plain_bwd(a, PROJ_CHAIN["forward_acc_gate"], dout)
+    torch.cuda.synchronize()
+    per_elem = (torch.cuda.max_memory_allocated() - base) / (short * E * N)
+    del a, dout
+    torch.cuda.empty_cache()
+    need = per_elem * L * E * N
+    free = torch.cuda.mem_get_info()[0]
+    log(f"K8 plain backward: {per_elem:.1f} bytes of peak per (row, step, "
+        f"channel, state) at L = {short}; {need / 2 ** 30:.1f} GiB predicted "
+        f"at R = 1, L = {L}, {free / 2 ** 30:.1f} GiB free")
+    if need > PROJ_PLAIN_SHARE * free:
+        raise AssertionError("K8 plain backward at the full length does not "
+                             "fit the card")
+    for dtype in (torch.float32, torch.bfloat16):
+        a = proj_inputs(1, L, E, rank, dtype, seed=L + 8)
+        g = torch.Generator(device="cuda").manual_seed(L + 9)
+        dout = torch.randn(1, L, E, generator=g, device="cuda").to(dtype)
+        for fname, flags in PROJ_CHAIN.items():
+            names = list(PROJ_ARGS) + [k for k in ("z", "acc") if flags[k]]
+            leaves = {k: a[k].detach().requires_grad_() for k in names}
+            before = scan_proj.BWD_LAUNCHES
+            out = scan_proj.mamba_scan_proj(
+                *(leaves[k] for k in PROJ_ARGS), z=leaves.get("z"),
+                acc=leaves.get("acc"), reverse=flags["reverse"])
+            if out.grad_fn is None:
+                raise AssertionError(f"K8 {fname}: no grad_fn")
+            out.backward(dout)
+            if scan_proj.BWD_LAUNCHES != before + 1:
+                raise AssertionError(f"K8 {fname}: backward launches "
+                                     f"{scan_proj.BWD_LAUNCHES - before}")
+            got = [leaves[k].grad if k in leaves else None
+                   for k in list(PROJ_ARGS) + ["z", "acc"]]
+            del out, leaves
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            want = proj_plain_bwd(a, flags, dout)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            tag = f"K8 bwd {fname} R=1 {str(dtype)[6:]}"
+            rtol, atol = TOL[dtype]
+            err, rel = 0.0, []
+            for name, gk, w in zip(PROJ_GRADS, got, want):
+                if w is None:
+                    continue
+                scale = max(1.0, float(w.abs().max()))
+                big = name in ("dxc", "dz", "dacc")
+                e = check_close(f"{tag} {name}", gk, w, rtol,
+                                atol if big else atol * scale)
+                err = max(err, e)
+                rel.append(f"{name} {e / scale:.1e}")
+            del got, want
+            torch.cuda.empty_cache()
+            kw = dict(z=a["z"] if flags["z"] else None,
+                      acc=a["acc"] if flags["acc"] else None)
+            _, states = scan_proj._launch(
+                *(a[k] for k in PROJ_ARGS), kw["z"], kw["acc"],
+                reverse=flags["reverse"], chunk_size=scan_proj.DEF_CHUNK,
+                return_states=True)
+            ms = cuda_ms(lambda: scan_proj._launch_bwd(
+                *(a[k] for k in PROJ_ARGS), kw["z"], kw["acc"], dout, states,
+                reverse=flags["reverse"], chunk_size=scan_proj.DEF_CHUNK), 5)
+            plain_ms = cuda_ms(lambda: proj_plain_bwd(a, flags, dout), 2)
+            bound, bound_by = proj_bound("bwd", flags, 1, L, E, rank, dtype)
+            log(f"kernel {tag}: max_abs_err {err:.3e} (per gradient, over "
+                f"max(1, max|plain|): {', '.join(rel)}), kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms (peak {peak / 2 ** 30:.2f} GiB), "
+                f"bound {bound:.4f} ms ({bound_by})")
+            results.append(dict(direction="bwd", variant=fname,
+                                dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=bound,
+                                bound_by=bound_by))
+            del states
+            torch.cuda.empty_cache()
+        del a, dout
+        torch.cuda.empty_cache()
+
+
+def build_composition(comp, dtype, remat=False):
+    """The full-width SegMamba built through ``Config.build_model`` with
+    seed-0 weights (the same for every composition): "dir2", "dir", "proj",
+    or "dir_slice" (``scan_impl="dir"`` with ``slice_kernel=True`` set on
+    every MambaV3)."""
+    impl = "dir" if comp == "dir_slice" else comp
+    cfg = Config(model=ModelConfig(scan_impl=impl, remat=remat,
+                                   dtype=str(dtype)[6:]))
+    model = cfg.build_model(device="cuda",
+                            generator=torch.Generator().manual_seed(0))
+    if comp == "dir_slice":
+        for m in model.modules():
+            if isinstance(m, MambaV3):
+                m.slice_kernel = True
+    return model
+
+
+def composition_counts(comp, per):
+    """Scan launches of one pass through the 8 Mamba layers (2 at stage 0,
+    d_inner 96), times ``per``; ``bwd`` adds the backward's."""
+    fwd = {"dir2": dict(scan_dir=16, scan_fused=8),
+           "dir": dict(scan_dir=16, scan_fused=8),
+           "dir_slice": dict(scan_dir=16, scan_dir_slice=8),
+           "proj": dict(scan_proj=6, scan_dir=12, scan_fused=6)}[comp]
+    return {k: v * per for k, v in fwd.items()}
+
+
+def phase_compositions():
+    """Full-width forwards and the bench case under each composition:
+    float32 window logits vs dir2's (kernel paths, same weights), bfloat16
+    window logits vs dir2's (relative L2), exact launch counts, ms per
+    window and s/case, each in turn in this call."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 4, *ROI)).astype(np.float32)).cuda()
+    case = np.moveaxis(rng.standard_normal((1, *CASE_SHAPE, 4)), -1, 1)
+    case = torch.from_numpy(case.astype(np.float32)).cuda()
+    stats, ref = {}, {}
+    for comp in COMPOSITIONS:
+        model = build_composition(comp, torch.float32).eval()
+        with torch.inference_mode():
+            y32 = model(x)
+        del model
+        model = build_composition(comp, torch.bfloat16).eval()
+        with torch.inference_mode():
+            reset_counts()
+            y16 = model(x)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if counts != expected_counts(**composition_counts(comp, 1)):
+                raise AssertionError(f"{comp}: window launches {counts}")
+            if not (torch.isfinite(y32).all() and torch.isfinite(y16).all()):
+                raise AssertionError(f"{comp}: logits not finite")
+            if comp == "dir2":
+                ref = dict(y32=y32, y16=y16)
+                err32 = rel16 = 0.0
+            else:
+                scale = float(ref["y32"].abs().max())
+                err32 = check_close(f"{comp} f32 window vs dir2", y32,
+                                    ref["y32"], 2e-4, 1e-4 * scale)
+                rel16 = rel_l2(y16, ref["y16"])
+                if not rel16 <= 1.5e-2:
+                    raise AssertionError(f"{comp}: bf16 window logits vs "
+                                         f"dir2 relative L2 {rel16}")
+            ms = cuda_ms(lambda: model(x), 3)
+
+            def run():
+                return sliding_window_inference(
+                    case, ROI, model, overlap=0.5, sw_batch_size=1,
+                    compute_dtype=torch.bfloat16)
+
+            reset_counts()
+            out = run()
+            torch.cuda.synchronize()
+            case_counts = launch_counts()
+            if case_counts != expected_counts(**composition_counts(comp, 8)):
+                raise AssertionError(f"{comp}: case launches {case_counts}")
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{comp}: case logits not finite")
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            sec = statistics.median(times)
+            log(f"composition {comp}: f32 window vs dir2 max abs err "
+                f"{err32:.3e}, bf16 window vs dir2 relative L2 {rel16:.3e}; "
+                f"{ms:.2f} ms/window; {sec:.4f} s/case (median of 3: "
+                f"{', '.join(f'{t:.4f}' for t in times)}); launches per "
+                f"window {counts}, per case {case_counts}")
+            stats[comp] = dict(ms_per_window=ms, sec_per_case=sec,
+                               case_counts=case_counts, err32=err32,
+                               rel16=rel16)
+            del model, out, y32, y16
+            torch.cuda.empty_cache()
+    return stats
+
+
+def phase_composition_train():
+    """The recipe train step (phase 7's) under each composition, in turn:
+    s/step (median of 4 after one warm-up), peak memory, losses finite and
+    falling, exact forward and backward launches per step; then the
+    forward and backward ms of a stage-0 and a stage-1 Mamba layer run
+    alone (where the compositions differ)."""
+    rng = np.random.default_rng(0)
+    batch = {
+        "image": torch.from_numpy(rng.standard_normal(
+            (2, 4, *ROI)).astype(np.float32)).cuda(),
+        "label": torch.from_numpy(rng.integers(0, 4, (2, *ROI))).cuda()}
+    stats = {}
+    for comp in COMPOSITIONS:
+        model = build_composition(comp, torch.bfloat16, remat="convs")
+        state = create_train_state(
+            model, learning_rate=poly_schedule(1e-2, 1000 * 250))
+        fwd = composition_counts(comp, 1)
+        per_step = expected_counts(**fwd, **{f"{k}_bwd": v
+                                             for k, v in fwd.items()})
+        losses, times = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(5):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts = launch_counts()
+            if counts != per_step:
+                raise AssertionError(f"{comp} step {i}: launches {counts}, "
+                                     f"expected {per_step}")
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{comp}: losses {losses} not finite or "
+                                 "not falling")
+        sec = statistics.median(times[1:])
+        rows = module_split(model, batch["image"],
+                            ["vit.stages.0.0", "vit.stages.1.0"])
+        log(f"train step {comp}: {sec:.4f} s/step (median of 4 after a "
+            f"warm-up: {', '.join(f'{t:.4f}' for t in times[1:])}); peak "
+            f"{peak:.2f} GiB; losses {', '.join(f'{v:.5f}' for v in losses)}"
+            f"; launches per step {counts}; alone: " + ", ".join(
+                f"{n} fwd {f:.3f} ms bwd {b:.3f} ms" for n, f, b in rows))
+        stats[comp] = dict(sec=sec, peak_gib=peak, counts=counts)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
+def phase_core_groups():
+    """K6 at N = 4 and N = 64 (groups of 16 states) vs its plain version,
+    forward and backward, at CORE_N_SHAPE."""
+    R, L, D = CORE_N_SHAPE
+    T = scan_core.DEF_CHUNK
+    rtol, atol = TOL[torch.float32]
+    for n in (4, 64):
+        g = torch.Generator(device=DEVICE).manual_seed(n)
+        u = torch.randn(R, L, D, generator=g, device=DEVICE)
+        delta = torch.nn.functional.softplus(
+            0.5 * torch.randn(R, L, D, generator=g, device=DEVICE) - 2.0)
+        A = -torch.exp(0.5 * torch.randn(D, n, generator=g, device=DEVICE))
+        B = torch.randn(R, L, n, generator=g, device=DEVICE)
+        C = torch.randn(R, L, n, generator=g, device=DEVICE)
+        dy = torch.randn(R, L, D, generator=g, device=DEVICE)
+        dlast = torch.randn(R, D, n, generator=g, device=DEVICE)
+        y, st = scan_core._launch(u, delta, A, B, C, T)
+        y_p, st_p = scan_core.selective_scan_core_ref(u, delta, A, B, C, T,
+                                                      return_states=True)
+        err = max(check_close(f"K6 N={n} y", y, y_p, rtol, atol),
+                  check_close(f"K6 N={n} states", st, st_p, rtol, atol))
+        leaves = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
+        before = scan_core.LAUNCHES, scan_core.BWD_LAUNCHES
+        out, last = scan_core.selective_scan_kernel(*leaves,
+                                                    return_last_state=True)
+        torch.autograd.backward((out, last), (dy, dlast))
+        groups = -(-n // 16)
+        if (scan_core.LAUNCHES - before[0],
+                scan_core.BWD_LAUNCHES - before[1]) != (groups, groups):
+            raise AssertionError(f"K6 N={n}: launches per call")
+        want = scan_core.selective_scan_core_bwd_ref(u, delta, A, B, C, dy,
+                                                     dlast, T)
+        for name, leaf, w in zip(CORE_GRADS, leaves, want):
+            a = atol * max(1.0, float(w.abs().max())) \
+                if name in ("dA", "dB", "dC") else atol
+            err = max(err, check_close(f"K6 N={n} {name}", leaf.grad, w,
+                                       rtol, a))
+        ms = cuda_ms(lambda: scan_core._launch(u, delta, A, B, C, T), 5)
+        log(f"K6 N={n} {CORE_N_SHAPE} ({groups} launch(es) of 16 states): "
+            f"max_abs_err {err:.3e}, forward {ms:.4f} ms")
+        del u, delta, A, B, C, dy, dlast, y, st, y_p, st_p, leaves, want
+        torch.cuda.empty_cache()
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1195,13 +1758,16 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{kind}, count {torch.cuda.device_count()}")
-    # one nvcc per source, both started together (threads wait on them)
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(scan_dir._lib), pool.submit(scan_dir._bwd_lib)]:
+    # one nvcc per source, all started together (threads wait on them)
+    loaders = (scan_dir._lib, scan_dir._bwd_lib, scan_proj._lib,
+               scan_proj._bwd_lib)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for f in [pool.submit(fn) for fn in loaders]:
             f.result()
-    for name in ("gated_scan_fwd", "gated_scan_bwd"):
+    for name in ("gated_scan_fwd", "gated_scan_bwd", "proj_scan_fwd",
+                 "proj_scan_bwd"):
         info = _build.BUILD_INFO[name]
-        log(f"built {name} in {info['seconds']:.1f} s (both sources in "
+        log(f"built {name} in {info['seconds']:.1f} s (all four sources in "
             "parallel)")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line.lower():
@@ -1223,7 +1789,7 @@ def main():
 
     t0 = time.perf_counter()
     bwd_results = []
-    phase_backward(bwd_results)
+    bytes_per_elem = phase_backward(bwd_results)
     log(f"phase 5 (backward kernels vs plain): "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1244,16 +1810,41 @@ def main():
     t0 = time.perf_counter()
     core_results = []
     phase_core(core_results)
-    log(f"phase 9 (K6 vs plain): {time.perf_counter() - t0:.1f} s")
+    phase_core_groups()
+    log(f"phase 9 (K6 vs plain, N = 16 and state groups): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     lm_stats = phase_lm()
     log(f"phase 10 (Mamba LM serving, mamba-2.8b width): "
         f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    slice_results, proj_results = [], []
+    phase_slice_kernel(slice_results, bytes_per_elem)
+    phase_proj_kernel(proj_results)
+    log(f"phase 11 (K5 and K8 vs plain): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    comp_stats = phase_compositions()
+    log(f"phase 12 (compositions: windows and the case): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    comp_train = phase_composition_train()
+    log(f"phase 13 (compositions: train step): "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s; ms per window "
         f"{model_stats['ms_per_window']:.2f}; s/step "
         f"{train_stats['sec']:.4f}; LM decode ms/token "
         f"{lm_stats['decode_ms']:.3f}")
+    log("compositions (s/case, s/step, peak GiB of the step): " + "; ".join(
+        f"{c} {comp_stats[c]['sec_per_case']:.4f}, "
+        f"{comp_train[c]['sec']:.4f}, {comp_train[c]['peak_gib']:.2f}"
+        for c in COMPOSITIONS))
 
     train_launches = train_stats["launches"]
     kernels = []
@@ -1301,6 +1892,44 @@ def main():
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=None, variant="core", launches_by_path=by_path))
+    for direction in ("fwd", "bwd"):
+        rows = [r for r in slice_results if r["direction"] == direction]
+        main_row = next(r for r in rows if r["stage"] == "stage0"
+                        and r["R"] == (1 if direction == "fwd" else 2)
+                        and r["dtype"] == "bfloat16")
+        if direction == "fwd":
+            by_path = {"inference_case": comp_stats["dir_slice"][
+                "case_counts"]["scan_dir_slice"]}
+        else:
+            by_path = {"train_step": comp_train["dir_slice"]["counts"][
+                "scan_dir_slice_bwd"]}
+        kernels.append(dict(
+            name=f"gated_scan_{direction}[scan_dir_slice]", route="cuda",
+            source=SOURCES[direction], replaces=SLICE_REPLACES[direction],
+            launches=next(iter(by_path.values())),
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=None, variant="slice", launches_by_path=by_path))
+    for direction in ("fwd", "bwd"):
+        rows = [r for r in proj_results if r["direction"] == direction]
+        main_row = next(r for r in rows if r["variant"] == "forward_acc_gate"
+                        and r["dtype"] == "bfloat16")
+        if direction == "fwd":
+            by_path = {"inference_case": comp_stats["proj"]["case_counts"][
+                "scan_proj"]}
+        else:
+            by_path = {"train_step": comp_train["proj"]["counts"][
+                "scan_proj_bwd"]}
+        kernels.append(dict(
+            name=f"proj_scan_{direction}[scan_proj]", route="cuda",
+            source=PROJ_SOURCES[direction], replaces=PROJ_REPLACES[direction],
+            launches=next(iter(by_path.values())),
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=None, variant=main_row["variant"],
+            launches_by_path=by_path))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@
 //       custom VJP of _make_dir_core :350)
 //   K4  segmamba_tpu/ops/scan_pallas_fused.py:73  _bwd_kernel
 //       (= REVERSE=0, GATE=1, HAS_ACC=0; _bwd_call :168, _make_core :225)
+//   K5  segmamba_tpu/ops/scan_pallas_dir.py:514   _slice_bwd_kernel
+//       (= SLICE: REVERSE=0, GATE=1, HAS_ACC=0, scan-order step t at original
+//       row (t mod S) P + floor(t / S); driven by _slice_bwd_call :555 and the
+//       custom VJP of _make_slice_core :680)
 //   K6  segmamba_tpu/ops/scan_pallas.py:194       _bwd_kernel
 //       (= SOFTPLUS=0, REVERSE=0, GATE=0, HAS_ACC=0, float32, D and bias
 //       zero; _bwd_call :281, _make_core :333): the ungated core's adjoint,
@@ -102,6 +106,7 @@ struct Params {
   float* ckpt;           // (R, nc, nsub, NS, D) scratch
   long long R, L, D;
   int T, nc, nsub;
+  unsigned S, P;         // SLICE: slices and positions (L = S P)
   long long su_r, su_l, sdt_r, sdt_l, sz_r, sz_l, sacc_r, sacc_l;
   long long sB_r, sB_l, sC_r, sC_l;
   long long sA_r, sDv_r, sbias_r;
@@ -135,15 +140,25 @@ __device__ __forceinline__ float delta_of(float x) {
   return SOFTPLUS ? softplus_f(x) : x;
 }
 
-// Stage rows [t0, t0 + len) of B and/or C of row r into shared memory.
-template <typename S, bool WITH_B, bool WITH_C>
+// Original row of scan-order step tt: itself, or with SLICE the step's place
+// in the slice-major layout (as in gated_scan_fwd.cu).
+template <bool SLICE>
+__device__ __forceinline__ long long row_of(const Params& p, long long tt) {
+  if (!SLICE) return tt;
+  const unsigned t = (unsigned)tt;
+  return (long long)(t % p.S) * p.P + t / p.S;
+}
+
+// Stage scan-order steps [t0, t0 + len) of B and/or C of row r into shared
+// memory.
+template <typename S, bool WITH_B, bool WITH_C, bool SLICE>
 __device__ __forceinline__ void stage_bc(const Params& p, long long r,
                                          long long t0, int len, float* sB,
                                          float* sC) {
   const S* B = static_cast<const S*>(p.B) + r * p.sB_r;
   const S* C = static_cast<const S*>(p.C) + r * p.sC_r;
   for (int i = threadIdx.x; i < len * NS; i += blockDim.x) {
-    const long long t = t0 + i / NS;
+    const long long t = row_of<SLICE>(p, t0 + i / NS);
     const int n = i % NS;
     if (WITH_B) sB[i] = to_f(B[t * p.sB_l + n]);
     if (WITH_C) sC[i] = to_f(C[t * p.sC_l + n]);
@@ -163,7 +178,7 @@ __device__ __forceinline__ float dy_at(const S* dout, const S* z,
 }
 
 // Pass 1: zero-entry adjoint over each chunk, in reverse scan order.
-template <typename S, bool REVERSE, bool GATE, bool SOFTPLUS>
+template <typename S, bool REVERSE, bool GATE, bool SOFTPLUS, bool SLICE>
 __global__ void bwd_chunk_kernel(Params p) {
   extern __shared__ float smem[];
   float* sC = smem;
@@ -172,7 +187,7 @@ __global__ void bwd_chunk_kernel(Params p) {
   const long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long t0 = (long long)c * p.T;
   const int len = (int)min((long long)p.T, p.L - t0);
-  stage_bc<S, false, true>(p, r, t0, len, nullptr, sC);
+  stage_bc<S, false, true, SLICE>(p, r, t0, len, nullptr, sC);
   if (d >= p.D) return;
 
   float A[NS], g[NS];
@@ -189,7 +204,7 @@ __global__ void bwd_chunk_kernel(Params p) {
   float sd = 0.f;
   for (int i = len - 1; i >= 0; --i) {  // scan order, last step first
     const int t = REVERSE ? len - 1 - i : i;
-    const long long tt = t0 + t;
+    const long long tt = row_of<SLICE>(p, t0 + t);
     const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
     const float dy = dy_at<S, GATE>(dout, z, tt, p.sz_l, p.D);
     sd += delta;
@@ -232,7 +247,8 @@ __global__ void bwd_carry_kernel(Params p) {
 // (SUB ld each: dy, dt + bias, u; u becomes delta u in the walk), with the
 // channel fastest and ld = blockDim.x + 1 so that the per-step sums over
 // channels do not hit one bank.
-template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS>
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
+          bool SLICE>
 __global__ void bwd_grad_kernel(Params p) {
   extern __shared__ float smem[];
   const int nt = blockDim.x;
@@ -251,7 +267,7 @@ __global__ void bwd_grad_kernel(Params p) {
   const long long t0 = (long long)c * p.T;
   const int len = (int)min((long long)p.T, p.L - t0);
   const int vc = REVERSE ? p.nc - 1 - c : c;  // scan-order chunk index
-  stage_bc<S, true, true>(p, r, t0, len, sB, sC);
+  stage_bc<S, true, true, SLICE>(p, r, t0, len, sB, sC);
   const bool on = d < p.D;
 
   float A[NS];
@@ -299,7 +315,7 @@ __global__ void bwd_grad_kernel(Params p) {
         for (int n = 0; n < NS; ++n) ckj[n * p.D] = x[n];
       }
       const int t = REVERSE ? len - 1 - i : i;
-      const long long tt = t0 + t;
+      const long long tt = row_of<SLICE>(p, t0 + t);
       const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
       const float dlu = delta * to_f(u[tt * p.su_l]);
       const float* b = sB + t * NS;
@@ -325,8 +341,8 @@ __global__ void bwd_grad_kernel(Params p) {
   }
   float dDs = 0.f, dbs = 0.f;
   const long long bd = blockIdx.x;
-  float* dBp = p.dB_p + ((bd * p.R + r) * p.L + t0) * NS;
-  float* dCp = p.dC_p + ((bd * p.R + r) * p.L + t0) * NS;
+  float* dBp = p.dB_p + (bd * p.R + r) * p.L * NS;
+  float* dCp = p.dC_p + (bd * p.R + r) * p.L * NS;
 
   for (int j = (len + SUB - 1) / SUB - 1; j >= 0; --j) {
     const int i0 = j * SUB;
@@ -339,7 +355,7 @@ __global__ void bwd_grad_kernel(Params p) {
       for (int n = 0; n < NS; ++n) x[n] = ckj[n * p.D];
       for (int k = 0; k < klen; ++k) {
         const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
-        const long long tt = t0 + t;
+        const long long tt = row_of<SLICE>(p, t0 + t);
         const float dtraw = to_f(dt[tt * p.sdt_l]) + bias;
         const float delta = delta_of<SOFTPLUS>(dtraw);
         const float uu = to_f(u[tt * p.su_l]);
@@ -387,14 +403,14 @@ __global__ void bwd_grad_kernel(Params p) {
       float s = 0.f;
       for (int q = 0; q < nt; ++q) s += xr[q] * dr[q];
       const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
-      dCp[t * NS + n] = s;
+      dCp[row_of<SLICE>(p, t0 + t) * NS + n] = s;
     }
     __syncthreads();
     // adjoint walk, last step of the sub-chunk first
     if (on) {
       for (int k = klen - 1; k >= 0; --k) {
         const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
-        const long long tt = t0 + t;
+        const long long tt = row_of<SLICE>(p, t0 + t);
         const float dtraw = dtrs[k * ld + tid];
         const float delta = delta_of<SOFTPLUS>(dtraw);
         const float uu = us[k * ld + tid];
@@ -433,7 +449,7 @@ __global__ void bwd_grad_kernel(Params p) {
       float s = 0.f;
       for (int q = 0; q < nt; ++q) s += gr[q] * ur[q];
       const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
-      dBp[t * NS + n] = s;
+      dBp[row_of<SLICE>(p, t0 + t) * NS + n] = s;
     }
     __syncthreads();
   }
@@ -452,20 +468,21 @@ size_t grad_smem(int T, int threads) {
   return (2 * (size_t)T * NS + SUB * NS * ld + 3 * SUB * ld) * sizeof(float);
 }
 
-template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS>
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
+          bool SLICE = false>
 cudaError_t launch_grad(const Params& p, dim3 grid, int threads,
                         cudaStream_t stream) {
   const size_t smem = grad_smem(p.T, threads);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS>,
+      bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS>
+  bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>
       <<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename S, bool REVERSE, bool SOFTPLUS>
+template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE = false>
 cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
                    cudaStream_t stream) {
   const dim3 grid((unsigned)((p.D + threads - 1) / threads), (unsigned)p.nc,
@@ -473,14 +490,17 @@ cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
   cudaError_t err;
   if (p.nc > 1) {
     const size_t smem = (size_t)p.T * NS * sizeof(float);
-    if constexpr (!SOFTPLUS)  // K6: ungated
-      bwd_chunk_kernel<S, REVERSE, false, false>
+    if constexpr (SLICE)  // K5: gated
+      bwd_chunk_kernel<S, false, true, true, true>
+          <<<grid, threads, smem, stream>>>(p);
+    else if constexpr (!SOFTPLUS)  // K6: ungated
+      bwd_chunk_kernel<S, REVERSE, false, false, false>
           <<<grid, threads, smem, stream>>>(p);
     else if (gate)
-      bwd_chunk_kernel<S, REVERSE, true, true>
+      bwd_chunk_kernel<S, REVERSE, true, true, false>
           <<<grid, threads, smem, stream>>>(p);
     else
-      bwd_chunk_kernel<S, REVERSE, false, true>
+      bwd_chunk_kernel<S, REVERSE, false, true, false>
           <<<grid, threads, smem, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const dim3 g2((unsigned)((NS * p.D + CARRY_THREADS - 1) / CARRY_THREADS),
@@ -488,7 +508,10 @@ cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
     bwd_carry_kernel<REVERSE><<<g2, CARRY_THREADS, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
+  if constexpr (SLICE) {  // K5: gated, no acc
+    return launch_grad<S, false, true, false, true, true>(p, grid, threads,
+                                                          stream);
+  } else if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
     return launch_grad<S, REVERSE, false, false, false>(p, grid, threads,
                                                         stream);
   } else {
@@ -512,7 +535,8 @@ extern "C" {
 // ckpt holds ceil(T / gated_scan_bwd_sub_len()) sub-chunk checkpoints per
 // chunk: (R, nc, nsub, N, D) float32. dlast (R, N, D) float32 or null seeds
 // the adjoint of the last state in scan order. softplus = 0 is K6's mode:
-// float32, no reverse, no gate, no acc.
+// float32, no reverse, no gate, no acc. nslices > 0 is K5's mode (SLICE,
+// nslices | L): forward, gated, no acc; dB / dC partials at original rows.
 // Returns a cudaError_t value (0 = launched).
 int gated_scan_bwd(const void* u, const void* dt, const void* z,
                    const void* acc, const void* B, const void* C,
@@ -522,13 +546,16 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
                    void* dacc, float* dA_p, float* dD_p, float* dbias_p,
                    float* dB_p, float* dC_p, float* gbuf, float* sdelta,
                    float* ckpt, int is_bf16, int reverse, int gate,
-                   int has_acc, int softplus, long long R, long long L,
-                   long long D, int N, int T, int threads,
+                   int has_acc, int softplus, long long nslices, long long R,
+                   long long L, long long D, int N, int T, int threads,
                    const long long* strides, void* stream) {
   if (N != NS || T < 1 || T > 256 || threads < 32 || threads > 1024 ||
-      threads % 32 != 0 || R < 1 || L < 1 || D < 1 || R > 65535)
+      threads % 32 != 0 || R < 1 || L < 1 || D < 1 || R > 65535 ||
+      L > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (!softplus && (is_bf16 || reverse || gate || has_acc))
+  if (!softplus && (is_bf16 || reverse || gate || has_acc || nslices))
+    return (int)cudaErrorInvalidValue;
+  if (nslices && (nslices < 1 || L % nslices || reverse || !gate || has_acc))
     return (int)cudaErrorInvalidValue;
   const long long nc = (L + T - 1) / T;
   if (nc > 65535) return (int)cudaErrorInvalidValue;
@@ -546,6 +573,8 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
   p.dC_p = dC_p; p.gbuf = gbuf; p.sdelta = sdelta; p.ckpt = ckpt;
   p.R = R; p.L = L; p.D = D; p.T = T; p.nc = (int)nc;
   p.nsub = (T + SUB - 1) / SUB;
+  p.S = nslices ? (unsigned)nslices : 1u;
+  p.P = (unsigned)(L / p.S);
   p.su_r = strides[0]; p.su_l = strides[1];
   p.sdt_r = strides[2]; p.sdt_l = strides[3];
   p.sz_r = strides[4]; p.sz_l = strides[5];
@@ -558,6 +587,11 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
   cudaError_t err;
   if (!softplus)
     err = launch<float, false, false>(p, false, false, threads, st);
+  else if (nslices)
+    err = is_bf16 ? launch<__nv_bfloat16, false, true, true>(p, true, false,
+                                                             threads, st)
+                  : launch<float, false, true, true>(p, true, false, threads,
+                                                     st);
   else if (is_bf16)
     err = reverse ? launch<__nv_bfloat16, true, true>(p, g, a, threads, st)
                   : launch<__nv_bfloat16, false, true>(p, g, a, threads, st);

@@ -5,6 +5,9 @@
 //       (flags REVERSE, GATE, HAS_ACC; entry mamba_scan_fused_dir :382)
 //   K2  segmamba_tpu/ops/scan_pallas_fused.py:42 _fwd_kernel
 //       (= REVERSE=0, GATE=1, HAS_ACC=0; entry mamba_scan_fused :250)
+//   K5  segmamba_tpu/ops/scan_pallas_dir.py:477  _slice_fwd_kernel
+//       (= SLICE: REVERSE=0, GATE=1, HAS_ACC=0 over a slice-major layout;
+//       entry mamba_scan_fused_slice :728)
 //   K6  segmamba_tpu/ops/scan_pallas.py:162      _fwd_kernel
 //       (= SOFTPLUS=0, REVERSE=0, GATE=0, HAS_ACC=0, float32 I/O, D and bias
 //       zero; entry selective_scan_pallas :361): the ungated core
@@ -19,6 +22,14 @@
 //   x_t   = exp(delta A) x_{t-1} + delta B_t u_t  (REVERSE: x_{t+1}, suffix
 //                                                  order, same layout)
 //   y_t   = C_t . x_t + D u_t (+ acc_t) (* silu(z_t))
+// SLICE (K5) runs the scan in slice-interleaved order over the original
+// slice-major layout of S slices x P = L / S positions: scan-order step t
+// reads and writes original row (t mod S) P + floor(t / S) of u, dt, z, B, C
+// and out. No interleaved copy exists; chunks are T steps of the scan order,
+// and every step's channel vector is still contiguous, so a warp's loads
+// coalesce whatever the row order. (The TPU kernel gathers (S, Tp) blocks by
+// strided DMA and transposes them in VMEM; that scheme exists for VMEM and
+// is not carried over.)
 // I/O is float32 or bfloat16 (u, dt, z, acc, B, C and out share one type);
 // A (D x N), D and bias are float32, shared (row stride 0) or per row.
 //
@@ -80,6 +91,7 @@ struct Params {
   float* sdelta;        // (R, nc, D) scratch (nc > 1)
   long long R, L, D;
   int T, nc;
+  unsigned S, P;        // SLICE: slices and positions (L = S P)
   long long su_r, su_l, sdt_r, sdt_l, sz_r, sz_l, sacc_r, sacc_l;
   long long sB_r, sB_l, sC_r, sC_l;
   long long sA_r, sDv_r, sbias_r;
@@ -109,15 +121,25 @@ __device__ __forceinline__ float delta_of(float x) {
   return SOFTPLUS ? softplus_f(x) : x;
 }
 
-// Stage rows [t0, t0 + len) of B (and C) of row r into shared memory.
-template <typename S, bool WITH_C>
+// Original row of scan-order step tt: itself, or with SLICE the step's place
+// in the slice-major layout.
+template <bool SLICE>
+__device__ __forceinline__ long long row_of(const Params& p, long long tt) {
+  if (!SLICE) return tt;
+  const unsigned t = (unsigned)tt;
+  return (long long)(t % p.S) * p.P + t / p.S;
+}
+
+// Stage scan-order steps [t0, t0 + len) of B (and C) of row r into shared
+// memory.
+template <typename S, bool WITH_C, bool SLICE>
 __device__ __forceinline__ void stage_bc(const Params& p, long long r,
                                          long long t0, int len, float* sB,
                                          float* sC) {
   const S* B = static_cast<const S*>(p.B) + r * p.sB_r;
   const S* C = static_cast<const S*>(p.C) + r * p.sC_r;
   for (int i = threadIdx.x; i < len * NS; i += blockDim.x) {
-    const long long t = t0 + i / NS;
+    const long long t = row_of<SLICE>(p, t0 + i / NS);
     const int n = i % NS;
     sB[i] = to_f(B[t * p.sB_l + n]);
     if (WITH_C) sC[i] = to_f(C[t * p.sC_l + n]);
@@ -125,7 +147,7 @@ __device__ __forceinline__ void stage_bc(const Params& p, long long r,
   __syncthreads();
 }
 
-template <typename S, bool REVERSE, bool SOFTPLUS>
+template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE>
 __global__ void chunk_exit_kernel(Params p) {
   extern __shared__ float smem[];
   float* sB = smem;
@@ -134,7 +156,7 @@ __global__ void chunk_exit_kernel(Params p) {
   const long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long t0 = (long long)c * p.T;
   const int len = (int)min((long long)p.T, p.L - t0);
-  stage_bc<S, false>(p, r, t0, len, sB, nullptr);
+  stage_bc<S, false, SLICE>(p, r, t0, len, sB, nullptr);
   if (d >= p.D) return;
 
   float A[NS], h[NS];
@@ -150,7 +172,7 @@ __global__ void chunk_exit_kernel(Params p) {
   float sd = 0.f;
   for (int i = 0; i < len; ++i) {
     const int t = REVERSE ? len - 1 - i : i;
-    const long long tt = t0 + t;
+    const long long tt = row_of<SLICE>(p, t0 + t);
     const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
     const float du = delta * to_f(u[tt * p.su_l]);
     sd += delta;
@@ -183,7 +205,8 @@ __global__ void chunk_carry_kernel(Params p) {
   }
 }
 
-template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS>
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
+          bool SLICE>
 __global__ void chunk_output_kernel(Params p) {
   extern __shared__ float smem[];
   float* sB = smem;
@@ -193,7 +216,7 @@ __global__ void chunk_output_kernel(Params p) {
   const long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long t0 = (long long)c * p.T;
   const int len = (int)min((long long)p.T, p.L - t0);
-  stage_bc<S, true>(p, r, t0, len, sB, sC);
+  stage_bc<S, true, SLICE>(p, r, t0, len, sB, sC);
   if (d >= p.D) return;
 
   float A[NS], x[NS];
@@ -218,7 +241,7 @@ __global__ void chunk_output_kernel(Params p) {
   S* out = static_cast<S*>(p.out) + r * p.L * p.D + d;
   for (int i = 0; i < len; ++i) {
     const int t = REVERSE ? len - 1 - i : i;
-    const long long tt = t0 + t;
+    const long long tt = row_of<SLICE>(p, t0 + t);
     const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
     const float uu = to_f(u[tt * p.su_l]);
     const float du = delta * uu;
@@ -246,7 +269,7 @@ __global__ void chunk_output_kernel(Params p) {
   }
 }
 
-template <typename S, bool REVERSE, bool SOFTPLUS>
+template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE = false>
 cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
                    cudaStream_t stream) {
   const dim3 grid((unsigned)((p.D + threads - 1) / threads), (unsigned)p.nc,
@@ -254,27 +277,31 @@ cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
   const size_t smem = (size_t)p.T * NS * sizeof(float);
   cudaError_t err;
   if (p.nc > 1) {
-    chunk_exit_kernel<S, REVERSE, SOFTPLUS><<<grid, threads, smem, stream>>>(p);
+    chunk_exit_kernel<S, REVERSE, SOFTPLUS, SLICE>
+        <<<grid, threads, smem, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const dim3 g2((unsigned)((NS * p.D + CARRY_THREADS - 1) / CARRY_THREADS),
                   (unsigned)p.R);
     chunk_carry_kernel<REVERSE><<<g2, CARRY_THREADS, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
-    chunk_output_kernel<S, REVERSE, false, false, false>
+  if constexpr (SLICE) {  // K5: gated, no acc
+    chunk_output_kernel<S, false, true, false, true, true>
+        <<<grid, threads, 2 * smem, stream>>>(p);
+  } else if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
+    chunk_output_kernel<S, REVERSE, false, false, false, false>
         <<<grid, threads, 2 * smem, stream>>>(p);
   } else if (gate && has_acc) {
-    chunk_output_kernel<S, REVERSE, true, true, true>
+    chunk_output_kernel<S, REVERSE, true, true, true, false>
         <<<grid, threads, 2 * smem, stream>>>(p);
   } else if (gate) {
-    chunk_output_kernel<S, REVERSE, true, false, true>
+    chunk_output_kernel<S, REVERSE, true, false, true, false>
         <<<grid, threads, 2 * smem, stream>>>(p);
   } else if (has_acc) {
-    chunk_output_kernel<S, REVERSE, false, true, true>
+    chunk_output_kernel<S, REVERSE, false, true, true, false>
         <<<grid, threads, 2 * smem, stream>>>(p);
   } else {
-    chunk_output_kernel<S, REVERSE, false, false, true>
+    chunk_output_kernel<S, REVERSE, false, false, true, false>
         <<<grid, threads, 2 * smem, stream>>>(p);
   }
   return cudaGetLastError();
@@ -287,25 +314,31 @@ extern "C" {
 // strides: u_r, u_l, dt_r, dt_l, z_r, z_l, acc_r, acc_l, B_r, B_l, C_r, C_l,
 //          A_r, Dv_r, bias_r (elements; host array of 15).
 // softplus = 0 is K6's mode: float32, no reverse, no gate, no acc.
+// nslices > 0 is K5's mode (SLICE, nslices | L): forward, gated, no acc.
 // Returns a cudaError_t value (0 = launched).
 int gated_scan_fwd(const void* u, const void* dt, const void* z,
                    const void* acc, const void* B, const void* C,
                    const float* A, const float* Dv, const float* bias,
                    void* out, float* states, float* hbuf, float* sdelta,
                    int is_bf16, int reverse, int gate, int has_acc,
-                   int softplus, long long R, long long L, long long D, int N,
-                   int T, int threads, const long long* strides,
-                   void* stream) {
+                   int softplus, long long nslices, long long R, long long L,
+                   long long D, int N, int T, int threads,
+                   const long long* strides, void* stream) {
   if (N != NS || T < 1 || T > 256 || threads < 32 || threads > 1024 ||
-      threads % 32 != 0 || R < 1 || L < 1 || D < 1 || R > 65535)
+      threads % 32 != 0 || R < 1 || L < 1 || D < 1 || R > 65535 ||
+      L > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (!softplus && (is_bf16 || reverse || gate || has_acc))
+  if (!softplus && (is_bf16 || reverse || gate || has_acc || nslices))
+    return (int)cudaErrorInvalidValue;
+  if (nslices && (nslices < 1 || L % nslices || reverse || !gate || has_acc))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.u = u; p.dt = dt; p.z = z; p.acc = acc; p.B = B; p.C = C;
   p.A = A; p.Dv = Dv; p.bias = bias;
   p.out = out; p.states = states; p.hbuf = hbuf; p.sdelta = sdelta;
   p.R = R; p.L = L; p.D = D; p.T = T;
+  p.S = nslices ? (unsigned)nslices : 1u;
+  p.P = (unsigned)(L / p.S);
   const long long nc = (L + T - 1) / T;
   if (nc > 65535) return (int)cudaErrorInvalidValue;
   p.nc = (int)nc;
@@ -323,6 +356,11 @@ int gated_scan_fwd(const void* u, const void* dt, const void* z,
   cudaError_t err;
   if (!softplus)
     err = launch<float, false, false>(p, false, false, threads, st);
+  else if (nslices)
+    err = is_bf16 ? launch<__nv_bfloat16, false, true, true>(p, true, false,
+                                                             threads, st)
+                  : launch<float, false, true, true>(p, true, false, threads,
+                                                     st);
   else if (is_bf16)
     err = reverse ? launch<__nv_bfloat16, true, true>(p, g, a, threads, st)
                   : launch<__nv_bfloat16, false, true>(p, g, a, threads, st);

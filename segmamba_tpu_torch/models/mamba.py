@@ -7,17 +7,31 @@ Three parameter sets — forward, backward (flipped sequence) and inter-slice
 Parameter names are the reference torch module's (``in_proj.weight``,
 ``conv1d_b.weight``, ``A_s_log``, ...), so its ``state_dict`` loads as is.
 
-Two compositions of the directions (``scan_impl``):
+Compositions of the directions, chosen by ``scan_impl`` with the JAX
+package's names and selection (``mamba.py:433-493``); "on the card" means
+a CUDA input, where the JAX package says TPU:
 
-- ``"dir2"`` (default, the JAX package's ``_run_directions_dir2``,
-  ``mamba.py:246-298``): one directional conv for forward + flip; the flip
-  orientation runs the scan kernel right to left in place with no gate and
-  hands its partial to the forward orientation through ``acc``, which
-  applies the shared ``silu(z)`` gate once; the slice orientation
-  interleaves ``xz`` once and runs ``mamba_inner``.
-- ``"per_direction"`` (the JAX per-direction path, ``mamba.py:483-493``):
-  flip -> ``mamba_inner`` -> flip per direction; the twin dir2 is checked
-  against.
+- ``"dir2"`` (the port's default; ``"auto"`` and ``"pallas"`` on the card),
+  ``_run_directions_dir2`` (JAX :246-298): one directional conv for forward
+  + flip; the flip orientation runs the scan kernel right to left in place
+  with no gate and hands its partial to the forward orientation through
+  ``acc``, which applies the shared ``silu(z)`` gate once; the slice
+  orientation interleaves ``xz`` once and runs ``mamba_inner`` "fused".
+- ``"dir"``, ``_run_directions_dir`` (:300-367): forward and flip gated
+  apart (K1 each); the slice orientation as dir2's, or, with
+  ``slice_kernel=True`` and ``slice_scan_supported``, the zero-copy
+  slice-order kernel K5 on the slice group of the directional conv.
+- ``"proj"``, ``_run_directions_proj`` (:205-244): the projection-fused
+  kernel K8 chained slice -> reverse (``acc``) -> forward (``acc`` and the
+  gate); where d_inner > 128 it falls to ``"dir"``.
+- ``"fused"``, ``_run_directions_batched`` (:170-203): the three
+  orientations as one batched op (flip and interleave copies, the grouped
+  conv, one K2 launch).
+- anything else (``"chunked"``, ``"ref"``, ``"mxu"``, ``"auto"`` /
+  ``"pallas"`` on the CPU), the per-direction branch (:483-493): flip ->
+  ``mamba_inner(impl=scan_impl)`` -> flip per direction. ``"mxu"`` raises
+  on the card until K7 is ported. ``"per_direction"`` is the port's alias
+  of this branch with ``mamba_inner``'s "auto".
 
 Sequences are time-major (batch, L, d_model).
 """
@@ -35,11 +49,15 @@ from segmamba_tpu_torch.models.layers import (
     torch_kaiming_uniform,
     uniform,
 )
-from segmamba_tpu_torch.ops import scan_dir
-from segmamba_tpu_torch.ops.causal_conv1d import causal_conv1d_directional
+from segmamba_tpu_torch.ops import scan_dir, scan_fused, scan_proj
+from segmamba_tpu_torch.ops.causal_conv1d import (
+    causal_conv1d_directional,
+    causal_conv1d_grouped,
+)
 from segmamba_tpu_torch.ops.mamba_inner import mamba_inner
 
-SCAN_IMPLS = ("dir2", "per_direction")
+SCAN_IMPLS = ("auto", "pallas", "dir2", "dir", "proj", "fused", "chunked",
+              "ref", "mxu", "per_direction")
 
 
 def _dt_bias_init(shape, dt_min, dt_max, dt_init_floor, generator):
@@ -88,15 +106,17 @@ class MambaV3(nn.Module):
     """Tri-oriented selective-state-space mixer.
 
     Arguments mirror the JAX ``MambaV3`` (and the reference
-    ``Mamba(d_model, d_state, d_conv, expand, bimamba_type, nslices)``).
-    ``dtype`` is the compute dtype; parameters stay float32.
+    ``Mamba(d_model, d_state, d_conv, expand, bimamba_type, nslices)``),
+    without the mesh arguments. ``scan_chunk`` is the scan kernels' chunk
+    length; ``slice_kernel`` opts ``scan_impl="dir"`` into the slice-order
+    kernel. ``dtype`` is the compute dtype; parameters stay float32.
     """
 
     def __init__(self, d_model, d_state=16, d_conv=4, expand=2, dt_rank=None,
                  dt_min=0.001, dt_max=0.1, dt_init_floor=1e-4,
                  conv_bias=True, bimamba_type="v3", nslices=None,
-                 scan_impl="dir2", *, dtype=torch.float32, generator=None,
-                 device=None):
+                 scan_impl="dir2", scan_chunk=128, slice_kernel=False, *,
+                 dtype=torch.float32, generator=None, device=None):
         super().__init__()
         if bimamba_type not in ("v2", "v3"):
             raise ValueError(f"bimamba_type={bimamba_type!r}; the port has "
@@ -111,6 +131,7 @@ class MambaV3(nn.Module):
         self.dt_rank = R = dt_rank or math.ceil(d_model / 16)
         self.bimamba_type, self.nslices = bimamba_type, nslices
         self.scan_impl, self.dtype = scan_impl, dtype
+        self.scan_chunk, self.slice_kernel = scan_chunk, slice_kernel
 
         self.in_proj = _Params(torch_kaiming_uniform((2 * E, d_model),
                                                      d_model, g))
@@ -145,47 +166,153 @@ class MambaV3(nn.Module):
                 -torch.exp(getattr(self, f"A{suf}_log").float()),
                 getattr(self, f"D{suf}").float())
 
-    def _run_direction(self, xz, suf):
+    def _stacked(self, sufs):
+        """The named directions' conv weight, conv bias, x_proj, dt_proj,
+        dt bias, A and D, each stacked on a leading group axis."""
+        ps = [self._direction_params(suf) for suf in sufs]
+        return tuple(None if p[0] is None else torch.stack(p)
+                     for p in zip(*ps))
+
+    def _run_direction(self, xz, suf, impl):
         conv_w, conv_b, x_proj, dt_proj, dt_bias, A, D = (
             self._direction_params(suf))
         return mamba_inner(xz, conv_w, conv_b, x_proj, dt_proj, dt_bias, A,
-                           D, d_state=self.d_state)
+                           D, d_state=self.d_state, impl=impl,
+                           chunk_size=self.scan_chunk)
+
+    def _projections(self, xc, x_proj3, dt_proj3):
+        """Grouped projections of the conv output (g, b, L, E): dt, B, C."""
+        R, N = self.dt_rank, self.d_state
+        x_dbl = torch.einsum("gbld,gde->gble", xc, x_proj3)
+        dt = torch.einsum("gblr,grd->gbld", x_dbl[..., :R], dt_proj3)
+        return dt, x_dbl[..., R:R + N], x_dbl[..., R + N:]
+
+    def _slice_orientation(self, xz):
+        """The slice orientation on an interleaved copy of xz, through
+        ``mamba_inner`` "fused", de-interleaved."""
+        out_s = self._run_direction(slice_interleave(xz, self.nslices), "_s",
+                                    "fused")
+        return slice_deinterleave(out_s, self.nslices)
 
     def _run_directions_dir2(self, xz):
-        E, R, N = self.d_inner, self.dt_rank, self.d_state
-        pf, pb = self._direction_params(""), self._direction_params("_b")
-        conv_w2, conv_b2, x_proj2, dt_proj2 = (
-            None if p[0] is None else torch.stack(p)
-            for p in zip(pf[:4], pb[:4]))
+        E = self.d_inner
+        conv_w2, conv_b2, x_proj2, dt_proj2, bias2, A2, D2 = self._stacked(
+            ("", "_b"))
         x, z = xz[..., :E], xz[..., E:]
         xc = causal_conv1d_directional(x, conv_w2, conv_b2,
                                        activation="silu")   # (2, b, L, E)
-        x_dbl = torch.einsum("gbld,gde->gble", xc, x_proj2)
-        dt = torch.einsum("gblr,grd->gbld", x_dbl[..., :R], dt_proj2)
-        Bm = x_dbl[..., R:R + N]
-        Cm = x_dbl[..., R + N:]
+        dt, Bm, Cm = self._projections(xc, x_proj2, dt_proj2)
 
-        def run(i, p, **kw):
+        def run(i, **kw):
             return scan_dir.mamba_scan_fused_dir(
-                xc[i], dt[i], kw.pop("z", None), p[5], Bm[i], Cm[i], p[6],
-                p[4], **kw)
+                xc[i], dt[i], kw.pop("z", None), A2[i], Bm[i], Cm[i], D2[i],
+                bias2[i], chunk_size=self.scan_chunk, **kw)
 
-        acc = run(1, pb, reverse=True, gate=False)
-        combined = run(0, pf, acc=acc, z=z, gate=True)
+        acc = run(1, reverse=True, gate=False)
+        combined = run(0, acc=acc, z=z, gate=True)
+        if self.bimamba_type == "v3":
+            combined = combined + self._slice_orientation(xz)
+        return combined
+
+    def _run_directions_dir(self, xz):
+        E, L, S = self.d_inner, xz.shape[1], self.nslices
+        use_slice = self.bimamba_type == "v3"
+        slice_in_kernel = (use_slice and self.slice_kernel
+                           and scan_dir.slice_scan_supported(
+                               L, S, self.scan_chunk))
+        sufs = ("", "_b", "_s") if slice_in_kernel else ("", "_b")
+        conv_w3, conv_b3, x_proj3, dt_proj3, bias3, A3, D3 = self._stacked(
+            sufs)
+        x, z = xz[..., :E], xz[..., E:]
+        xc = causal_conv1d_directional(
+            x, conv_w3, conv_b3, activation="silu",
+            nslices=S if slice_in_kernel else None)        # (g, b, L, E)
+        dt, Bm, Cm = self._projections(xc, x_proj3, dt_proj3)
+        args = lambda i: (xc[i], dt[i], z, A3[i], Bm[i], Cm[i], D3[i],
+                          bias3[i])
+        combined = scan_dir.mamba_scan_fused_dir(
+            *args(0), chunk_size=self.scan_chunk)
+        combined = combined + scan_dir.mamba_scan_fused_dir(
+            *args(1), reverse=True, chunk_size=self.scan_chunk)
+        if slice_in_kernel:
+            combined = combined + scan_dir.mamba_scan_fused_slice(
+                *args(2), nslices=S, chunk_size=self.scan_chunk)
+        elif use_slice:
+            combined = combined + self._slice_orientation(xz)
+        return combined
+
+    def _run_directions_proj(self, xz):
+        E, S = self.d_inner, self.nslices
+        use_slice = self.bimamba_type == "v3"
+        sufs = ("", "_b", "_s") if use_slice else ("", "_b")
+        conv_w3, conv_b3, x_proj3, dt_proj3, bias3, A3, D3 = self._stacked(
+            sufs)
+        x, z = xz[..., :E], xz[..., E:]
+        xc = causal_conv1d_directional(
+            x, conv_w3, conv_b3, activation="silu",
+            nslices=S if use_slice else None)              # (g, b, L, E)
+
+        def run(i, xc_i, **kw):
+            return scan_proj.mamba_scan_proj(
+                xc_i, x_proj3[i], dt_proj3[i], bias3[i], A3[i], D3[i],
+                chunk_size=self.scan_chunk, **kw)
+
+        acc = None
+        if use_slice:
+            acc = slice_deinterleave(run(2, slice_interleave(xc[2], S)), S)
+        acc = run(1, xc[1], reverse=True, acc=acc)
+        return run(0, xc[0], acc=acc, z=z)
+
+    def _run_directions_batched(self, xz):
+        b, L, _ = xz.shape
+        E, S = self.d_inner, self.nslices
+        use_slice = self.bimamba_type == "v3"
+        branches = [xz, xz.flip(1)]
+        sufs = ["", "_b"]
+        if use_slice:
+            branches.append(slice_interleave(xz, S))
+            sufs.append("_s")
+        g = len(branches)
+        xz3 = torch.cat(branches)                          # (g b, L, 2E)
+        conv_w3, conv_b3, x_proj3, dt_proj3, bias3, A3, D3 = self._stacked(
+            sufs)
+        x3, z3 = xz3[..., :E], xz3[..., E:]
+        x3 = causal_conv1d_grouped(x3, conv_w3, conv_b3, b,
+                                   activation="silu")
+        dt, Bm, Cm = self._projections(x3.reshape(g, b, L, E), x_proj3,
+                                       dt_proj3)
+        flat = lambda t: t.reshape(g * b, L, t.shape[-1])
+        rep = lambda t: t.repeat_interleave(b, dim=0)      # (g b, ...)
+        out3 = scan_fused.mamba_scan_fused(
+            x3, flat(dt), z3, rep(A3), flat(Bm), flat(Cm), rep(D3),
+            rep(bias3), chunk_size=self.scan_chunk).reshape(g, b, L, E)
+        combined = out3[0] + out3[1].flip(1)
+        if use_slice:
+            combined = combined + slice_deinterleave(out3[2], S)
+        return combined
+
+    def _run_directions_per_direction(self, xz, impl):
+        combined = self._run_direction(xz, "", impl)
+        combined = combined + self._run_direction(xz.flip(1), "_b",
+                                                  impl).flip(1)
         if self.bimamba_type == "v3":
             out_s = self._run_direction(slice_interleave(xz, self.nslices),
-                                        "_s")
+                                        "_s", impl)
             combined = combined + slice_deinterleave(out_s, self.nslices)
         return combined
 
-    def _run_directions_per_direction(self, xz):
-        combined = self._run_direction(xz, "")
-        combined = combined + self._run_direction(xz.flip(1), "_b").flip(1)
-        if self.bimamba_type == "v3":
-            out_s = self._run_direction(slice_interleave(xz, self.nslices),
-                                        "_s")
-            combined = combined + slice_deinterleave(out_s, self.nslices)
-        return combined
+    def composition(self, device):
+        """The composition ``scan_impl`` selects for inputs on ``device``:
+        "dir2", "dir", "proj", "fused" or "per_direction"."""
+        impl = self.scan_impl
+        dirlike = impl in ("dir", "dir2", "proj") or (
+            impl in ("auto", "pallas") and torch.device(device).type
+            == "cuda")
+        if not dirlike:
+            return "fused" if impl == "fused" else "per_direction"
+        if impl == "proj" and scan_proj.proj_scan_supported(self.d_inner):
+            return "proj"
+        return "dir2" if impl in ("dir2", "auto", "pallas") else "dir"
 
     def forward(self, hidden_states):
         """hidden_states: (batch, L, d_model) -> same shape, in ``dtype``."""
@@ -195,8 +322,17 @@ class MambaV3(nn.Module):
             raise ValueError(f"nslices={self.nslices} must divide L={L}")
         dt = self.dtype
         xz = F.linear(hidden_states.to(dt), self.in_proj.weight.to(dt))
-        if self.scan_impl == "dir2":
+        comp = self.composition(xz.device)
+        if comp == "dir2":
             combined = self._run_directions_dir2(xz)
+        elif comp == "dir":
+            combined = self._run_directions_dir(xz)
+        elif comp == "proj":
+            combined = self._run_directions_proj(xz)
+        elif comp == "fused":
+            combined = self._run_directions_batched(xz)
         else:
-            combined = self._run_directions_per_direction(xz)
+            impl = ("auto" if self.scan_impl == "per_direction"
+                    else self.scan_impl)
+            combined = self._run_directions_per_direction(xz, impl)
         return F.linear(combined, self.out_proj.weight.to(dt))

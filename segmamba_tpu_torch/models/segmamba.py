@@ -2,6 +2,8 @@
 
 Port of ``segmamba_tpu/models/segmamba.py`` (``MambaLayer``, ``MlpChannel``,
 ``GSC``, ``MambaEncoder``, ``SegMamba``) without the mesh arguments.
+``scan_impl`` goes down to every ``MambaV3`` (``models/mamba.py`` lists the
+compositions); the port's default is ``"dir2"``.
 ``remat`` is the JAX ``remat`` policy (:140-159, :199-213) through
 ``torch.utils.checkpoint`` (non-reentrant): ``True`` recomputes every Mamba
 layer and UNETR block in the backward, ``"convs"`` only the UNETR blocks
@@ -53,13 +55,13 @@ class MambaLayer(nn.Module):
     """Flatten the volume to (B, L, C) tokens, LayerNorm, tri-oriented Mamba,
     reshape back, residual."""
 
-    def __init__(self, dim, num_slices=None, *, dtype=torch.float32,
-                 generator):
+    def __init__(self, dim, num_slices=None, scan_impl="dir2", *,
+                 dtype=torch.float32, generator):
         super().__init__()
         self.dim, self.dtype = dim, dtype
         self.norm = nn.LayerNorm(dim, eps=1e-5)
-        self.mamba = MambaV3(dim, nslices=num_slices, dtype=dtype,
-                             generator=generator)
+        self.mamba = MambaV3(dim, nslices=num_slices, scan_impl=scan_impl,
+                             dtype=dtype, generator=generator)
 
     def forward(self, x):
         b, c = x.shape[:2]
@@ -111,8 +113,9 @@ class MambaEncoder(nn.Module):
     per stage GSC -> depth x MambaLayer; per-stage head IN + MlpChannel."""
 
     def __init__(self, in_chans=1, depths=(2, 2, 2, 2),
-                 dims=(48, 96, 192, 384), num_slices_list=(64, 32, 16, 8), *,
-                 remat=False, dtype=torch.float32, generator):
+                 dims=(48, 96, 192, 384), num_slices_list=(64, 32, 16, 8),
+                 scan_impl="dir2", *, remat=False, dtype=torch.float32,
+                 generator):
         super().__init__()
         g = generator
         self.remat_layers = remat is True
@@ -128,7 +131,8 @@ class MambaEncoder(nn.Module):
         self.stages = nn.ModuleList(
             [nn.Sequential(*[MambaLayer(dims[i],
                                         num_slices=num_slices_list[i],
-                                        dtype=dtype, generator=g)
+                                        scan_impl=scan_impl, dtype=dtype,
+                                        generator=g)
                              for _ in range(depths[i])])
              for i in range(4)])
         self.mlps = nn.ModuleList(
@@ -151,9 +155,9 @@ class SegMamba(nn.Module):
 
     def __init__(self, in_chans=4, out_chans=4, depths=(2, 2, 2, 2),
                  feat_size: Sequence[int] = (48, 96, 192, 384),
-                 hidden_size=768, num_slices_list=(64, 32, 16, 8), *,
-                 remat=False, dtype=torch.float32, generator=None,
-                 device=None):
+                 hidden_size=768, num_slices_list=(64, 32, 16, 8),
+                 scan_impl="dir2", *, remat=False, dtype=torch.float32,
+                 generator=None, device=None):
         super().__init__()
         if remat not in REMAT:
             raise ValueError(f"remat={remat!r}; one of {REMAT}")
@@ -162,7 +166,7 @@ class SegMamba(nn.Module):
         f, kw = feat_size, dict(dtype=dtype, generator=generator)
         self.dtype, self.remat = dtype, remat
         self.vit = MambaEncoder(in_chans, depths, f, num_slices_list,
-                                remat=remat, **kw)
+                                scan_impl, remat=remat, **kw)
         self.encoder1 = UnetrBasicBlock(in_chans, f[0], **kw)
         self.encoder2 = UnetrBasicBlock(f[0], f[1], **kw)
         self.encoder3 = UnetrBasicBlock(f[1], f[2], **kw)

@@ -1,8 +1,8 @@
 """Depthwise causal 1-D convolution, time-major, in plain PyTorch.
 
 Port of ``segmamba_tpu/ops/causal_conv1d.py`` ``causal_conv1d``,
-``causal_conv1d_directional`` (G = 2 and G = 3) and the decode step
-``causal_conv1d_update``. In the JAX package these
+``causal_conv1d_grouped``, ``causal_conv1d_directional`` (G = 2 and G = 3)
+and the decode step ``causal_conv1d_update``. In the JAX package these
 are XLA ops (shifted multiply-adds); here they are the same shifted
 multiply-adds in torch, computed in float32 and cast back to x's dtype.
 Layout is time-major ``(batch, L, dim)``; filters are ``(width, dim)`` as in
@@ -48,6 +48,29 @@ def causal_conv1d(x, weight, bias=None, activation=None):
     return _activate(y, activation).to(x.dtype)
 
 
+def causal_conv1d_grouped(x, weight, bias, batch, activation=None):
+    """Depthwise causal conv with per-group filters: row i of x uses filter
+    i // batch (the three scan orientations folded into one batched op).
+
+    x: (groups * batch, L, dim); weight: (groups, width, dim); bias:
+    (groups, dim) or None. Returns (groups * batch, L, dim) in x.dtype.
+    """
+    _check_activation(activation)
+    groups, width, dim = weight.shape
+    if x.shape[0] != groups * batch or x.shape[-1] != dim:
+        raise ValueError(f"x {tuple(x.shape)} vs weight "
+                         f"{tuple(weight.shape)} and batch {batch}")
+    seqlen = x.shape[1]
+    xp = F.pad(x.float(), (0, 0, width - 1, 0))
+    w = weight.float().repeat_interleave(batch, dim=0)    # (g b, W, dim)
+    y = torch.zeros_like(xp[:, :seqlen])
+    for i in range(width):
+        y = y + w[:, i, None, :] * xp[:, i:i + seqlen]
+    if bias is not None:
+        y = y + bias.float().repeat_interleave(batch, dim=0)[:, None, :]
+    return _activate(y, activation).to(x.dtype)
+
+
 def causal_conv1d_directional(x, weight, bias, activation=None,
                               nslices=None):
     """Depthwise causal conv for every scan orientation on the original
@@ -58,7 +81,11 @@ def causal_conv1d_directional(x, weight, bias, activation=None,
     - group 2 (slice):   the conv in slice-interleaved order; with x viewed
                          as (S, P) slices x positions, the interleaved
                          predecessor of (s, p) is (s-1, p), wrapping to
-                         (S-1, p-1) at s = 0.
+                         (S-1, p-1) at s = 0. Where a tap reaches k >= S
+                         tokens back (S < width - 1), the shift runs on an
+                         interleaved copy: the JAX function's one-position
+                         carry gives wrong values there (S = 2) or raises
+                         (S = 1).
 
     x: (batch, L, dim); weight: (G, width, dim), G in {2, 3}, groups ordered
     [forward, flip, slice]; bias: (G, dim) or None; nslices: S (G = 3).
@@ -93,11 +120,22 @@ def causal_conv1d_directional(x, weight, bias, activation=None,
             raise ValueError("slice group needs nslices dividing L")
         S, P = nslices, seqlen // nslices
         xg = xf.reshape(batch, S, P, dim)
+        # interleaved order as (P, S): token (q - k) of q = (p, s)
+        xil = xg.transpose(1, 2)
 
         def slice_shifted(k):
             """Token (q - k) of the interleaved order, original layout."""
             if k == 0:
                 return xf
+            if k >= S:
+                # a shift of k >= S crosses more than one position; the
+                # JAX package's one-position carry (below) is wrong there
+                # (silently for S = 2 at width 4, an error for S = 1), so
+                # shift the flattened interleaved order itself
+                flat = F.pad(xil.reshape(batch, seqlen, dim)[:, :seqlen - k],
+                             (0, 0, k, 0))
+                return flat.reshape(batch, P, S, dim).transpose(1, 2).reshape(
+                    batch, seqlen, dim)
             upper = xg[:, :S - k]
             wrap = F.pad(xg[:, S - k:, :P - 1], (0, 0, 1, 0))
             return torch.cat([wrap, upper], dim=1).reshape(batch, seqlen, dim)

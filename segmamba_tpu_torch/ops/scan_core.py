@@ -17,9 +17,13 @@ chunk's exit state, exact at a ragged L: the kernel stops at the last real
 step, as JAX's padding with delta = 0 (identity steps) does.
 
 - ``selective_scan_kernel`` takes CPU tensors to the plain versions and
-  CUDA tensors to the kernels; any other device raises, and a CUDA call
-  with N != 16 raises ``ValueError`` naming the limit. There is no
-  fallback. With grad enabled it goes through ``_ScanCore`` (a
+  CUDA tensors to the kernels; any other device raises. There is no
+  fallback. The templates are built for N = 16 states; another N (up to
+  256, as JAX) runs as ceil(N / 16) launches over groups of 16 states: the
+  states are independent given u and delta, so y is the sum of the groups'
+  y, and the state axis is padded with zero B and C columns (a padded
+  state stays 0 and adds nothing; its A is -1, and its gradients are
+  cropped). With grad enabled it goes through ``_ScanCore`` (a
   ``torch.autograd.Function``) whose backward takes ``dy`` and ``dlast``,
   the gradient of the returned last state, which seeds the adjoint carry
   entering the last chunk (JAX :200-203).
@@ -43,6 +47,7 @@ from segmamba_tpu_torch.ops.selective_scan import (
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 DEF_CHUNK = 128
+_GROUP = scan_dir._KERNEL_N     # states per launch
 
 
 def _last_state(states):
@@ -80,24 +85,70 @@ def _zeros_param(u):
     return torch.zeros(u.shape[-1], dtype=torch.float32, device=u.device)
 
 
+def _groups(N):
+    """Launches per call: groups of 16 states."""
+    return -(-N // _GROUP)
+
+
+def _pad_states(A, B, C):
+    """Pad the state axis to a multiple of 16: A with -1, B and C with zero
+    columns."""
+    pad = (-A.shape[-1]) % _GROUP
+    if not pad:
+        return A, B, C
+    return (torch.nn.functional.pad(A, (0, pad), value=-1.0),
+            torch.nn.functional.pad(B, (0, pad)),
+            torch.nn.functional.pad(C, (0, pad)))
+
+
 def _launch(u, delta, A, B, C, chunk_size):
-    """K6 forward on the card: (y, chunk exit states)."""
+    """K6 forward on the card: (y, chunk exit states (R, nc, N, D)), one
+    launch per group of 16 states."""
+    N = A.shape[-1]
     z = _zeros_param(u)
-    return scan_dir._launch(u, delta, None, None, A, B, C, z, z,
-                            reverse=False, gate=False, chunk_size=chunk_size,
-                            return_states=True, softplus=False)
+    A, B, C = _pad_states(A, B, C)
+    y, states = None, []
+    for g in range(_groups(N)):
+        sl = slice(g * _GROUP, (g + 1) * _GROUP)
+        y_g, st = scan_dir._launch(u, delta, None, None, A[..., sl],
+                                   B[..., sl], C[..., sl], z, z,
+                                   reverse=False, gate=False,
+                                   chunk_size=chunk_size, return_states=True,
+                                   softplus=False)
+        y = y_g if y is None else y + y_g
+        states.append(st)
+    states = states[0] if len(states) == 1 else torch.cat(states, 2)
+    return y, states[:, :, :N]
 
 
 def _launch_bwd(u, delta, A, B, C, dy, dlast, states, chunk_size):
-    """K6 backward on the card: (du, ddelta, dA, dB, dC)."""
+    """K6 backward on the card: (du, ddelta, dA, dB, dC), one launch per
+    group of 16 states."""
+    N = A.shape[-1]
     z = _zeros_param(u)
-    dlast = dlast.float().transpose(-1, -2).contiguous()     # (R, N, D)
-    grads = scan_dir._launch_bwd(u, delta, None, None, A, B, C, z, z, dy,
-                                 states, reverse=False, gate=False,
-                                 chunk_size=chunk_size, softplus=False,
-                                 dlast=dlast)
-    du, ddelta, _, _, dA, dB, dC, _, _ = grads
-    return du, ddelta, dA, dB, dC
+    A, B, C = _pad_states(A, B, C)
+    pad = A.shape[-1] - N
+    dlast = dlast.float().transpose(-1, -2)                  # (R, N, D)
+    if pad:   # the padded states' exit states are 0
+        states = torch.nn.functional.pad(states, (0, 0, 0, pad))
+        dlast = torch.nn.functional.pad(dlast, (0, 0, 0, pad))
+    du = ddelta = None
+    dA, dB, dC = [], [], []
+    for g in range(_groups(N)):
+        sl = slice(g * _GROUP, (g + 1) * _GROUP)
+        grads = scan_dir._launch_bwd(
+            u, delta, None, None, A[..., sl], B[..., sl], C[..., sl], z, z,
+            dy, states[:, :, sl].contiguous(), reverse=False, gate=False,
+            chunk_size=chunk_size, softplus=False,
+            dlast=dlast[:, sl].contiguous())
+        du_g, ddelta_g, _, _, dA_g, dB_g, dC_g, _, _ = grads
+        du = du_g if du is None else du + du_g
+        ddelta = ddelta_g if ddelta is None else ddelta + ddelta_g
+        dA.append(dA_g)
+        dB.append(dB_g)
+        dC.append(dC_g)
+    cat = lambda ts: (ts[0] if len(ts) == 1 else torch.cat(ts, -1))[..., :N]
+    return du, ddelta, cat(dA), cat(dB), cat(dC)
 
 
 def _forward(u, delta, A, B, C, chunk_size):
@@ -108,7 +159,7 @@ def _forward(u, delta, A, B, C, chunk_size):
         return selective_scan_core_ref(u, delta, A, B, C, chunk_size,
                                        return_states=True)
     out = _launch(u, delta, A, B, C, chunk_size)
-    LAUNCHES += 1
+    LAUNCHES += _groups(A.shape[-1])
     return out
 
 
@@ -134,7 +185,7 @@ class _ScanCore(torch.autograd.Function):
         else:
             grads = _launch_bwd(u, delta, A, B, C, dy, dlast, states,
                                 ctx.chunk_size)
-            BWD_LAUNCHES += 1
+            BWD_LAUNCHES += _groups(A.shape[-1])
         return (None,) + tuple(
             g if need else None
             for g, need in zip(grads, ctx.needs_input_grad[1:]))
@@ -162,7 +213,8 @@ def selective_scan_kernel(u, delta, A, B, C, D=None, z=None, delta_bias=None,
     ``return_last_state``.
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels
-    (N = 16). Differentiable in every tensor argument.
+    (one launch per 16 states, N <= 256). Differentiable in every tensor
+    argument.
     """
     if B.dim() != 3 or C.dim() != 3:
         raise ValueError("the scan kernel needs time-varying (batch, L, N) "

@@ -1,5 +1,5 @@
-"""Direction-aware fused gated selective scan ("dir" variant), forward and
-backward.
+"""Direction-aware fused gated selective scan ("dir" and "slice" variants),
+forward and backward.
 
 Port of ``segmamba_tpu/ops/scan_pallas_dir.py`` ``mamba_scan_fused_dir``
 (:382-444) and its custom VJP (``_make_dir_core`` :350-379). The Pallas
@@ -8,6 +8,15 @@ the hand-written Hopper kernels ``csrc/gated_scan_fwd.cu`` and
 ``csrc/gated_scan_bwd.cu``, each with the flags ``REVERSE``, ``GATE`` and
 ``HAS_ACC``. ``reverse=True`` scans right to left in place: inputs and
 output stay in their original order.
+
+Also the zero-copy slice-order scan K5: ``mamba_scan_fused_slice`` and
+``slice_scan_supported`` (JAX :728, :717; custom VJP ``_make_slice_core``
+:680; Pallas kernels ``_slice_fwd_kernel`` :477, ``_slice_bwd_kernel``
+:514), the templates' ``SLICE`` mode: the gated scan runs in
+slice-interleaved order over the original slice-major layout, with no
+interleaved copy of any operand. ``mamba_scan_fused_slice_ref`` /
+``mamba_scan_fused_slice_bwd_ref`` are its plain versions (interleave,
+plain scan, de-interleave; ``autograd.grad`` through that).
 
 - ``mamba_scan_fused_dir`` takes CPU tensors to the plain versions and CUDA
   tensors to the kernels; any other device raises. There is no fallback.
@@ -22,7 +31,8 @@ output stay in their original order.
 - ``mamba_scan_fused_dir_bwd_ref`` is the plain backward: ``autograd.grad``
   through the plain forward in float32.
 - ``LAUNCHES`` / ``BWD_LAUNCHES`` count this entry point's forward and
-  backward kernel launches.
+  backward kernel launches (K1, K3); ``SLICE_LAUNCHES`` /
+  ``SLICE_BWD_LAUNCHES`` count the slice-order kernel's (K5).
 
 The launchers ``_launch`` / ``_launch_bwd`` and ``_GatedScan`` are shared
 with ``scan_fused.py`` (K2/K4 are the same templates with REVERSE=0,
@@ -48,6 +58,8 @@ from segmamba_tpu_torch.ops.selective_scan import (
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+SLICE_LAUNCHES = 0
+SLICE_BWD_LAUNCHES = 0
 DEF_CHUNK = 128
 _LIB_NAME = "gated_scan_fwd"
 _BWD_LIB_NAME = "gated_scan_bwd"
@@ -119,6 +131,73 @@ def mamba_scan_fused_dir_bwd_ref(u, dt, z, A, B, C, D, dt_bias, dout, *,
     return tuple(None if t is None else next(grads) for t in leaves)
 
 
+def _interleave(t, S):
+    """(R, L, X) slice-major -> scan order: new[p S + s] = old[s P + p]."""
+    R, L, X = t.shape
+    return t.reshape(R, S, L // S, X).transpose(1, 2).reshape(R, L, X)
+
+
+def _deinterleave(t, S):
+    """Inverse of ``_interleave``."""
+    R, L, X = t.shape
+    return t.reshape(R, L // S, S, X).transpose(1, 2).reshape(R, L, X)
+
+
+def mamba_scan_fused_slice_ref(u, dt, z, A, B, C, D, dt_bias, *, nslices,
+                               chunk_size=DEF_CHUNK, return_states=False):
+    """Plain PyTorch version of ``mamba_scan_fused_slice``: interleave the
+    operands, run the plain gated scan, de-interleave the output. With
+    ``return_states`` also the chunk exit states (R, nc, N, dim), chunks cut
+    at multiples of ``chunk_size`` of the scan (interleaved) order, as the
+    kernel cuts them."""
+    il = lambda t: _interleave(t, nslices)
+    out, states = mamba_scan_fused_dir_ref(
+        il(u), il(dt), il(z), A, il(B), il(C), D, dt_bias, gate=True,
+        chunk_size=chunk_size, return_states=True)
+    out = _deinterleave(out, nslices)
+    return (out, states) if return_states else out
+
+
+def mamba_scan_fused_slice_bwd_ref(u, dt, z, A, B, C, D, dt_bias, dout, *,
+                                   nslices, chunk_size=DEF_CHUNK):
+    """Plain PyTorch backward of ``mamba_scan_fused_slice``: (du, ddt, dz,
+    None, dA, dB, dC, dD, dbias), float32, in the inputs' shapes, as
+    ``mamba_scan_fused_dir_bwd_ref``."""
+    il = lambda t: _interleave(t, nslices)
+    grads = mamba_scan_fused_dir_bwd_ref(
+        il(u), il(dt), il(z), A, il(B), il(C), D, dt_bias, il(dout),
+        gate=True, chunk_size=chunk_size)
+    de = lambda t: _deinterleave(t, nslices)
+    du, ddt, dz, _, dA, dB, dC, dD, dbias = grads
+    return de(du), de(ddt), de(dz), None, dA, de(dB), de(dC), dD, dbias
+
+
+def _plain(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate, chunk_size,
+           return_states, nslices=0):
+    """The plain forward of one scan call (dir or, with ``nslices``,
+    slice)."""
+    if nslices:
+        return mamba_scan_fused_slice_ref(
+            u, dt, z, A, B, C, D, dt_bias, nslices=nslices,
+            chunk_size=chunk_size, return_states=return_states)
+    return mamba_scan_fused_dir_ref(
+        u, dt, z, A, B, C, D, dt_bias, acc=acc, gate=gate, reverse=reverse,
+        chunk_size=chunk_size, return_states=return_states)
+
+
+def _plain_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, *, reverse, gate,
+               chunk_size, nslices=0):
+    """The plain backward of one scan call (dir or, with ``nslices``,
+    slice)."""
+    if nslices:
+        return mamba_scan_fused_slice_bwd_ref(
+            u, dt, z, A, B, C, D, dt_bias, dout, nslices=nslices,
+            chunk_size=chunk_size)
+    return mamba_scan_fused_dir_bwd_ref(
+        u, dt, z, A, B, C, D, dt_bias, dout, acc=acc, gate=gate,
+        reverse=reverse, chunk_size=chunk_size)
+
+
 def _block_threads(dim):
     """Threads per block (one channel each): the largest of 128/96/64/32
     that divides ``dim``, else a masked block of up to 128."""
@@ -149,7 +228,7 @@ def _param(t, name, R, shape, device):
 
 
 def _launch(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
-            chunk_size, return_states, softplus=True):
+            chunk_size, return_states, softplus=True, nslices=0):
     """Launch ``gated_scan_fwd`` on the current stream of u's card."""
     _check_cuda(u)
     with torch.cuda.device(u.device):
@@ -157,11 +236,13 @@ def _launch(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
         return _run_kernel(_lib(), stream, u, dt, z, acc, A, B, C, D,
                            dt_bias, reverse=reverse, gate=gate,
                            chunk_size=chunk_size,
-                           return_states=return_states, softplus=softplus)
+                           return_states=return_states, softplus=softplus,
+                           nslices=nslices)
 
 
 def _launch_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, states, *,
-                reverse, gate, chunk_size, softplus=True, dlast=None):
+                reverse, gate, chunk_size, softplus=True, dlast=None,
+                nslices=0):
     """Launch ``gated_scan_bwd`` on the current stream of u's card."""
     _check_cuda(u)
     with torch.cuda.device(u.device):
@@ -169,7 +250,8 @@ def _launch_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, states, *,
         return _run_bwd_kernel(_bwd_lib(), stream, u, dt, z, acc, A, B, C, D,
                                dt_bias, dout, states, reverse=reverse,
                                gate=gate, chunk_size=chunk_size,
-                               softplus=softplus, dlast=dlast)
+                               softplus=softplus, dlast=dlast,
+                               nslices=nslices)
 
 
 def _check_cuda(u):
@@ -222,11 +304,13 @@ def _ptr(t):
 
 
 def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
-                gate, chunk_size, return_states, softplus=True):
+                gate, chunk_size, return_states, softplus=True, nslices=0):
     """Validate the operands, allocate the output and scratch on u's device
     and call the library's ``gated_scan_fwd`` on ``stream``. With
     ``softplus=False`` (K6) dt is the final delta, and the call must be
-    float32, forward, ungated and without acc."""
+    float32, forward, ungated and without acc. ``nslices`` > 0 (K5) scans
+    in slice-interleaved order; the call must be forward, gated, without
+    acc, with ``nslices`` dividing L."""
     R, L, dim, N, T, Af, Df, bf, strides = _operands(
         u, dt, z, acc, A, B, C, D, dt_bias, gate=gate, chunk_size=chunk_size)
     nc = -(-L // T)
@@ -244,9 +328,9 @@ def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
         _ptr(u), _ptr(dt), _ptr(z) if gate else None, _ptr(acc), _ptr(B),
         _ptr(C), _ptr(Af), _ptr(Df), _ptr(bf), _ptr(out), _ptr(states),
         _ptr(hbuf), _ptr(sdelta), int(u.dtype == torch.bfloat16),
-        int(reverse), int(gate), int(acc is not None), int(softplus), R, L,
-        dim, N, T, _block_threads(dim), (ctypes.c_longlong * 15)(*strides),
-        stream)
+        int(reverse), int(gate), int(acc is not None), int(softplus),
+        int(nslices), R, L, dim, N, T, _block_threads(dim),
+        (ctypes.c_longlong * 15)(*strides), stream)
     if err != 0:
         msg = lib.gated_scan_error_string(err).decode()
         raise RuntimeError(f"gated_scan_fwd launch failed: {msg} ({err})")
@@ -255,14 +339,14 @@ def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
 
 def _run_bwd_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, dout,
                     states, *, reverse, gate, chunk_size, softplus=True,
-                    dlast=None):
+                    dlast=None, nslices=0):
     """Validate the operands, allocate every gradient, partial and scratch
     buffer on u's device, call the library's ``gated_scan_bwd`` on
     ``stream`` and reduce the partials. Returns (du, ddt, dz, dacc, dA, dB,
     dC, dD, dbias) in the shapes and dtypes of (u, dt, z, acc, A, B, C, D,
     dt_bias); dz / dacc are None without z / acc. ``dlast`` (R, N, dim)
     float32, or None for zero, is the gradient of the last state in scan
-    order; ``softplus=False`` as in ``_run_kernel``."""
+    order; ``softplus=False`` and ``nslices`` as in ``_run_kernel``."""
     R, L, dim, N, T, Af, Df, bf, strides = _operands(
         u, dt, z, acc, A, B, C, D, dt_bias, gate=gate, chunk_size=chunk_size)
     nc = -(-L // T)
@@ -305,8 +389,9 @@ def _run_bwd_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, dout,
         _ptr(dlast), _ptr(du), _ptr(ddt), _ptr(dz), _ptr(dacc_k),
         _ptr(dA_p), _ptr(dD_p), _ptr(dbias_p), _ptr(dB_p), _ptr(dC_p),
         _ptr(gbuf), _ptr(sdelta), _ptr(ckpt), int(u.dtype == torch.bfloat16),
-        int(reverse), int(gate), int(acc is not None), int(softplus), R, L,
-        dim, N, T, threads, (ctypes.c_longlong * 15)(*strides), stream)
+        int(reverse), int(gate), int(acc is not None), int(softplus),
+        int(nslices), R, L, dim, N, T, threads,
+        (ctypes.c_longlong * 15)(*strides), stream)
     if err != 0:
         msg = lib.gated_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"gated_scan_bwd launch failed: {msg} ({err})")
@@ -338,7 +423,7 @@ def _lib():
         lib = _build.load_library(_LIB_NAME)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.gated_scan_fwd.argtypes = (
-            [vp] * 13 + [i] * 5 + [ll] * 3 + [i] * 3
+            [vp] * 13 + [i] * 5 + [ll] * 4 + [i] * 3
             + [ctypes.POINTER(ll), vp])
         lib.gated_scan_fwd.restype = i
         lib.gated_scan_error_string.argtypes = [i]
@@ -358,7 +443,7 @@ def _bwd_lib():
         lib = _build.load_library(_BWD_LIB_NAME)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.gated_scan_bwd.argtypes = (
-            [vp] * 24 + [i] * 5 + [ll] * 3 + [i] * 3
+            [vp] * 24 + [i] * 5 + [ll] * 4 + [i] * 3
             + [ctypes.POINTER(ll), vp])
         lib.gated_scan_bwd.restype = i
         lib.gated_scan_bwd_sub_len.argtypes = []
@@ -369,55 +454,61 @@ def _bwd_lib():
     return _BWD_LIB
 
 
+def _count(owner, name, nslices):
+    """One launch on ``owner``'s counter ``name``, or on ``SLICE_<name>``
+    for the slice-order kernel (K5)."""
+    name = f"SLICE_{name}" if nslices else name
+    setattr(owner, name, getattr(owner, name) + 1)
+
+
 class _GatedScan(torch.autograd.Function):
     """The gated scan with its backward (the custom VJP of the JAX
-    package's ``_make_dir_core`` / ``_make_core``).
+    package's ``_make_dir_core`` / ``_make_core`` / ``_make_slice_core``).
 
     ``owner`` is the module of the entry point (``scan_dir`` or
     ``scan_fused``), whose ``LAUNCHES`` / ``BWD_LAUNCHES`` count the kernel
-    launches. CUDA tensors run the kernels, CPU tensors the plain versions;
-    the wiring (which inputs get gradients, shared-parameter sums, dtype
-    casts, the ``acc`` link) is the same for both.
+    launches. ``flags`` are (reverse, gate, chunk_size, nslices); nslices
+    > 0 is the slice-order scan. CUDA tensors run the kernels, CPU tensors
+    the plain versions; the wiring (which inputs get gradients,
+    shared-parameter sums, dtype casts, the ``acc`` link) is the same for
+    both.
     """
 
     @staticmethod
-    def forward(ctx, owner, reverse, gate, chunk_size, u, dt, z, acc, A, B,
-                C, D, dt_bias):
+    def forward(ctx, owner, flags, u, dt, z, acc, A, B, C, D, dt_bias):
+        reverse, gate, chunk_size, nslices = flags
+        kw = dict(reverse=reverse, gate=gate, chunk_size=chunk_size,
+                  return_states=True, nslices=nslices)
         if u.device.type == "cpu":
-            out, states = mamba_scan_fused_dir_ref(
-                u, dt, z, A, B, C, D, dt_bias, acc=acc, gate=gate,
-                reverse=reverse, chunk_size=chunk_size, return_states=True)
+            out, states = _plain(u, dt, z, acc, A, B, C, D, dt_bias, **kw)
         else:
-            out, states = _launch(u, dt, z, acc, A, B, C, D, dt_bias,
-                                  reverse=reverse, gate=gate,
-                                  chunk_size=chunk_size, return_states=True)
-            owner.LAUNCHES += 1
-        ctx.owner, ctx.flags = owner, (reverse, gate, chunk_size)
+            out, states = _launch(u, dt, z, acc, A, B, C, D, dt_bias, **kw)
+            _count(owner, "LAUNCHES", nslices)
+        ctx.owner, ctx.flags = owner, flags
         ctx.save_for_backward(u, dt, z, acc, A, B, C, D, dt_bias, states)
         ctx.mark_non_differentiable(states)
         return out, states
 
     @staticmethod
     def backward(ctx, dout, _dstates):
-        reverse, gate, chunk_size = ctx.flags
+        reverse, gate, chunk_size, nslices = ctx.flags
+        kw = dict(reverse=reverse, gate=gate, chunk_size=chunk_size,
+                  nslices=nslices)
         u, dt, z, acc, A, B, C, D, dt_bias, states = ctx.saved_tensors
         if u.device.type == "cpu":
-            grads = mamba_scan_fused_dir_bwd_ref(
-                u, dt, z, A, B, C, D, dt_bias, dout, acc=acc, gate=gate,
-                reverse=reverse, chunk_size=chunk_size)
+            grads = _plain_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, **kw)
         else:
             grads = _launch_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout,
-                                states, reverse=reverse, gate=gate,
-                                chunk_size=chunk_size)
-            ctx.owner.BWD_LAUNCHES += 1
+                                states, **kw)
+            _count(ctx.owner, "BWD_LAUNCHES", nslices)
         inputs = (u, dt, z, acc, A, B, C, D, dt_bias)
-        return (None, None, None, None) + tuple(
+        return (None, None) + tuple(
             None if g is None or not need else g.to(t.dtype)
-            for g, t, need in zip(grads, inputs, ctx.needs_input_grad[4:]))
+            for g, t, need in zip(grads, inputs, ctx.needs_input_grad[2:]))
 
 
 def _scan(owner, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
-          chunk_size, return_states):
+          chunk_size, return_states, nslices=0):
     """Route one scan call: through ``_GatedScan`` when a gradient is to be
     recorded, else straight to the kernel (CUDA) or the plain forward
     (CPU)."""
@@ -428,18 +519,15 @@ def _scan(owner, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
     inputs = (u, dt, z, acc, A, B, C, D, dt_bias)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in inputs):
-        out, states = _GatedScan.apply(owner, reverse, gate, chunk_size,
-                                       *inputs)
+        out, states = _GatedScan.apply(
+            owner, (reverse, gate, chunk_size, nslices), *inputs)
         return (out, states) if return_states else out
+    kw = dict(reverse=reverse, gate=gate, chunk_size=chunk_size,
+              return_states=return_states, nslices=nslices)
     if u.device.type == "cpu":
-        return mamba_scan_fused_dir_ref(
-            u, dt, z, A, B, C, D, dt_bias, acc=acc, gate=gate,
-            reverse=reverse, chunk_size=chunk_size,
-            return_states=return_states)
-    result = _launch(u, dt, z, acc, A, B, C, D, dt_bias, reverse=reverse,
-                     gate=gate, chunk_size=chunk_size,
-                     return_states=return_states)
-    owner.LAUNCHES += 1
+        return _plain(u, dt, z, acc, A, B, C, D, dt_bias, **kw)
+    result = _launch(u, dt, z, acc, A, B, C, D, dt_bias, **kw)
+    _count(owner, "LAUNCHES", nslices)
     return result
 
 
@@ -462,3 +550,41 @@ def mamba_scan_fused_dir(u, dt, z, A, B, C, D, dt_bias, *, acc=None,
     return _scan(sys.modules[__name__], u, dt, z, acc, A, B, C, D, dt_bias,
                  reverse=reverse, gate=gate, chunk_size=chunk_size,
                  return_states=return_states)
+
+
+def slice_scan_supported(seqlen, nslices, chunk_size=DEF_CHUNK):
+    """Whether ``mamba_scan_fused_slice`` takes this (L, S): any S >= 2 that
+    divides L. The card's kernel cuts the scan order into chunks of
+    ``chunk_size`` steps with a ragged last chunk, so it needs none of the
+    JAX kernel's block rules (its (S, Tp) blocks with Tp | P, Tp >= 8 and
+    S Tp a multiple of 128, ``scan_pallas_dir.py:706-725``); the model's
+    output is the same either way, since the slice kernel and the
+    interleave path compute the same numbers. ``chunk_size`` is accepted
+    for the JAX signature."""
+    del chunk_size
+    return nslices is not None and nslices >= 2 and seqlen % nslices == 0
+
+
+def mamba_scan_fused_slice(u, dt, z, A, B, C, D, dt_bias, *, nslices,
+                           chunk_size=DEF_CHUNK, return_states=False):
+    """Gated scan in slice-INTERLEAVED order over original-layout data.
+
+    u/dt/z: (R, L, dim), B/C: (R, L, N), all in the original (slice-major)
+    token order, one storage dtype (float32 or bfloat16); A: (dim, N) or
+    (R, dim, N), D/dt_bias: (dim,) or (R, dim). The scan runs as if the
+    sequence had been interleaved (``new[p S + s] = old[s P + p]``, S =
+    ``nslices``, P = L / S) and the gated output comes back in original
+    order, (R, L, dim) in u.dtype; with ``return_states`` also the float32
+    chunk exit states (R, nc, N, dim) in scan order. Requires
+    ``slice_scan_supported(L, nslices)``.
+
+    CPU tensors run the plain versions; CUDA tensors launch the kernel (no
+    operand is reordered in device memory). Differentiable in every tensor
+    argument.
+    """
+    if not slice_scan_supported(u.shape[1], nslices):
+        raise ValueError(f"nslices={nslices} must be >= 2 and divide "
+                         f"L={u.shape[1]}")
+    return _scan(sys.modules[__name__], u, dt, z, None, A, B, C, D, dt_bias,
+                 reverse=False, gate=True, chunk_size=chunk_size,
+                 return_states=return_states, nslices=nslices)

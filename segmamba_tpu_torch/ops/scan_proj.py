@@ -1,0 +1,374 @@
+"""Projection-fused direction-aware gated scan (K8), forward and backward.
+
+Port of ``segmamba_tpu/ops/scan_pallas_proj.py`` ``mamba_scan_proj``
+(:406-466), ``proj_scan_supported`` (:401) and its custom VJP
+(``_make_proj_core`` :369). The Pallas kernels ``_proj_fwd_kernel`` (:71)
+and ``_proj_bwd_kernel`` (:134) run here as the hand-written Hopper kernels
+``csrc/proj_scan_fwd.cu`` and ``csrc/proj_scan_bwd.cu``. Per direction the
+kernel itself computes the projections from the conv output ``xc``::
+
+    x_dbl = xc @ x_proj                     (in the kernel, float32 sums)
+    delta = softplus(x_dbl[:, :R] @ dt_proj + dt_bias)
+    out   = (scan(xc, delta, A, B, C) + D xc [+ acc]) [* silu(z)]
+
+so delta, B and C never go to device memory, and the backward has no
+(blocks, R, L, N) dB/dC buffers. ``acc`` and ``z`` chain the orientations
+(slice and reverse emit ungated partials, forward adds them and gates once).
+The port does not pad ``dt_rank`` to 8 as JAX does (a TPU layout rule; the
+padding is exact).
+
+- ``mamba_scan_proj`` takes CPU tensors to the plain versions and CUDA
+  tensors to the kernels; any other device raises. There is no fallback.
+  With grad enabled and an input that requires it, it goes through
+  ``_ProjScan`` (a ``torch.autograd.Function``).
+- ``mamba_scan_proj_ref`` is the plain forward: float32 einsum projections,
+  then ``scan_dir.mamba_scan_fused_dir_ref`` (the plain directional scan
+  with ``acc`` and the gate); ``mamba_scan_proj_bwd_ref`` the plain
+  backward, ``autograd.grad`` through it in float32.
+- ``LAUNCHES`` / ``BWD_LAUNCHES`` count this wrapper's kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from segmamba_tpu_torch.ops import _build
+from segmamba_tpu_torch.ops.scan_dir import (
+    _IO_DTYPES,
+    _check_cuda,
+    _ptr,
+    mamba_scan_fused_dir_ref,
+)
+
+LAUNCHES = 0
+BWD_LAUNCHES = 0
+DEF_CHUNK = 128
+MAX_CHANNELS = 128
+_KERNEL_N = 16
+_FWD_LIB_NAME = "proj_scan_fwd"
+_BWD_LIB_NAME = "proj_scan_bwd"
+
+
+def proj_scan_supported(d_inner):
+    """The projections need all channels in one block: d_inner <= 128."""
+    return d_inner <= MAX_CHANNELS
+
+
+def mamba_scan_proj_ref(xc, x_proj, dt_proj, dt_bias, A, D_skip, *, z=None,
+                        acc=None, reverse=False, chunk_size=DEF_CHUNK,
+                        return_states=False):
+    """Plain PyTorch version of ``mamba_scan_proj``: the projections as
+    float32 matrix products, then the plain directional scan. With
+    ``return_states`` also the float32 chunk exit states (b, nc, N, E) in
+    scan order, as the kernel saves them."""
+    N = A.shape[-1]
+    rank = x_proj.shape[1] - 2 * N
+    x_dbl = xc.float() @ x_proj.float()
+    dt = x_dbl[..., :rank] @ dt_proj.float()
+    B, C = x_dbl[..., rank:rank + N], x_dbl[..., rank + N:]
+    return mamba_scan_fused_dir_ref(
+        xc, dt, z, A, B, C, D_skip, dt_bias, acc=acc, gate=z is not None,
+        reverse=reverse, chunk_size=chunk_size, return_states=return_states)
+
+
+def mamba_scan_proj_bwd_ref(xc, x_proj, dt_proj, dt_bias, A, D_skip, dout,
+                            *, z=None, acc=None, reverse=False,
+                            chunk_size=DEF_CHUNK):
+    """Plain backward of ``mamba_scan_proj``: ``autograd.grad`` of the plain
+    forward, in float32 on float32 copies of the inputs. Returns (dxc,
+    dx_proj, ddt_proj, ddt_bias, dA, dD, dz, dacc), float32, in the inputs'
+    shapes; dz / dacc are None without z / acc."""
+    inputs = (xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc)
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().float().requires_grad_()
+                  for t in inputs]
+        lxc, lw, ldtp, lb, lA, lD, lz, lacc = leaves
+        out = mamba_scan_proj_ref(lxc, lw, ldtp, lb, lA, lD, z=lz, acc=lacc,
+                                  reverse=reverse, chunk_size=chunk_size)
+        grads = iter(torch.autograd.grad(
+            out, [t for t in leaves if t is not None], dout.float()))
+    return tuple(None if t is None else next(grads) for t in leaves)
+
+
+def _seq_strides(t, name, shape, like):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.device != like.device or t.dtype != like.dtype:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}; expected "
+                         f"{like.dtype} on {like.device}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: last axis must have unit stride, got "
+                         f"strides {t.stride()}")
+    return [t.stride(0), t.stride(1)]
+
+
+def _f32(t, name, shape, device):
+    t = t.to(device=device, dtype=torch.float32).contiguous()
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    return t
+
+
+def _operands(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, chunk_size):
+    """Validate the kernels' operands. Returns (b, L, E, rank, T, the float32
+    contiguous W, dt_proj, bias, A, D, the six strides)."""
+    if xc.dim() != 3:
+        raise ValueError(f"xc must be (batch, L, d_inner), got "
+                         f"{tuple(xc.shape)}")
+    b, L, E = xc.shape
+    N = A.shape[-1]
+    if N != _KERNEL_N:
+        raise ValueError(f"the projection-fused kernel is built for "
+                         f"N={_KERNEL_N}, got N={N}")
+    if not proj_scan_supported(E):
+        raise ValueError(f"d_inner={E} > {MAX_CHANNELS}; use "
+                         "scan_dir.mamba_scan_fused_dir")
+    if xc.dtype not in _IO_DTYPES:
+        raise ValueError(f"unsupported I/O dtype {xc.dtype}")
+    if not 1 <= chunk_size <= 256:
+        raise ValueError(f"chunk_size must be in [1, 256], got {chunk_size}")
+    rank = x_proj.shape[1] - 2 * N
+    if rank < 1:
+        raise ValueError(f"x_proj {tuple(x_proj.shape)}: needs dt_rank + "
+                         f"2 * {N} columns")
+    dev = xc.device
+    W = _f32(x_proj, "x_proj", (E, rank + 2 * N), dev)
+    dtp = _f32(dt_proj, "dt_proj", (rank, E), dev)
+    bias = _f32(dt_bias, "dt_bias", (E,), dev)
+    Af = _f32(A, "A", (E, N), dev)
+    Df = _f32(D_skip, "D_skip", (E,), dev)
+    strides = _seq_strides(xc, "xc", (b, L, E), xc)
+    strides += (_seq_strides(z, "z", (b, L, E), xc) if z is not None
+                else [0, 0])
+    strides += (_seq_strides(acc, "acc", (b, L, E), xc) if acc is not None
+                else [0, 0])
+    return b, L, E, rank, min(chunk_size, L), W, dtp, bias, Af, Df, strides
+
+
+def _threads(E):
+    return -(-E // 32) * 32
+
+
+def _run_kernel(lib, stream, xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc,
+                *, reverse, chunk_size, return_states):
+    """Validate the operands, allocate the output and scratch on xc's device
+    and call the library's ``proj_scan_fwd`` on ``stream``."""
+    b, L, E, rank, T, W, dtp, bias, Af, Df, strides = _operands(
+        xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, chunk_size)
+    N = _KERNEL_N
+    nc = -(-L // T)
+    f32 = dict(dtype=torch.float32, device=xc.device)
+    out = torch.empty((b, L, E), dtype=xc.dtype, device=xc.device)
+    states = torch.empty((b, nc, N, E), **f32) if return_states else None
+    hbuf = torch.empty((b, nc, N, E), **f32) if nc > 1 else None
+    sdelta = torch.empty((b, nc, E), **f32) if nc > 1 else None
+    err = lib.proj_scan_fwd(
+        _ptr(xc), _ptr(z), _ptr(acc), _ptr(W), _ptr(dtp), _ptr(bias),
+        _ptr(Af), _ptr(Df), _ptr(out), _ptr(states), _ptr(hbuf),
+        _ptr(sdelta), int(xc.dtype == torch.bfloat16), int(reverse),
+        int(z is not None), int(acc is not None), b, L, E, rank, N, T,
+        _threads(E), (ctypes.c_longlong * 6)(*strides), stream)
+    if err != 0:
+        msg = lib.proj_scan_error_string(err).decode()
+        raise RuntimeError(f"proj_scan_fwd launch failed: {msg} ({err})")
+    return (out, states) if return_states else out
+
+
+def _run_bwd_kernel(lib, stream, xc, x_proj, dt_proj, dt_bias, A, D_skip, z,
+                    acc, dout, states, *, reverse, chunk_size):
+    """Validate the operands, allocate every gradient, partial and scratch
+    buffer on xc's device, call the library's ``proj_scan_bwd`` on
+    ``stream`` and sum the per-block partials. Returns (dxc, dx_proj,
+    ddt_proj, ddt_bias, dA, dD, dz, dacc) in the shapes and dtypes of the
+    inputs; dz / dacc are None without z / acc."""
+    b, L, E, rank, T, W, dtp, bias, Af, Df, strides = _operands(
+        xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, chunk_size)
+    N = _KERNEL_N
+    nc = -(-L // T)
+    if tuple(states.shape) != (b, nc, N, E) or (
+            states.dtype != torch.float32 or not states.is_contiguous()):
+        raise ValueError(f"states: {tuple(states.shape)} {states.dtype}, "
+                         f"expected contiguous float32 {(b, nc, N, E)}")
+    dout = dout.to(xc.dtype).contiguous()
+    if tuple(dout.shape) != (b, L, E) or dout.device != xc.device:
+        raise ValueError(f"dout: {tuple(dout.shape)} on {dout.device}, "
+                         f"expected {(b, L, E)} on {xc.device}")
+    gate, has_acc = z is not None, acc is not None
+    f32 = dict(dtype=torch.float32, device=xc.device)
+    seq = dict(dtype=xc.dtype, device=xc.device)
+    dxc = torch.empty((b, L, E), **seq)
+    dz = torch.empty((b, L, E), **seq) if gate else None
+    dacc_k = torch.empty((b, L, E), **seq) if gate and has_acc else None
+    pw = lib.proj_scan_bwd_part_len(E, rank)
+    part = torch.empty((b, nc, pw), **f32)
+    gbuf = torch.empty((b, nc, N, E), **f32) if nc > 1 else None
+    sdelta = torch.empty((b, nc, E), **f32) if nc > 1 else None
+    ckpt = torch.empty((b, nc, -(-T // lib.proj_scan_bwd_sub_len()), N, E),
+                       **f32)
+    err = lib.proj_scan_bwd(
+        _ptr(xc), _ptr(z), _ptr(acc), _ptr(dout), _ptr(W), _ptr(dtp),
+        _ptr(bias), _ptr(Af), _ptr(Df), _ptr(states), _ptr(dxc), _ptr(dz),
+        _ptr(dacc_k), _ptr(part), _ptr(gbuf), _ptr(sdelta), _ptr(ckpt),
+        int(xc.dtype == torch.bfloat16), int(reverse), int(gate),
+        int(has_acc), b, L, E, rank, N, T, _threads(E),
+        (ctypes.c_longlong * 6)(*strides), stream)
+    if err != 0:
+        msg = lib.proj_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"proj_scan_bwd launch failed: {msg} ({err})")
+    tot = part.sum((0, 1))
+    ncol = rank + 2 * N
+    sizes = (ncol * E, rank * E, N * E, E, E)
+    dWt, ddtp, dAt, dbias, dD = torch.split(tot, sizes)
+    dacc = dacc_k if dacc_k is not None else (
+        dout.to(acc.dtype) if has_acc else None)
+    return (dxc, dWt.view(ncol, E).t().to(x_proj.dtype),
+            ddtp.view(rank, E).to(dt_proj.dtype), dbias.to(dt_bias.dtype),
+            dAt.view(N, E).t().to(A.dtype), dD.to(D_skip.dtype), dz, dacc)
+
+
+_LIBS = {}
+
+
+def _lib():
+    """The forward kernel library with its C signatures declared (built on
+    first use)."""
+    if "fwd" not in _LIBS:
+        lib = _build.load_library(_FWD_LIB_NAME)
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.proj_scan_fwd.argtypes = (
+            [vp] * 12 + [i] * 4 + [ll] * 2 + [i] * 5
+            + [ctypes.POINTER(ll), vp])
+        lib.proj_scan_fwd.restype = i
+        lib.proj_scan_error_string.argtypes = [i]
+        lib.proj_scan_error_string.restype = ctypes.c_char_p
+        _LIBS["fwd"] = lib
+    return _LIBS["fwd"]
+
+
+def _bwd_lib():
+    """The backward kernel library with its C signatures declared (built on
+    first use)."""
+    if "bwd" not in _LIBS:
+        lib = _build.load_library(_BWD_LIB_NAME)
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.proj_scan_bwd.argtypes = (
+            [vp] * 17 + [i] * 4 + [ll] * 2 + [i] * 5
+            + [ctypes.POINTER(ll), vp])
+        lib.proj_scan_bwd.restype = i
+        lib.proj_scan_bwd_sub_len.argtypes = []
+        lib.proj_scan_bwd_sub_len.restype = i
+        lib.proj_scan_bwd_part_len.argtypes = [i, i]
+        lib.proj_scan_bwd_part_len.restype = i
+        lib.proj_scan_bwd_error_string.argtypes = [i]
+        lib.proj_scan_bwd_error_string.restype = ctypes.c_char_p
+        _LIBS["bwd"] = lib
+    return _LIBS["bwd"]
+
+
+def _launch(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, *, reverse,
+            chunk_size, return_states):
+    """Launch ``proj_scan_fwd`` on the current stream of xc's card."""
+    _check_cuda(xc)
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream(xc.device).cuda_stream
+        return _run_kernel(_lib(), stream, xc, x_proj, dt_proj, dt_bias, A,
+                           D_skip, z, acc, reverse=reverse,
+                           chunk_size=chunk_size,
+                           return_states=return_states)
+
+
+def _launch_bwd(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, dout,
+                states, *, reverse, chunk_size):
+    """Launch ``proj_scan_bwd`` on the current stream of xc's card."""
+    _check_cuda(xc)
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream(xc.device).cuda_stream
+        return _run_bwd_kernel(_bwd_lib(), stream, xc, x_proj, dt_proj,
+                               dt_bias, A, D_skip, z, acc, dout, states,
+                               reverse=reverse, chunk_size=chunk_size)
+
+
+def _forward(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, *, reverse,
+             chunk_size, return_states):
+    """The kernel for CUDA tensors (counted), the plain version for CPU
+    tensors."""
+    global LAUNCHES
+    args = (xc, x_proj, dt_proj, dt_bias, A, D_skip)
+    kw = dict(reverse=reverse, chunk_size=chunk_size,
+              return_states=return_states)
+    if xc.device.type == "cpu":
+        return mamba_scan_proj_ref(*args, z=z, acc=acc, **kw)
+    out = _launch(*args, z, acc, **kw)
+    LAUNCHES += 1
+    return out
+
+
+class _ProjScan(torch.autograd.Function):
+    """The projection-fused scan with its backward (the custom VJP of the
+    JAX package's ``_make_proj_core``). CUDA tensors run the kernels, CPU
+    tensors the plain versions; outputs (out, chunk exit states)."""
+
+    @staticmethod
+    def forward(ctx, flags, xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc):
+        reverse, chunk_size = flags
+        out, states = _forward(xc, x_proj, dt_proj, dt_bias, A, D_skip, z,
+                               acc, reverse=reverse, chunk_size=chunk_size,
+                               return_states=True)
+        ctx.flags = flags
+        ctx.save_for_backward(xc, x_proj, dt_proj, dt_bias, A, D_skip, z,
+                              acc, states)
+        ctx.mark_non_differentiable(states)
+        return out, states
+
+    @staticmethod
+    def backward(ctx, dout, _dstates):
+        global BWD_LAUNCHES
+        reverse, chunk_size = ctx.flags
+        xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, states = (
+            ctx.saved_tensors)
+        args = (xc, x_proj, dt_proj, dt_bias, A, D_skip)
+        if xc.device.type == "cpu":
+            grads = mamba_scan_proj_bwd_ref(*args, dout, z=z, acc=acc,
+                                            reverse=reverse,
+                                            chunk_size=chunk_size)
+        else:
+            grads = _launch_bwd(*args, z, acc, dout, states, reverse=reverse,
+                                chunk_size=chunk_size)
+            BWD_LAUNCHES += 1
+        inputs = args + (z, acc)
+        return (None,) + tuple(
+            None if g is None or not need else g.to(t.dtype)
+            for g, t, need in zip(grads, inputs, ctx.needs_input_grad[1:]))
+
+
+def mamba_scan_proj(xc, x_proj, dt_proj, dt_bias, A, D_skip, *, z=None,
+                    acc=None, reverse=False, chunk_size=DEF_CHUNK,
+                    return_states=False):
+    """Projection-fused direction-aware gated scan.
+
+    xc: (batch, L, d_inner) conv output (post-silu), float32 or bfloat16,
+    d_inner <= 128; x_proj: (d_inner, dt_rank + 2 N) combined projection;
+    dt_proj: (dt_rank, d_inner); dt_bias: (d_inner,); A: (d_inner, N)
+    negative real (N = 16 on the kernel); D_skip: (d_inner,). z and acc:
+    optional (batch, L, d_inner) in xc's dtype: with z the output is
+    ``(y [+ acc]) * silu(z)``, without it the raw partial ``y [+ acc]``.
+    ``reverse`` scans right to left in place. Returns (batch, L, d_inner)
+    in xc.dtype, and with ``return_states`` the float32 chunk exit states
+    (batch, nc, N, d_inner) in scan order.
+
+    CPU tensors run the plain versions; CUDA tensors launch the kernels.
+    Differentiable in every tensor argument.
+    """
+    if xc.shape[-1] > MAX_CHANNELS:
+        raise ValueError(f"d_inner={xc.shape[-1]} > {MAX_CHANNELS}; use "
+                         "scan_dir.mamba_scan_fused_dir")
+    inputs = (xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        out, states = _ProjScan.apply((bool(reverse), chunk_size), *inputs)
+        return (out, states) if return_states else out
+    return _forward(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc,
+                    reverse=bool(reverse), chunk_size=chunk_size,
+                    return_states=return_states)

@@ -229,7 +229,7 @@ def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
       (the kernel on CUDA, its chunked plain version on the CPU);
     - ``"chunked"`` / ``"ref"``: the plain cores;
     - ``"mxu"``: the matrix-unit scan K7 (``scan_pallas_mxu.py``) is not
-      ported (ROADMAP B4): raises for CUDA tensors, takes the chunked core
+      ported (ROADMAP B1): raises for CUDA tensors, takes the chunked core
       for CPU tensors.
 
     Grouped, static or complex B/C take the chunked plain core on either
@@ -243,7 +243,7 @@ def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
             raise NotImplementedError(
                 "impl='mxu' is the matrix-unit scan K7 "
                 "(segmamba_tpu/ops/scan_pallas_mxu.py), not ported to the "
-                "card yet (ROADMAP B4)")
+                "card yet (ROADMAP B1)")
         impl = "chunked"
     if impl in ("auto", "pallas") and (
             B.dim() != 3 or C.dim() != 3

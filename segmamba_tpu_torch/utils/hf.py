@@ -7,15 +7,12 @@ a ``state-spaces/mamba-*`` snapshot holds (``config.json`` and
 fetched. The port's names are the reference's, so the conversion only
 strips a ``module.`` prefix and drops the tied ``lm_head.weight``.
 
-Differences from the JAX loader:
-- The embedding has ``vocab_size`` rows rounded up to
-  ``pad_vocab_size_multiple`` (default 8, the reference's), as the
-  reference ``MambaLMHeadModel`` builds it, so a real snapshot (50277
-  padded to 50280) loads strictly. The JAX loader passes the raw
-  ``vocab_size`` and takes the checkpoint's array as it is; the logits have
-  the checkpoint's width either way.
-- ``rms_norm`` defaults to True when the config omits it, as in JAX (the
-  model class's own default is False).
+As in the JAX loader, the embedding (and the tied head) take the
+checkpoint's own ``backbone.embedding.weight`` rows, so a snapshot whose
+vocabulary was padded to ``pad_vocab_size_multiple`` (50277 -> 50280) and
+one saved with the raw ``vocab_size`` rows both load strictly; the logits
+have the checkpoint's width. ``rms_norm`` defaults to True when the config
+omits it, as in JAX (the model class's own default is False).
 """
 
 from __future__ import annotations
@@ -57,11 +54,12 @@ def from_pretrained(model_dir: str, dtype=torch.float32, device="cuda",
     if path is None:
         raise FileNotFoundError(f"no weights file ({', '.join(WEIGHT_FILES)})"
                                 f" in {model_dir}")
+    sd = convert_lm_state_dict(
+        torch.load(path, map_location="cpu", weights_only=True))
+    vocab_rows = sd["backbone.embedding.weight"].shape[0]
     model = MambaLMHeadModel(
-        cfg["vocab_size"], cfg["d_model"], cfg["n_layer"],
+        vocab_rows, cfg["d_model"], cfg["n_layer"],
         rms_norm=cfg.get("rms_norm", True), scan_impl=scan_impl,
-        pad_vocab_size_multiple=cfg.get("pad_vocab_size_multiple", 8),
         dtype=dtype)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(convert_lm_state_dict(sd), strict=True)
+    model.load_state_dict(sd, strict=True)
     return model.to(device)

@@ -1,5 +1,7 @@
 """The Hopper scan kernels against their plain PyTorch versions, on the card
-(K1-K4 through ``scan_dir`` / ``scan_fused``, K6 through ``scan_core``).
+(K1-K4 through ``scan_dir`` / ``scan_fused``, K5 through
+``scan_dir.mamba_scan_fused_slice``, K6 through ``scan_core``, K8 through
+``scan_proj``).
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; the
 ``cuda`` fixture skips it where ``torch.cuda.is_available()`` is false (it
@@ -23,7 +25,8 @@ import pytest
 import torch
 
 from segmamba_tpu_torch.models import MambaLMHeadModel, SegMamba
-from segmamba_tpu_torch.ops import scan_core, scan_dir, scan_fused
+from segmamba_tpu_torch.models.mamba import MambaV3
+from segmamba_tpu_torch.ops import scan_core, scan_dir, scan_fused, scan_proj
 from segmamba_tpu_torch.ops.selective_scan import selective_scan
 
 pytestmark = pytest.mark.cuda
@@ -353,14 +356,157 @@ def test_selective_scan_on_cuda_records_gradient(cuda):
     assert (scan_core.LAUNCHES, scan_core.BWD_LAUNCHES) == (before[0] + 1,
                                                             before[1] + 1)
     assert torch.isfinite(lu.grad).all() and lu.grad.abs().max() > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+    with pytest.raises(NotImplementedError, match="K7"):
         selective_scan(u, delta, A, B, C, impl="mxu")
 
 
-def test_scan_core_rejects_n_other_than_16(cuda):
+def test_templates_reject_n8_and_k6_rejects_n_over_256(cuda):
+    """The templates take N = 16 only: a direct call with N = 8 raises; K6
+    (``scan_core``) runs other N as groups of 16 states (below) up to
+    JAX's 256, and raises above it."""
     u, delta, A, B, C = _core_inputs(11, 1, 64, 32, cuda, N_=8)
     with pytest.raises(ValueError, match="N=16"):
+        scan_dir._launch(u, delta, None, None, A, B, C, A[:, 0], A[:, 0],
+                         reverse=False, gate=False, chunk_size=64,
+                         return_states=False, softplus=False)
+    u, delta, A, B, C = _core_inputs(11, 1, 64, 32, cuda, N_=272)
+    with pytest.raises(ValueError, match="256"):
         scan_core.selective_scan_kernel(u, delta, A, B, C)
+
+
+@pytest.mark.parametrize("N_", [4, 64, 20])
+def test_scan_core_state_groups_match_plain(cuda, N_):
+    """K6 at N != 16: ceil(N / 16) launches each way, forward (y, chunk
+    states) and backward (du, ddelta, dA, dB, dC with a nonzero gradient of
+    the last state) against the plain version."""
+    R, L, D, T = 2, 300, 64, 128
+    u, delta, A, B, C = _core_inputs(13, R, L, D, cuda, N_=N_)
+    y, st = scan_core._launch(u, delta, A, B, C, T)
+    y_p, st_p = scan_core.selective_scan_core_ref(u, delta, A, B, C, T,
+                                                  return_states=True)
+    _close(y, y_p, F32)
+    _close(st, st_p, F32)
+    dy = torch.randn(R, L, D, device=cuda)
+    dlast = torch.randn(R, D, N_, device=cuda)
+    leaves = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
+    before = scan_core.LAUNCHES, scan_core.BWD_LAUNCHES
+    yk, last = scan_core.selective_scan_kernel(*leaves,
+                                               return_last_state=True)
+    torch.autograd.backward((yk, last), (dy, dlast))
+    groups = -(-N_ // 16)
+    assert (scan_core.LAUNCHES - before[0],
+            scan_core.BWD_LAUNCHES - before[1]) == (groups, groups)
+    want = scan_core.selective_scan_core_bwd_ref(u, delta, A, B, C, dy,
+                                                 dlast, T)
+    for name, leaf, w in zip(("du", "ddelta", "dA", "dB", "dC"), leaves,
+                             want):
+        _grad_close(f"{name} N={N_}", leaf.grad, w, F32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slice_kernel_matches_plain(cuda, dtype):
+    """K5 forward (output, chunk states) and backward (all eight gradients
+    through the autograd Function) against the plain versions: ragged
+    chunks, masked channels, shared and per-row parameters."""
+    for (R, L, D, S, T), per_row in itertools.product(
+            [(2, 512, 96, 8, 128), (1, 300, 50, 6, 128),
+             (1, 192, 136, 4, 32)], [False, True]):
+        u, dt, z, _, B, C, A, Dv, bias = _inputs(
+            14, R, L, D, dtype, per_row, True, cuda)
+        args = (u, dt, z, A, B, C, Dv, bias)
+        before = scan_dir.SLICE_LAUNCHES, scan_dir.LAUNCHES
+        got, st = scan_dir.mamba_scan_fused_slice(
+            *args, nslices=S, chunk_size=T, return_states=True)
+        assert (scan_dir.SLICE_LAUNCHES - before[0],
+                scan_dir.LAUNCHES - before[1]) == (1, 0)
+        want, st_ref = scan_dir.mamba_scan_fused_slice_ref(
+            *args, nslices=S, chunk_size=T, return_states=True)
+        _close(got, want, TOL[dtype])
+        _close(st, st_ref, F32)
+        dout = torch.randn(R, L, D, device=cuda).to(dtype)
+        leaves = [t.detach().requires_grad_() for t in args]
+        scan_dir.mamba_scan_fused_slice(*leaves, nslices=S,
+                                        chunk_size=T).backward(dout)
+        want = scan_dir.mamba_scan_fused_slice_bwd_ref(
+            *args, dout, nslices=S, chunk_size=T)
+        want = [w for w in want if w is not None]
+        for name, leaf, w in zip(("du", "ddt", "dz", "dA", "dB", "dC", "dD",
+                                  "dbias"), leaves, want):
+            _grad_close(f"{name} {(R, L, D, S)}", leaf.grad, w, TOL[dtype])
+
+
+def _proj_inputs(seed, b, L, D, rank, dtype, device):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.standard_normal(s)).astype(np.float32)).to(device)
+    xc, acc = f(b, L, D).to(dtype), f(b, L, D).to(dtype)
+    z = f(b, L, 2 * D)[..., D:].to(dtype)
+    return (xc, f(D, rank + 2 * N, sc=0.1).to(dtype), f(rank, D, sc=0.3),
+            f(D, sc=0.5), -torch.exp(f(D, N)), f(D), z, acc)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_proj_kernel_matches_plain(cuda, reverse, dtype):
+    """K8 forward (output, chunk states) and backward (all eight gradients
+    through ``_ProjScan``) against the plain versions, in every z/acc flag
+    set, ragged L, masked channels, several dt_ranks."""
+    for (b, L, D, rank, T), (zk, acck) in itertools.product(
+            [(2, 300, 96, 3, 128), (1, 200, 50, 4, 64),
+             (1, 96, 128, 8, 32)],
+            [(True, True), (False, True), (False, False), (True, False)]):
+        xc, wp, dtp, bias, A, Dv, z, acc = _proj_inputs(
+            15, b, L, D, rank, dtype, cuda)
+        kw = dict(z=z if zk else None, acc=acc if acck else None,
+                  reverse=reverse, chunk_size=T)
+        args = (xc, wp, dtp, bias, A, Dv)
+        before = scan_proj.LAUNCHES, scan_proj.BWD_LAUNCHES
+        got, st = scan_proj.mamba_scan_proj(*args, return_states=True, **kw)
+        want, st_ref = scan_proj.mamba_scan_proj_ref(
+            *args, return_states=True, **kw)
+        _close(got, want, TOL[dtype])
+        _close(st, st_ref, F32)
+        dout = torch.randn(b, L, D, device=cuda).to(dtype)
+        leaves = [None if t is None else t.detach().requires_grad_()
+                  for t in args + (kw["z"], kw["acc"])]
+        scan_proj.mamba_scan_proj(
+            *leaves[:6], z=leaves[6], acc=leaves[7], reverse=reverse,
+            chunk_size=T).backward(dout)
+        assert (scan_proj.LAUNCHES - before[0],
+                scan_proj.BWD_LAUNCHES - before[1]) == (2, 1)
+        want = scan_proj.mamba_scan_proj_bwd_ref(*args, dout, **kw)
+        for name, leaf, w in zip(("dxc", "dx_proj", "ddt_proj", "ddt_bias",
+                                  "dA", "dD", "dz", "dacc"), leaves, want):
+            if leaf is None:
+                assert w is None
+                continue
+            assert leaf.grad.dtype == leaf.dtype
+            _grad_close(f"{name} {(b, L, D, rank)} z={zk} acc={acck}",
+                        leaf.grad, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("scan_impl,slice_kernel", [("proj", False),
+                                                    ("dir", True)])
+def test_mamba_v3_composition_kernels_match_plain(cuda, scan_impl,
+                                                  slice_kernel):
+    """A MambaV3 of each new composition on the card (K8 x 3, or K1 x 2 +
+    K5) against the same module on the CPU (the plain versions): output
+    and every parameter gradient."""
+    h = np.random.default_rng(16).standard_normal((2, 512, 48)).astype(
+        np.float32)
+    grads, outs = [], []
+    for device in (cuda, torch.device("cpu")):
+        m = MambaV3(d_model=48, nslices=8, scan_impl=scan_impl,
+                    slice_kernel=slice_kernel,
+                    generator=torch.Generator().manual_seed(0),
+                    device=device)
+        out = m(torch.from_numpy(h).to(device))
+        out.square().mean().backward()
+        outs.append(out.detach().cpu())
+        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+    _close(outs[0], outs[1], F32)
+    for k, w in grads[1].items():
+        _grad_close(k, grads[0][k], w, F32)
 
 
 def test_tiny_lm_generate_kernel_path_matches_plain(cuda):
