@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), a CUDA card
    required, the forward scan kernel built from ``segmamba_tpu_torch/csrc``.
-1b. The backward scan kernel (``gated_scan_bwd.cu``) and the
-   projection-fused kernels (``proj_scan_fwd.cu``, ``proj_scan_bwd.cu``),
-   built in parallel with the forward one (one nvcc each, from four
+1b. The backward scan kernel (``gated_scan_bwd.cu``), the
+   projection-fused kernels (``proj_scan_fwd.cu``, ``proj_scan_bwd.cu``)
+   and the ratio-form scan K7 (``mxu_scan_fwd.cu``, ``mxu_scan_bwd.cu``),
+   built in parallel with the forward one (one nvcc each, from six
    threads): build times, ptxas registers/spills.
 2. Kernel vs plain PyTorch at the main path's shapes (stage 0: R=1,
    L=262144, D=96; stage 3: R=1, L=512, D=768; N=16) for the three flag
@@ -103,6 +104,12 @@ Phases, in order; any failure raises and the script exits non-zero:
       launches none);
    e. ``from_pretrained`` on a tiny snapshot written to a temporary
       directory loads strictly and gives the saved model's logits.
+   The same model with ``scan_impl="mxu"`` (the ratio-form scan K7): the
+   f32 prefill of (a) within 1e-3 relative L2 of K6's logits, exactly 64
+   K7 and no other scan launch, and the full forward likewise (64 K7); the
+   gradient of (c) with 64 K7 backward launches, its embedding gradient
+   within 1e-3 relative L2 of K6's; the bf16 ``generate`` prefill of (d)
+   timed beside K6's (64 K7); the ratio-form share of each prefill.
 
 11. K5 (the slice-order scan, ``scan_dir.mamba_scan_fused_slice``) and K8
    (the projection-fused scan, ``scan_proj.mamba_scan_proj``) vs their
@@ -120,18 +127,32 @@ Phases, in order; any failure raises and the script exits non-zero:
 12. The compositions at full width, built by
    ``Config(model=ModelConfig(scan_impl=...)).build_model()`` with the
    same seed-0 weights: "dir2", "dir", "dir" with ``slice_kernel=True``
-   set on every MambaV3 (K5) and "proj" (K8 at stage 0, K1/K2 deeper):
+   set on every MambaV3 (K5), "proj" (K8 at stage 0, K1/K2 deeper) and
+   "mxu" (per direction, K7 in each: 8 Mamba layers x 3 = 24 per window,
+   counted from the model; the ratio-form share of the window):
    the float32 window's logits vs dir2's (rtol 2e-4, atol 1e-4 x
    max|dir2|; the compositions rearrange one computation, and on an
    H100 they differ by 4.3e-6 to 4.6e-6 at a max|dir2| of 5.2), the
    bfloat16 window's relative L2 vs dir2's (<= 1.5e-2; 7.0e-3 there), exact
    launch counts per window and per bench case, ms per
    window and s/case (median of 3), each in turn.
-13. The recipe train step (phase 7's) under the same four compositions in
+13. The recipe train step (phase 7's) under the same five compositions in
    turn: s/step (median of 4 after a warm-up), peak memory, losses
    finite and falling over 5 steps, exact forward and backward launches
    per step; the forward and backward ms of a stage-0 and a stage-1
    Mamba layer run alone.
+14. K7 (``scan_mxu``) vs its plain version at the LM prefill's shape
+   (R=2, L=2048, D=5120), a ragged one (R=1, L=2000) and SegMamba's stage
+   0 (R=1 and 2, L=262144, D=96), N=16, on three kinds of input: deltas in
+   the model's range, every unit tripped (delta + 40), and a mix (delta +
+   2 on every third chunk); forward y, chunk states and last state, and
+   all five gradients with a nonzero gradient of the last state, at the
+   float32 tier 6e-4 / 2e-3 (dA, dB, dC with the absolute part scaled by
+   max(1, max|plain|)); the plain versions over channel slices that keep
+   their predicted peak under 3/4 of the free memory. The ratio-form share
+   of each input (``scan_mxu.tally``), K7's times beside K6's on the same
+   inputs (CUDA events), the plain times and K6's bound (``core_bound``:
+   K7 computes K6's function on K6's operands).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
@@ -171,6 +192,7 @@ from segmamba_tpu_torch.ops import (
     scan_core,
     scan_dir,
     scan_fused,
+    scan_mxu,
     scan_proj,
 )
 from segmamba_tpu_torch.train import poly_schedule
@@ -230,12 +252,22 @@ PROJ_CHAIN = {                     # K8's flag sets on the "proj" chain
     "reverse_acc": dict(z=False, acc=True, reverse=True),
     "forward_acc_gate": dict(z=True, acc=True, reverse=False),
 }
-COMPOSITIONS = ("dir2", "dir", "dir_slice", "proj")   # phases 12 and 13
+COMPOSITIONS = ("dir2", "dir", "dir_slice", "proj", "mxu")   # 12 and 13
 PROJ_PLAIN_SHARE = 0.85            # of free memory, the plain K8 backward
 LM_CONFIG = dict(vocab_size=50277, d_model=2560, n_layer=64, rms_norm=True,
                  pad_vocab_size_multiple=8)   # state-spaces/mamba-2.8b
 LM_CHECK = (2, 512)                # batch, prompt: float32 kernel vs plain
 LM_SERVE = (1, 2048, 128)          # batch, prompt, new tokens: bf16 serving
+MXU_SOURCES = {"fwd": "segmamba_tpu_torch/csrc/mxu_scan_fwd.cu",
+               "bwd": "segmamba_tpu_torch/csrc/mxu_scan_bwd.cu"}
+MXU_REPLACES = {"fwd": "segmamba_tpu/ops/scan_pallas_mxu.py:131",
+                "bwd": "segmamba_tpu/ops/scan_pallas_mxu.py:165"}
+MXU_SHAPES = {"prefill": (2, 2048, 5120), "ragged": (1, 2000, 5120),
+              "stage0_r1": (1, 262144, 96), "stage0_r2": (2, 262144, 96)}
+MXU_KINDS = ("model", "tripped", "mixed")                      # phase 14
+# peak bytes per (row, step, channel, state) of K7's plain forward and
+# backward: first guesses, replaced by phase 14's measurements
+MXU_PLAIN_BPE = {"fwd": 96.0, "bwd": 256.0}
 
 
 def log(msg):
@@ -295,7 +327,9 @@ def launch_counts():
             "scan_dir_slice": scan_dir.SLICE_LAUNCHES,
             "scan_dir_slice_bwd": scan_dir.SLICE_BWD_LAUNCHES,
             "scan_proj": scan_proj.LAUNCHES,
-            "scan_proj_bwd": scan_proj.BWD_LAUNCHES}
+            "scan_proj_bwd": scan_proj.BWD_LAUNCHES,
+            "scan_mxu": scan_mxu.LAUNCHES,
+            "scan_mxu_bwd": scan_mxu.BWD_LAUNCHES}
 
 
 def expected_counts(**nonzero):
@@ -304,7 +338,7 @@ def expected_counts(**nonzero):
 
 
 def reset_counts():
-    for mod in (scan_dir, scan_fused, scan_core, scan_proj):
+    for mod in (scan_dir, scan_fused, scan_core, scan_proj, scan_mxu):
         mod.LAUNCHES = mod.BWD_LAUNCHES = 0
     scan_dir.SLICE_LAUNCHES = scan_dir.SLICE_BWD_LAUNCHES = 0
 
@@ -699,6 +733,11 @@ def phase_grads():
 
 
 KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
+    ("scan K7 backward (mxu_scan_bwd)",
+     ("mxu_bwd_chunk_kernel", "mxu_bwd_carry_kernel", "mxu_bwd_grad_kernel")),
+    ("scan K7 forward (mxu_scan_fwd)",
+     ("mxu_chunk_exit_kernel", "mxu_chunk_carry_kernel",
+      "mxu_chunk_output_kernel")),
     ("scan backward (gated_scan_bwd)",
      ("bwd_chunk_kernel", "bwd_carry_kernel", "bwd_grad_kernel")),
     ("scan forward (gated_scan_fwd)",
@@ -1112,7 +1151,43 @@ def phase_lm():
                                  f"L2 {err_fwd}")
         log(f"f32 full forward: logits {tuple(full.shape)}, last position "
             f"vs prefill relative L2 {err_fwd:.3e}; launches {fwd_counts}")
-        del full, h, logits
+        del full, h
+
+        # a'/b'. the same prefill and full forward through K7 (mxu)
+        set_scan_impl(model, "mxu")
+        reset_counts()
+        h_m, _ = model.backbone.prefill(ids)
+        torch.cuda.synchronize()
+        mxu_prefill_counts = launch_counts()
+        if mxu_prefill_counts != expected_counts(scan_mxu=n_layer):
+            raise AssertionError(f"mxu prefill launches {mxu_prefill_counts}"
+                                 f", expected scan_mxu {n_layer} only")
+        logits_m = model._logits(h_m[:, -1])
+        err_m = rel_l2(logits_m, logits)
+        if not err_m <= 1e-3 or not torch.isfinite(logits_m).all():
+            raise AssertionError(f"mxu f32 prefill logits vs K6's: relative "
+                                 f"L2 {err_m}")
+        reset_counts()
+        full_m = model(ids)
+        torch.cuda.synchronize()
+        mxu_fwd_counts = launch_counts()
+        if mxu_fwd_counts != expected_counts(scan_mxu=n_layer):
+            raise AssertionError(f"mxu full forward launches "
+                                 f"{mxu_fwd_counts}")
+        err_fm = rel_l2(full_m[:, -1], logits)
+        if not err_fm <= 1e-3:
+            raise AssertionError(f"mxu full forward vs K6 prefill logits: "
+                                 f"relative L2 {err_fm}")
+        with scan_mxu.tally() as tl32:
+            model.backbone.prefill(ids)
+        set_scan_impl(model, "auto")
+        log(f"f32 mxu prefill {LM_CHECK}: logits vs K6's relative L2 "
+            f"{err_m:.3e}, launches {mxu_prefill_counts}; mxu full forward "
+            f"vs K6 prefill relative L2 {err_fm:.3e}, launches "
+            f"{mxu_fwd_counts}; ratio-form share of the prefill "
+            f"{tl32.share():.4f} ({tl32.ratio} of {tl32.ratio + tl32.step} "
+            "units)")
+        del h_m, logits_m, full_m, logits
 
     # c. a gradient through the prefill: K6 backward in every layer
     model.requires_grad_(False)
@@ -1133,7 +1208,30 @@ def phase_lm():
     log(f"prefill gradient (1 x {L}): loss {float(loss.detach()):.5f}, "
         f"max |d embedding| {float(grad.abs().max()):.4e}; launches "
         f"{grad_counts}")
-    del model, h, caches, loss, grad
+    grad_k6 = grad.clone()
+    del h, caches, loss, grad
+    model.backbone.embedding.weight.grad = None
+    set_scan_impl(model, "mxu")
+    reset_counts()
+    h, caches = model.backbone.prefill(ids[:1])
+    loss = model._logits(h[:, -1]).logsumexp(-1).mean() + sum(
+        c["ssm"].square().mean() for c in caches)
+    loss.backward()
+    torch.cuda.synchronize()
+    set_scan_impl(model, "auto")
+    mxu_grad_counts = launch_counts()
+    if mxu_grad_counts != expected_counts(scan_mxu=n_layer,
+                                          scan_mxu_bwd=n_layer):
+        raise AssertionError(f"mxu prefill gradient launches "
+                             f"{mxu_grad_counts}")
+    grad = model.backbone.embedding.weight.grad
+    err_g = rel_l2(grad, grad_k6)
+    if not torch.isfinite(grad).all() or not err_g <= 1e-3:
+        raise AssertionError(f"mxu prefill gradient: vs K6's relative L2 "
+                             f"{err_g}, or not finite")
+    log(f"mxu prefill gradient (1 x {L}): d embedding vs K6's relative L2 "
+        f"{err_g:.3e}; launches {mxu_grad_counts}")
+    del model, h, caches, loss, grad, grad_k6
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1174,7 +1272,28 @@ def phase_lm():
             or int(toks.min()) < 0 or int(toks.max()) >= model.vocab_size):
         raise AssertionError(f"generate: shape {tuple(out.shape)} or tokens "
                              "out of range")
+    set_scan_impl(model, "mxu")
+    model.generate(ids, 1)                       # warm-up
+    mxu_prefill_s = []
+    for _ in range(3):
+        reset_counts()
+        t0 = time.perf_counter()
+        model.generate(ids, 1)
+        torch.cuda.synchronize()
+        mxu_prefill_s.append(time.perf_counter() - t0)
+        mxu_gen_counts = launch_counts()
+        if mxu_gen_counts != expected_counts(scan_mxu=n_layer):
+            raise AssertionError(f"mxu generate launches {mxu_gen_counts}")
+    with scan_mxu.tally() as tl16:
+        model.generate(ids, 1)
+    set_scan_impl(model, "auto")
     prefill_ms = statistics.median(prefill_s) * 1e3
+    mxu_prefill_ms = statistics.median(mxu_prefill_s) * 1e3
+    log(f"bf16 generate prefill ({batch} x {L}) through K7 "
+        f"(scan_impl='mxu'): {mxu_prefill_ms:.2f} ms (medians of 3: "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in mxu_prefill_s)}) beside K6's "
+        f"{prefill_ms:.2f} ms; ratio-form share {tl16.share():.4f}; launches "
+        f"{mxu_gen_counts}")
     total_ms = statistics.median(total_s) * 1e3
     decode_ms = (total_ms - prefill_ms) / (new - 1)
     log(f"bf16 generate ({batch} x {L} prompt, {new} greedy tokens): "
@@ -1209,7 +1328,13 @@ def phase_lm():
         "loaded strictly, same logits")
     return dict(prefill_counts=prefill_counts, grad_counts=grad_counts,
                 gen_counts=gen_counts, prefill_ms=prefill_ms,
-                decode_ms=decode_ms, peak_gib=peak_gib, **decode_stats)
+                decode_ms=decode_ms, peak_gib=peak_gib,
+                mxu_prefill_counts=mxu_prefill_counts,
+                mxu_fwd_counts=mxu_fwd_counts,
+                mxu_grad_counts=mxu_grad_counts,
+                mxu_gen_counts=mxu_gen_counts, mxu_prefill_ms=mxu_prefill_ms,
+                mxu_share_f32=tl32.share(), mxu_share_bf16=tl16.share(),
+                **decode_stats)
 
 
 def profile_decode(model, ids, steps=8):
@@ -1567,9 +1692,14 @@ def build_composition(comp, dtype, remat=False):
     return model
 
 
-def composition_counts(comp, per):
+def composition_counts(comp, per, model):
     """Scan launches of one pass through the 8 Mamba layers (2 at stage 0,
-    d_inner 96), times ``per``; ``bwd`` adds the backward's."""
+    d_inner 96), times ``per``. "mxu" derives its count from the model: one
+    K7 per direction of every MambaV3 (3 with the slice direction)."""
+    if comp == "mxu":
+        dirs = sum(3 if m.bimamba_type == "v3" else 2
+                   for m in model.modules() if isinstance(m, MambaV3))
+        return {"scan_mxu": dirs * per}
     fwd = {"dir2": dict(scan_dir=16, scan_fused=8),
            "dir": dict(scan_dir=16, scan_fused=8),
            "dir_slice": dict(scan_dir=16, scan_dir_slice=8),
@@ -1599,7 +1729,8 @@ def phase_compositions():
             y16 = model(x)
             torch.cuda.synchronize()
             counts = launch_counts()
-            if counts != expected_counts(**composition_counts(comp, 1)):
+            if counts != expected_counts(**composition_counts(comp, 1,
+                                                              model)):
                 raise AssertionError(f"{comp}: window launches {counts}")
             if not (torch.isfinite(y32).all() and torch.isfinite(y16).all()):
                 raise AssertionError(f"{comp}: logits not finite")
@@ -1615,6 +1746,12 @@ def phase_compositions():
                     raise AssertionError(f"{comp}: bf16 window logits vs "
                                          f"dir2 relative L2 {rel16}")
             ms = cuda_ms(lambda: model(x), 3)
+            share = None
+            if comp == "mxu":
+                with scan_mxu.tally() as tl:
+                    model(x)
+                share = tl.share()
+                n_mamba = sum(isinstance(m, MambaV3) for m in model.modules())
 
             def run():
                 return sliding_window_inference(
@@ -1625,7 +1762,8 @@ def phase_compositions():
             out = run()
             torch.cuda.synchronize()
             case_counts = launch_counts()
-            if case_counts != expected_counts(**composition_counts(comp, 8)):
+            if case_counts != expected_counts(**composition_counts(comp, 8,
+                                                                   model)):
                 raise AssertionError(f"{comp}: case launches {case_counts}")
             if not torch.isfinite(out).all():
                 raise AssertionError(f"{comp}: case logits not finite")
@@ -1640,10 +1778,14 @@ def phase_compositions():
                 f"{err32:.3e}, bf16 window vs dir2 relative L2 {rel16:.3e}; "
                 f"{ms:.2f} ms/window; {sec:.4f} s/case (median of 3: "
                 f"{', '.join(f'{t:.4f}' for t in times)}); launches per "
-                f"window {counts}, per case {case_counts}")
+                f"window {counts}, per case {case_counts}" + (
+                    "" if share is None else
+                    f" (derived from the model: {n_mamba} MambaV3 x 3 "
+                    "directions, one K7 each, per window; 8 windows per "
+                    f"case); ratio-form share of the window {share:.4f}"))
             stats[comp] = dict(ms_per_window=ms, sec_per_case=sec,
-                               case_counts=case_counts, err32=err32,
-                               rel16=rel16)
+                               counts=counts, case_counts=case_counts,
+                               err32=err32, rel16=rel16, share=share)
             del model, out, y32, y16
             torch.cuda.empty_cache()
     return stats
@@ -1665,7 +1807,7 @@ def phase_composition_train():
         model = build_composition(comp, torch.bfloat16, remat="convs")
         state = create_train_state(
             model, learning_rate=poly_schedule(1e-2, 1000 * 250))
-        fwd = composition_counts(comp, 1)
+        fwd = composition_counts(comp, 1, model)
         per_step = expected_counts(**fwd, **{f"{k}_bwd": v
                                              for k, v in fwd.items()})
         losses, times = [], []
@@ -1745,6 +1887,164 @@ def phase_core_groups():
         torch.cuda.empty_cache()
 
 
+def mxu_inputs(R, L, D, kind, seed):
+    """K7's float32 operands: ``core_inputs``' ("model": deltas in the
+    model's range, softplus of the dt-bias init plus a projection);
+    "tripped": delta + 40, every unit in the step form (JAX's
+    ``test_guard_routes_pathological_decay``); "mixed": delta + 2 on every
+    third chunk of 128 steps, which trips there the units whose |A| is
+    above ~2.3 and leaves the others, and the other chunks, in the ratio
+    form. (delta + 40 on a third of the chunks leaves the next chunk a
+    state ~40x larger that hardly decays, and float32 then loses ddelta's
+    small values to cancellation: K6 and K7 alike reach ~0.9 of the tier
+    against float64 there, the plain version ~0.4.)"""
+    u, delta, A, B, C = core_inputs(R, L, D, seed)
+    if kind == "tripped":
+        delta = delta + 40.0
+    elif kind == "mixed":
+        t = (torch.arange(L, device=DEVICE) // scan_mxu.DEF_CHUNK) % 3 == 1
+        delta = delta + 2.0 * t[:, None]
+    return u, delta, A, B, C
+
+
+def mxu_plain(u, delta, A, B, C, width, dy=None, dlast=None):
+    """K7's plain forward (y, chunk states) or, given dy and dlast, its
+    plain backward (du, ddelta, dA, dB, dC), over channel slices of
+    ``width`` in turn: the channels are independent, so the slices'
+    results go side by side, and dB, dC (sums over channels) are summed."""
+    parts = []
+    for d0 in range(0, u.shape[-1], width):
+        sl = slice(d0, d0 + width)
+        if dy is None:
+            parts.append(scan_mxu.selective_scan_mxu_core_ref(
+                u[..., sl], delta[..., sl], A[sl], B, C, return_states=True))
+        else:
+            parts.append(scan_mxu.selective_scan_mxu_core_bwd_ref(
+                u[..., sl], delta[..., sl], A[sl], B, C, dy[..., sl],
+                dlast[:, sl]))
+    cat = lambda i, dim: torch.cat([q[i] for q in parts], dim)
+    if dy is None:
+        return cat(0, -1), cat(1, -1)
+    return (cat(0, -1), cat(1, -1), cat(2, 0),
+            sum(q[3] for q in parts), sum(q[4] for q in parts))
+
+
+def mxu_plain_run(direction, R, L, D, fn_of_width):
+    """Run a plain K7 call over as few channel slices as keep its predicted
+    peak (``MXU_PLAIN_BPE``) under 3/4 of the free memory; returns (its
+    result, its ms by CUDA events, the slice width, the measured peak
+    bytes per element, which then replaces the prediction)."""
+    torch.cuda.empty_cache()
+    budget = PLAIN_BWD_SHARE * torch.cuda.mem_get_info()[0]
+    slices = math.ceil(MXU_PLAIN_BPE[direction] * R * L * D * N / budget)
+    width = math.ceil(D / slices)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn_of_width(width)
+    end.record()
+    end.synchronize()
+    bpe = (torch.cuda.max_memory_allocated() - base) / (R * L * width * N)
+    MXU_PLAIN_BPE[direction] = 1.25 * bpe   # with headroom for the next
+    return out, start.elapsed_time(end), width, bpe
+
+
+def phase_mxu(results):
+    """K7 forward and backward vs their plain versions at the LM prefill's
+    shape, a ragged one and SegMamba's stage 0 (R = 1 and 2), on three
+    kinds of input; times beside K6's on the same inputs; fills
+    ``results``."""
+    rtol, atol = TOL[torch.float32]
+    for shape_name, (R, L, D) in MXU_SHAPES.items():
+        T, S = scan_mxu._geometry(L)
+        reps = 5 if L * D > 1e7 else 10
+        k6 = None
+        for kind in MXU_KINDS:
+            u, delta, A, B, C = mxu_inputs(R, L, D, kind, seed=L + D + R)
+            tag = f"K7 {shape_name} {(R, L, D)} {kind}"
+            jax_bound = scan_mxu.block_drop(delta, A, S)
+            with scan_mxu.tally() as tl:
+                y, st = scan_mxu._launch(u, delta, A, B, C, T, S, True)
+            (y_p, st_p), plain_f, width_f, bpe_f = mxu_plain_run(
+                "fwd", R, L, D,
+                lambda w: mxu_plain(u, delta, A, B, C, w))
+            err_f = max(check_close(f"{tag} y", y, y_p, rtol, atol),
+                        check_close(f"{tag} states", st, st_p, rtol, atol),
+                        check_close(f"{tag} last state",
+                                    scan_core._last_state(st),
+                                    scan_core._last_state(st_p), rtol, atol))
+            del y, y_p, st_p
+
+            # backward through the public wrapper and its autograd Function
+            g = torch.Generator(device=DEVICE).manual_seed(L + 1)
+            dy = torch.randn(R, L, D, generator=g, device=DEVICE)
+            dlast = torch.randn(R, D, N, generator=g, device=DEVICE)
+            leaves = [t.detach().requires_grad_()
+                      for t in (u, delta, A, B, C)]
+            before = scan_mxu.LAUNCHES, scan_mxu.BWD_LAUNCHES
+            out, last = scan_mxu.selective_scan_mxu(*leaves,
+                                                    return_last_state=True)
+            if out.grad_fn is None or last.grad_fn is None:
+                raise AssertionError(f"{tag}: CUDA forward with "
+                                     "requires_grad inputs has no grad_fn")
+            torch.autograd.backward((out, last), (dy, dlast))
+            if (scan_mxu.LAUNCHES - before[0],
+                    scan_mxu.BWD_LAUNCHES - before[1]) != (1, 1):
+                raise AssertionError(f"{tag}: launches per call")
+            got = [t.grad for t in leaves]
+            del out, last, leaves
+            want, plain_b, width_b, bpe_b = mxu_plain_run(
+                "bwd", R, L, D,
+                lambda w: mxu_plain(u, delta, A, B, C, w, dy, dlast))
+            err_b = 0.0
+            for name, gk, w in zip(CORE_GRADS, got, want):
+                a = atol * max(1.0, float(w.abs().max())) \
+                    if name in ("dA", "dB", "dC") else atol
+                err_b = max(err_b, check_close(f"{tag} {name}", gk, w, rtol,
+                                               a))
+            del got, want
+
+            ms_f = cuda_ms(lambda: scan_mxu._launch(u, delta, A, B, C, T, S,
+                                                    True), reps)
+            ms_b = cuda_ms(lambda: scan_mxu._launch_bwd(
+                u, delta, A, B, C, dy, dlast, st, T, S, True), reps)
+            if k6 is None:   # K6 on the same inputs, the yardstick
+                st6 = scan_core._launch(u, delta, A, B, C,
+                                        scan_core.DEF_CHUNK)[1]
+                k6 = (cuda_ms(lambda: scan_core._launch(
+                          u, delta, A, B, C, scan_core.DEF_CHUNK), reps),
+                      cuda_ms(lambda: scan_core._launch_bwd(
+                          u, delta, A, B, C, dy, dlast, st6,
+                          scan_core.DEF_CHUNK), reps))
+                del st6
+            bounds = core_bound("fwd", R, L, D), core_bound("bwd", R, L, D)
+            log(f"kernel {tag}: ratio-form share {tl.share():.4f} "
+                f"({tl.ratio} of {tl.ratio + tl.step} units; JAX's "
+                f"call-wide bound {jax_bound:.1f}: "
+                f"{'K6' if jax_bound >= scan_mxu.MAX_BLOCK_DROP else 'K7'} "
+                "for the whole call there); fwd "
+                f"max_abs_err {err_f:.3e}, K7 {ms_f:.4f} ms, K6 "
+                f"{k6[0]:.4f} ms, plain {plain_f:.4f} ms (slices of "
+                f"{width_f}, {bpe_f:.1f} B/elem), bound {bounds[0][0]:.4f} "
+                f"ms ({bounds[0][1]}); bwd max_abs_err {err_b:.3e}, K7 "
+                f"{ms_b:.4f} ms, K6 {k6[1]:.4f} ms, plain {plain_b:.4f} ms "
+                f"(slices of {width_b}, {bpe_b:.1f} B/elem), bound "
+                f"{bounds[1][0]:.4f} ms ({bounds[1][1]})")
+            for direction, err, ms, k6_ms, plain_ms, (bound, bound_by) in (
+                    ("fwd", err_f, ms_f, k6[0], plain_f, bounds[0]),
+                    ("bwd", err_b, ms_b, k6[1], plain_b, bounds[1])):
+                results.append(dict(
+                    direction=direction, shape=shape_name, kind=kind,
+                    max_abs_err=err, ms=ms, k6_ms=k6_ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=bound_by, share=tl.share(),
+                    jax_bound=jax_bound))
+            del u, delta, A, B, C, st, dy, dlast
+            torch.cuda.empty_cache()
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1760,14 +2060,14 @@ def main():
         f"{kind}, count {torch.cuda.device_count()}")
     # one nvcc per source, all started together (threads wait on them)
     loaders = (scan_dir._lib, scan_dir._bwd_lib, scan_proj._lib,
-               scan_proj._bwd_lib)
+               scan_proj._bwd_lib, scan_mxu._lib, scan_mxu._bwd_lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
     for name in ("gated_scan_fwd", "gated_scan_bwd", "proj_scan_fwd",
-                 "proj_scan_bwd"):
+                 "proj_scan_bwd", "mxu_scan_fwd", "mxu_scan_bwd"):
         info = _build.BUILD_INFO[name]
-        log(f"built {name} in {info['seconds']:.1f} s (all four sources in "
+        log(f"built {name} in {info['seconds']:.1f} s (all six sources in "
             "parallel)")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line.lower():
@@ -1836,6 +2136,14 @@ def main():
     t0 = time.perf_counter()
     comp_train = phase_composition_train()
     log(f"phase 13 (compositions: train step): "
+        f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mxu_results = []
+    phase_mxu(mxu_results)
+    log(f"phase 14 (K7 vs plain, three kinds of input): "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s; ms per window "
         f"{model_stats['ms_per_window']:.2f}; s/step "
@@ -1929,6 +2237,36 @@ def main():
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=None, variant=main_row["variant"],
+            launches_by_path=by_path))
+    for direction in ("fwd", "bwd"):
+        rows = [r for r in mxu_results if r["direction"] == direction]
+        main_row = next(r for r in rows if r["shape"] == "prefill"
+                        and r["kind"] == "model")
+        if direction == "fwd":
+            by_path = {
+                "lm_prefill_f32": lm_stats["mxu_prefill_counts"]["scan_mxu"],
+                "lm_forward_f32": lm_stats["mxu_fwd_counts"]["scan_mxu"],
+                "lm_generate_bf16": lm_stats["mxu_gen_counts"]["scan_mxu"],
+                "segmamba_window": comp_stats["mxu"]["counts"]["scan_mxu"],
+                "inference_case":
+                    comp_stats["mxu"]["case_counts"]["scan_mxu"],
+                "train_step": comp_train["mxu"]["counts"]["scan_mxu"]}
+            launches = by_path["lm_prefill_f32"]
+        else:
+            by_path = {
+                "lm_prefill_grad":
+                    lm_stats["mxu_grad_counts"]["scan_mxu_bwd"],
+                "train_step": comp_train["mxu"]["counts"]["scan_mxu_bwd"]}
+            launches = by_path["lm_prefill_grad"]
+        kernels.append(dict(
+            name=f"mxu_scan_{direction}[scan_mxu]", route="cuda",
+            source=MXU_SOURCES[direction], replaces=MXU_REPLACES[direction],
+            launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=None, variant="ratio_form_guarded",
+            k6_ms=main_row["k6_ms"], ratio_share=main_row["share"],
             launches_by_path=by_path))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -29,8 +29,9 @@ a CUDA input, where the JAX package says TPU:
   conv, one K2 launch).
 - anything else (``"chunked"``, ``"ref"``, ``"mxu"``, ``"auto"`` /
   ``"pallas"`` on the CPU), the per-direction branch (:483-493): flip ->
-  ``mamba_inner(impl=scan_impl)`` -> flip per direction. ``"mxu"`` raises
-  on the card until K7 is ported. ``"per_direction"`` is the port's alias
+  ``mamba_inner(impl=scan_impl)`` -> flip per direction. ``"mxu"`` runs
+  the ratio-form scan K7 (``scan_mxu``) in each direction, on the card and
+  (its plain version) on the CPU. ``"per_direction"`` is the port's alias
   of this branch with ``mamba_inner``'s "auto".
 
 Sequences are time-major (batch, L, d_model).

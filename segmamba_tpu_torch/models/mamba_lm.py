@@ -16,7 +16,10 @@ Serving path: ``MambaLMHeadModel.generate`` runs one parallel prefill
 CUDA tensors, whose last state seeds the decode cache), then a Python loop
 of ``step``s (``causal_conv1d_update`` + ``selective_state_update`` per
 layer, plain torch). The full forward ``MambaLMHeadModel.__call__`` runs
-``mamba_inner``, the fused K2 kernel on the card.
+``mamba_inner``, the fused K2 kernel on the card. With
+``scan_impl="mxu"`` the prefill and the full forward (and their
+gradients) run the ratio-form scan K7 (``scan_mxu``) instead; decoding
+stays ``selective_state_update``.
 
 Parameters are float32; compute runs in ``dtype`` by casting the weights
 per call (no autocast); norms, the residual stream and the logits are

@@ -1,7 +1,9 @@
 """Op layer of the port: plain-PyTorch scans, convs, decode steps and
 norms, and the wrappers of the hand-written Hopper scan kernels
-(``csrc/gated_scan_fwd.cu``, ``csrc/gated_scan_bwd.cu``: K1-K4 through
-``scan_dir`` / ``scan_fused``, K6 through ``scan_core``).
+(``csrc/gated_scan_fwd.cu``, ``csrc/gated_scan_bwd.cu``: K1-K5 through
+``scan_dir`` / ``scan_fused``, K6 through ``scan_core``;
+``csrc/proj_scan_*.cu``: K8 through ``scan_proj``; ``csrc/mxu_scan_*.cu``:
+the ratio-form scan K7 through ``scan_mxu``).
 
 Counterpart of ``segmamba_tpu/ops``. Importing this package builds nothing;
 the kernel library is compiled at its first launch (``_build.py``).
@@ -28,6 +30,11 @@ from segmamba_tpu_torch.ops.scan_fused import (
     mamba_scan_fused,
     mamba_scan_fused_bwd_ref,
     mamba_scan_fused_ref,
+)
+from segmamba_tpu_torch.ops.scan_mxu import (
+    selective_scan_mxu,
+    selective_scan_mxu_core_bwd_ref,
+    selective_scan_mxu_core_ref,
 )
 # the dispatcher ``selective_scan`` stays under its module's path:
 # ``segmamba_tpu_torch.ops.selective_scan`` names the module
@@ -56,6 +63,9 @@ __all__ = [
     "selective_scan_core_bwd_ref",
     "selective_scan_core_ref",
     "selective_scan_kernel",
+    "selective_scan_mxu",
+    "selective_scan_mxu_core_bwd_ref",
+    "selective_scan_mxu_core_ref",
     "selective_scan_ref",
     "selective_state_update",
 ]

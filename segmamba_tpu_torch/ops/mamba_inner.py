@@ -5,7 +5,8 @@ CUDA tensors ``impl`` "auto", "pallas" and "fused" take the fused path
 (:52-59): the scan, softplus, D-skip and ``silu(z)`` gate run in
 ``scan_fused.mamba_scan_fused`` (the K2 kernel). "fused" takes it on the
 CPU too (its plain version). Otherwise the scan is
-``selective_scan(impl=...)``: on the CPU "auto" is its chunked plain core.
+``selective_scan(impl=...)``: on the CPU "auto" is its chunked plain core;
+"mxu" is the ratio-form scan K7 (``scan_mxu``) on either device.
 Weights are in the JAX package's ``(in, out)`` matmul layout; a torch
 ``Linear.weight`` is the transpose.
 """

@@ -101,31 +101,29 @@ def _pad_states(A, B, C):
             torch.nn.functional.pad(C, (0, pad)))
 
 
-def _launch(u, delta, A, B, C, chunk_size):
-    """K6 forward on the card: (y, chunk exit states (R, nc, N, D)), one
-    launch per group of 16 states."""
+def _group_forward(A, B, C, launch):
+    """A 16-state forward kernel over ceil(N / 16) groups of states:
+    ``launch(A_g, B_g, C_g, g)`` -> (y_g, chunk exit states_g). Returns
+    (y, chunk exit states (R, nc, N, D)): y is the groups' sum, the states
+    are concatenated and cropped to N."""
     N = A.shape[-1]
-    z = _zeros_param(u)
     A, B, C = _pad_states(A, B, C)
     y, states = None, []
     for g in range(_groups(N)):
         sl = slice(g * _GROUP, (g + 1) * _GROUP)
-        y_g, st = scan_dir._launch(u, delta, None, None, A[..., sl],
-                                   B[..., sl], C[..., sl], z, z,
-                                   reverse=False, gate=False,
-                                   chunk_size=chunk_size, return_states=True,
-                                   softplus=False)
+        y_g, st = launch(A[..., sl], B[..., sl], C[..., sl], g)
         y = y_g if y is None else y + y_g
         states.append(st)
     states = states[0] if len(states) == 1 else torch.cat(states, 2)
     return y, states[:, :, :N]
 
 
-def _launch_bwd(u, delta, A, B, C, dy, dlast, states, chunk_size):
-    """K6 backward on the card: (du, ddelta, dA, dB, dC), one launch per
-    group of 16 states."""
+def _group_backward(A, B, C, dlast, states, launch):
+    """The matching backward: ``launch(A_g, B_g, C_g, dlast_g (R, 16, D),
+    states_g, g)`` -> (du, ddelta, dA_g, dB_g, dC_g) of one group. Returns
+    (du, ddelta, dA, dB, dC): du and ddelta summed over the groups, the
+    others concatenated and cropped to N."""
     N = A.shape[-1]
-    z = _zeros_param(u)
     A, B, C = _pad_states(A, B, C)
     pad = A.shape[-1] - N
     dlast = dlast.float().transpose(-1, -2)                  # (R, N, D)
@@ -136,12 +134,9 @@ def _launch_bwd(u, delta, A, B, C, dy, dlast, states, chunk_size):
     dA, dB, dC = [], [], []
     for g in range(_groups(N)):
         sl = slice(g * _GROUP, (g + 1) * _GROUP)
-        grads = scan_dir._launch_bwd(
-            u, delta, None, None, A[..., sl], B[..., sl], C[..., sl], z, z,
-            dy, states[:, :, sl].contiguous(), reverse=False, gate=False,
-            chunk_size=chunk_size, softplus=False,
-            dlast=dlast[:, sl].contiguous())
-        du_g, ddelta_g, _, _, dA_g, dB_g, dC_g, _, _ = grads
+        du_g, ddelta_g, dA_g, dB_g, dC_g = launch(
+            A[..., sl], B[..., sl], C[..., sl], dlast[:, sl].contiguous(),
+            states[:, :, sl].contiguous(), g)
         du = du_g if du is None else du + du_g
         ddelta = ddelta_g if ddelta is None else ddelta + ddelta_g
         dA.append(dA_g)
@@ -149,6 +144,30 @@ def _launch_bwd(u, delta, A, B, C, dy, dlast, states, chunk_size):
         dC.append(dC_g)
     cat = lambda ts: (ts[0] if len(ts) == 1 else torch.cat(ts, -1))[..., :N]
     return du, ddelta, cat(dA), cat(dB), cat(dC)
+
+
+def _launch(u, delta, A, B, C, chunk_size):
+    """K6 forward on the card: (y, chunk exit states (R, nc, N, D)), one
+    launch per group of 16 states."""
+    z = _zeros_param(u)
+    return _group_forward(A, B, C, lambda A_g, B_g, C_g, g: scan_dir._launch(
+        u, delta, None, None, A_g, B_g, C_g, z, z, reverse=False, gate=False,
+        chunk_size=chunk_size, return_states=True, softplus=False))
+
+
+def _launch_bwd(u, delta, A, B, C, dy, dlast, states, chunk_size):
+    """K6 backward on the card: (du, ddelta, dA, dB, dC), one launch per
+    group of 16 states."""
+    z = _zeros_param(u)
+
+    def launch(A_g, B_g, C_g, dlast_g, states_g, g):
+        grads = scan_dir._launch_bwd(
+            u, delta, None, None, A_g, B_g, C_g, z, z, dy, states_g,
+            reverse=False, gate=False, chunk_size=chunk_size, softplus=False,
+            dlast=dlast_g)
+        return grads[0], grads[1], grads[4], grads[5], grads[6]
+
+    return _group_backward(A, B, C, dlast, states, launch)
 
 
 def _forward(u, delta, A, B, C, chunk_size):

@@ -228,27 +228,25 @@ def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
     - ``"pallas"``: ``scan_core.selective_scan_kernel`` on either device
       (the kernel on CUDA, its chunked plain version on the CPU);
     - ``"chunked"`` / ``"ref"``: the plain cores;
-    - ``"mxu"``: the matrix-unit scan K7 (``scan_pallas_mxu.py``) is not
-      ported (ROADMAP B1): raises for CUDA tensors, takes the chunked core
-      for CPU tensors.
+    - ``"mxu"``: ``scan_mxu.selective_scan_mxu`` on either device (the
+      ratio-form kernel K7 on CUDA, its plain version on the CPU).
 
     Grouped, static or complex B/C take the chunked plain core on either
-    device, as the JAX dispatcher sends them to its XLA core.
+    device, whatever the impl, as the JAX dispatcher sends them to its XLA
+    core (JAX ``selective_scan.py:267-273``); they are tested first.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown selective_scan impl: {impl!r}")
     on_card = u.device.type == "cuda"
-    if impl == "mxu":
-        if on_card:
-            raise NotImplementedError(
-                "impl='mxu' is the matrix-unit scan K7 "
-                "(segmamba_tpu/ops/scan_pallas_mxu.py), not ported to the "
-                "card yet (ROADMAP B1)")
-        impl = "chunked"
-    if impl in ("auto", "pallas") and (
+    if impl in ("auto", "pallas", "mxu") and (
             B.dim() != 3 or C.dim() != 3
             or any(t.is_complex() for t in (A, B, C))):
         impl = "chunked"
+    if impl == "mxu":
+        from segmamba_tpu_torch.ops import scan_mxu   # imports this module
+        return scan_mxu.selective_scan_mxu(
+            u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+            return_last_state, chunk_size=chunk_size)
     if impl == "auto":
         impl = "pallas" if on_card else "chunked"
     if impl == "ref":

@@ -1,7 +1,7 @@
 """The Hopper scan kernels against their plain PyTorch versions, on the card
 (K1-K4 through ``scan_dir`` / ``scan_fused``, K5 through
-``scan_dir.mamba_scan_fused_slice``, K6 through ``scan_core``, K8 through
-``scan_proj``).
+``scan_dir.mamba_scan_fused_slice``, K6 through ``scan_core``, K7 through
+``scan_mxu``, K8 through ``scan_proj``).
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; the
 ``cuda`` fixture skips it where ``torch.cuda.is_available()`` is false (it
@@ -26,7 +26,13 @@ import torch
 
 from segmamba_tpu_torch.models import MambaLMHeadModel, SegMamba
 from segmamba_tpu_torch.models.mamba import MambaV3
-from segmamba_tpu_torch.ops import scan_core, scan_dir, scan_fused, scan_proj
+from segmamba_tpu_torch.ops import (
+    scan_core,
+    scan_dir,
+    scan_fused,
+    scan_mxu,
+    scan_proj,
+)
 from segmamba_tpu_torch.ops.selective_scan import selective_scan
 
 pytestmark = pytest.mark.cuda
@@ -356,8 +362,15 @@ def test_selective_scan_on_cuda_records_gradient(cuda):
     assert (scan_core.LAUNCHES, scan_core.BWD_LAUNCHES) == (before[0] + 1,
                                                             before[1] + 1)
     assert torch.isfinite(lu.grad).all() and lu.grad.abs().max() > 0
-    with pytest.raises(NotImplementedError, match="K7"):
-        selective_scan(u, delta, A, B, C, impl="mxu")
+    # impl="mxu" launches the ratio-form scan K7 once each way
+    lu.grad = None
+    before = scan_mxu.LAUNCHES, scan_mxu.BWD_LAUNCHES, scan_core.LAUNCHES
+    y, last = selective_scan(lu, delta, A, B, C, return_last_state=True,
+                             impl="mxu")
+    (y.sum() + last.square().sum()).backward()
+    assert (scan_mxu.LAUNCHES, scan_mxu.BWD_LAUNCHES,
+            scan_core.LAUNCHES) == (before[0] + 1, before[1] + 1, before[2])
+    assert torch.isfinite(lu.grad).all() and lu.grad.abs().max() > 0
 
 
 def test_templates_reject_n8_and_k6_rejects_n_over_256(cuda):
@@ -525,3 +538,110 @@ def test_tiny_lm_generate_kernel_path_matches_plain(cuda):
     want = model.generate(ids, 8)
     assert scan_core.LAUNCHES == before + 3
     assert torch.equal(got, want)
+
+
+def _mxu_inputs(seed, R, L, D, N_, kind, device):
+    """K7's float32 operands as ``_core_inputs``; ``kind`` "benign" (A
+    scaled down: every unit in the ratio form), "model", "tripped" (delta
+    + 40: every unit in the step form) or "mixed" (delta + 2 on every
+    third chunk of 128 steps and every other channel: there the units with
+    larger |A| trip)."""
+    u, delta, A, B, C = _core_inputs(seed, R, L, D, device, N_=N_)
+    if kind == "benign":
+        A = A * 0.05
+    elif kind == "tripped":
+        delta = delta + 40.0
+    elif kind == "mixed":
+        t = (torch.arange(L, device=device) // 128) % 3 == 1
+        delta = delta + 2.0 * (t[:, None] & (torch.arange(
+            D, device=device) % 2 == 0))
+    return u, delta, A, B, C
+
+
+@pytest.mark.parametrize("R,L,D,N_,kind,guarded", [
+    (2, 256, 96, 16, "model", True), (1, 200, 50, 16, "mixed", True),
+    (2, 300, 136, 4, "model", True), (1, 37, 40, 64, "benign", True),
+    (1, 520, 32, 64, "mixed", True), (1, 256, 40, 16, "tripped", True),
+    (1, 300, 64, 16, "benign", False)])
+def test_mxu_kernel_matches_plain(cuda, R, L, D, N_, kind, guarded):
+    """K7 forward (y, chunk states, last state) and backward (du, ddelta,
+    dA, dB, dC with a nonzero gradient of the last state) against the plain
+    versions: ragged L (200, 37, 300, 520), one chunk and many, N = 4 / 16 /
+    64 (groups of 16 states), guard-tripped and mixed inputs, and the
+    unguarded ratio form."""
+    u, delta, A, B, C = _mxu_inputs(15, R, L, D, N_, kind, cuda)
+    T, S = scan_mxu._geometry(L)
+    y, st = scan_mxu._launch(u, delta, A, B, C, T, S, guarded)
+    y_p, st_p = scan_mxu.selective_scan_mxu_core_ref(
+        u, delta, A, B, C, guarded=guarded, return_states=True)
+    _close(y, y_p, F32)
+    _close(st, st_p, F32)
+    dy = torch.randn(R, L, D, device=cuda)
+    dlast = torch.randn(R, D, N_, device=cuda)
+    leaves = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
+    before = scan_mxu.LAUNCHES, scan_mxu.BWD_LAUNCHES
+    yk, last = scan_mxu._MxuCore.apply(T, S, guarded, *leaves)
+    _close(last, scan_core._last_state(st_p), F32)
+    torch.autograd.backward((yk, last), (dy, dlast))
+    groups = -(-N_ // 16)
+    assert (scan_mxu.LAUNCHES - before[0],
+            scan_mxu.BWD_LAUNCHES - before[1]) == (groups, groups)
+    want = scan_mxu.selective_scan_mxu_core_bwd_ref(
+        u, delta, A, B, C, dy, dlast, guarded=guarded)
+    for name, leaf, w in zip(("du", "ddelta", "dA", "dB", "dC"), leaves,
+                             want):
+        _grad_close(f"{name} {(R, L, D, N_, kind)}", leaf.grad, w, F32)
+
+
+@pytest.mark.parametrize("kind", ["benign", "tripped"])
+def test_mxu_tally_counts_units(cuda, kind):
+    """All-benign inputs send every (row, channel, state, sub-block) unit
+    to the ratio form, all-tripped ones every unit to the step form; the
+    forward and the backward each count every unit once, and the plain
+    version counts the same."""
+    R, L, D = 2, 300, 64
+    u, delta, A, B, C = _mxu_inputs(16, R, L, D, 16, kind, cuda)
+    units = R * D * 16 * -(-L // 16)
+    leaves = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
+    with scan_mxu.tally() as t:
+        y, last = scan_mxu.selective_scan_mxu(*leaves,
+                                              return_last_state=True)
+        torch.autograd.backward((y, last), (torch.ones_like(y),
+                                            torch.ones_like(last)))
+    want = (2 * units, 0) if kind == "benign" else (0, 2 * units)
+    assert (t.ratio, t.step) == want
+    with scan_mxu.tally() as tp:
+        scan_mxu.selective_scan_mxu_core_ref(u.cpu(), delta.cpu(), A.cpu(),
+                                             B.cpu(), C.cpu())
+    assert (tp.ratio, tp.step) == (want[0] // 2, want[1] // 2)
+
+
+def test_mxu_never_syncs_the_host(cuda):
+    """The per-unit guard is decided on the card: a K7 forward and
+    backward on mixed inputs run under ``set_sync_debug_mode("error")``."""
+    u, delta, A, B, C = _mxu_inputs(17, 2, 512, 128, 16, "mixed", cuda)
+    leaves = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
+    dy, dl = torch.randn_like(u), torch.randn(2, 128, 16, device=cuda)
+    scan_mxu._lib(), scan_mxu._bwd_lib()   # build outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, last = scan_mxu.selective_scan_mxu(*leaves, delta_softplus=True,
+                                              return_last_state=True)
+        torch.autograd.backward((y, last), (dy, dl))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.isfinite(t.grad).all() for t in leaves)
+
+
+def test_mxu_dispatch_sends_grouped_bc_to_chunked(cuda):
+    """``impl="mxu"`` with grouped (batch, L, G, N) B/C takes the chunked
+    core, as in JAX, instead of raising or launching K7."""
+    u, delta, A, _, _ = _core_inputs(18, 1, 64, 32, cuda, N_=4)
+    B = torch.randn(1, 64, 2, 4, device=cuda)
+    C = torch.randn(1, 64, 2, 4, device=cuda)
+    before = scan_mxu.LAUNCHES
+    y = selective_scan(u, delta, A, B, C, impl="mxu")
+    assert scan_mxu.LAUNCHES == before
+    want = selective_scan(u, delta, A, B, C, impl="chunked")
+    assert torch.equal(y, want)
