@@ -9,9 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: the card's name and power limit (nvidia-smi), a CUDA card
    required, the forward scan kernel built from ``segmamba_tpu_torch/csrc``.
 1b. The backward scan kernel (``gated_scan_bwd.cu``), the
-   projection-fused kernels (``proj_scan_fwd.cu``, ``proj_scan_bwd.cu``)
-   and the ratio-form scan K7 (``mxu_scan_fwd.cu``, ``mxu_scan_bwd.cu``),
-   built in parallel with the forward one (one nvcc each, from six
+   projection-fused kernels (``proj_scan_fwd.cu``, ``proj_scan_bwd.cu``),
+   the ratio-form scan K7 (``mxu_scan_fwd.cu``, ``mxu_scan_bwd.cu``) and
+   the 3x3x3 conv K9 (``conv3d_k3s1_fwd.cu``, ``conv3d_k3s1_dw.cu``),
+   built in parallel with the forward one (one nvcc each, from eight
    threads): build times, ptxas registers/spills.
 2. Kernel vs plain PyTorch at the main path's shapes (stage 0: R=1,
    L=262144, D=96; stage 3: R=1, L=512, D=768; N=16) for the three flag
@@ -143,16 +144,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    Mamba layer run alone.
 14. K7 (``scan_mxu``) vs its plain version at the LM prefill's shape
    (R=2, L=2048, D=5120), a ragged one (R=1, L=2000) and SegMamba's stage
-   0 (R=1 and 2, L=262144, D=96), N=16, on three kinds of input: deltas in
-   the model's range, every unit tripped (delta + 40), and a mix (delta +
-   2 on every third chunk); forward y, chunk states and last state, and
-   all five gradients with a nonzero gradient of the last state, at the
-   float32 tier 6e-4 / 2e-3 (dA, dB, dC with the absolute part scaled by
-   max(1, max|plain|)); the plain versions over channel slices that keep
-   their predicted peak under 3/4 of the free memory. The ratio-form share
+   0 (R=1 and 2, L=262144, D=96), N=16, on four kinds of input: deltas in
+   the model's range, every unit tripped (delta + 40), a mix (delta + 2 on
+   every third chunk) and "spiked" (delta + 40 on every third chunk);
+   forward y, chunk states and last state, and all five gradients with a
+   nonzero gradient of the last state, at the float32 tier 6e-4 / 2e-3
+   (dA, dB, dC with the absolute part scaled by max(1, max|plain|)); the
+   plain versions over channel slices that keep their predicted peak under
+   3/4 of the free memory. On "spiked" the references are float64 runs of
+   the plain versions, and K6 (forward and backward) is held there too,
+   every output but ddelta; ddelta's share of the tier is printed for the
+   kernels and the plain float32 versions (``ddelta_report``: float32
+   cannot meet the tier there), with the share of the tier each kernel
+   uses on the rest. The ratio-form share
    of each input (``scan_mxu.tally``), K7's times beside K6's on the same
    inputs (CUDA events), the plain times and K6's bound (``core_bound``:
    K7 computes K6's function on K6's operands).
+
+15. K9 (``segmamba_tpu_torch.ops.conv3d``, the channels-last 3x3x3 SAME
+   conv and its weight gradient): forward, dx and dw through
+   ``conv3d_k3s1``'s autograd Function vs the plain versions at ragged
+   shapes (Cin 4 / 48 / 96 / 192, H and W that no tile divides, B = 2),
+   float32 and bfloat16 (y and dx at the dtype's tier, dw at the f32
+   tier with the absolute part scaled by max(1, max|plain|)); the main
+   path, ``conv3d_k3s1`` forward and backward once at each of
+   ``benchmarks/bench_conv.py``'s six shapes (128^3 48->48, 96->48, 4->48;
+   64^3 96->96, 192->96; 32^3 192->192; bf16, batch 1), with the counters
+   read around it (two forward-kernel launches, y and dx, and one dw
+   launch per shape); then per shape the kernel's forward and dw ms, its
+   forward + backward ms, the plain versions' ms and cuDNN's
+   (``F.conv3d`` on channels_last_3d views and
+   ``torch.nn.grad.conv3d_weight``, ``cudnn.benchmark`` on), CUDA events,
+   median of 5, beside the bounds (``conv_bound``); the forward at 128^3
+   96->48 against the plain version at the bf16 tier.
+16. ``MambaV3(d_state=4)`` and ``(d_state=32)`` at d_model 48 on 1 x
+   32768 tokens (32 slices) under dir2, dir, dir + K5, fused and proj:
+   forward and backward through the kernels (ceil(N / 16) launches per
+   scan call each way, counted exactly) against the same module on the
+   plain scans, output and every parameter gradient at the f32 tier (the
+   gradients' absolute part scaled by max(1, max|plain|)); forward +
+   backward ms.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
@@ -189,6 +220,7 @@ from segmamba_tpu_torch.models.mamba import _dt_bias_init
 from segmamba_tpu_torch.models.segmamba import _call
 from segmamba_tpu_torch.ops import (
     _build,
+    conv3d,
     scan_core,
     scan_dir,
     scan_fused,
@@ -264,10 +296,36 @@ MXU_REPLACES = {"fwd": "segmamba_tpu/ops/scan_pallas_mxu.py:131",
                 "bwd": "segmamba_tpu/ops/scan_pallas_mxu.py:165"}
 MXU_SHAPES = {"prefill": (2, 2048, 5120), "ragged": (1, 2000, 5120),
               "stage0_r1": (1, 262144, 96), "stage0_r2": (2, 262144, 96)}
-MXU_KINDS = ("model", "tripped", "mixed")                      # phase 14
+MXU_KINDS = ("model", "tripped", "mixed", "spiked")            # phase 14
 # peak bytes per (row, step, channel, state) of K7's plain forward and
-# backward: first guesses, replaced by phase 14's measurements
-MXU_PLAIN_BPE = {"fwd": 96.0, "bwd": 256.0}
+# backward (float32; "64": float64; "k6_": K6's plain version): first
+# guesses, replaced by phase 14's measurements
+MXU_PLAIN_BPE = {"fwd": 96.0, "bwd": 256.0, "fwd64": 400.0, "bwd64": 1200.0,
+                 "k6_fwd64": 400.0, "k6_bwd64": 1600.0, "k6_bwd": 800.0}
+# phase 14 "spiked": each kernel's ddelta share of the f32 tier against
+# float64 is held to this multiple of the plain float32 version's share
+# (readings on an H100 80GB HBM3 at 700 W: kernel / plain 0.97-2.28 for K6,
+# 1.90-2.93 for K7)
+DDELTA_PLAIN_MULT = 4.0
+CONV_SOURCES = {"fwd": "segmamba_tpu_torch/csrc/conv3d_k3s1_fwd.cu",
+                "dw": "segmamba_tpu_torch/csrc/conv3d_k3s1_dw.cu"}
+CONV_REPLACES = {"fwd": "segmamba_tpu/ops/conv3d_pallas.py:59",
+                 "dw": "segmamba_tpu/ops/conv3d_pallas.py:152"}
+# phase 15: benchmarks/bench_conv.py's shapes (spatial, Cin, Cout), bf16,
+# batch 1; the first is the JSON line's row
+CONV_SHAPES = ((128, 48, 48), (128, 96, 48), (128, 4, 48), (64, 96, 96),
+               (64, 192, 96), (32, 192, 192))
+CONV_CHECKS = ((2, 5, 7, 9, 4, 6), (1, 6, 10, 12, 48, 48),
+               (1, 5, 9, 11, 96, 48), (1, 4, 6, 10, 192, 192))
+GROUP_D_STATES = (4, 32)                       # phase 16
+GROUP_COMPOSITIONS = {   # scan launches per MambaV3 call and state group
+    "dir2": ("dir2", False, dict(scan_dir=2, scan_fused=1)),
+    "dir": ("dir", False, dict(scan_dir=2, scan_fused=1)),
+    "dir_slice": ("dir", True, dict(scan_dir=2, scan_dir_slice=1)),
+    "fused": ("fused", False, dict(scan_fused=1)),
+    "proj": ("proj", False, dict(scan_proj=3)),
+}
+GROUP_SHAPE = (1, 32768, 48, 32)               # batch, L, d_model, nslices
 
 
 def log(msg):
@@ -329,7 +387,8 @@ def launch_counts():
             "scan_proj": scan_proj.LAUNCHES,
             "scan_proj_bwd": scan_proj.BWD_LAUNCHES,
             "scan_mxu": scan_mxu.LAUNCHES,
-            "scan_mxu_bwd": scan_mxu.BWD_LAUNCHES}
+            "scan_mxu_bwd": scan_mxu.BWD_LAUNCHES,
+            "conv3d": conv3d.LAUNCHES, "conv3d_dw": conv3d.DW_LAUNCHES}
 
 
 def expected_counts(**nonzero):
@@ -341,6 +400,7 @@ def reset_counts():
     for mod in (scan_dir, scan_fused, scan_core, scan_proj, scan_mxu):
         mod.LAUNCHES = mod.BWD_LAUNCHES = 0
     scan_dir.SLICE_LAUNCHES = scan_dir.SLICE_BWD_LAUNCHES = 0
+    conv3d.LAUNCHES = conv3d.DW_LAUNCHES = 0
 
 
 def check_close(name, got, want, rtol, atol):
@@ -1894,34 +1954,54 @@ def mxu_inputs(R, L, D, kind, seed):
     ``test_guard_routes_pathological_decay``); "mixed": delta + 2 on every
     third chunk of 128 steps, which trips there the units whose |A| is
     above ~2.3 and leaves the others, and the other chunks, in the ratio
-    form. (delta + 40 on a third of the chunks leaves the next chunk a
-    state ~40x larger that hardly decays, and float32 then loses ddelta's
-    small values to cancellation: K6 and K7 alike reach ~0.9 of the tier
-    against float64 there, the plain version ~0.4.)"""
+    form; "spiked": delta + 40 on every third chunk, on which K6 and K7
+    are held against float64 runs of their plain versions. (The spike
+    leaves the next chunk a state ~40x larger that hardly decays, and
+    float32 then loses ddelta to cancellation, in the plain versions as in
+    the kernels: ``ddelta_report``.)"""
     u, delta, A, B, C = core_inputs(R, L, D, seed)
+    t = (torch.arange(L, device=DEVICE) // scan_mxu.DEF_CHUNK) % 3 == 1
     if kind == "tripped":
         delta = delta + 40.0
     elif kind == "mixed":
-        t = (torch.arange(L, device=DEVICE) // scan_mxu.DEF_CHUNK) % 3 == 1
         delta = delta + 2.0 * t[:, None]
+    elif kind == "spiked":
+        delta = delta + 40.0 * t[:, None]
     return u, delta, A, B, C
 
 
-def mxu_plain(u, delta, A, B, C, width, dy=None, dlast=None):
-    """K7's plain forward (y, chunk states) or, given dy and dlast, its
-    plain backward (du, ddelta, dA, dB, dC), over channel slices of
-    ``width`` in turn: the channels are independent, so the slices'
-    results go side by side, and dB, dC (sums over channels) are summed."""
+def tier_use(got, want, rtol, atol):
+    """The largest share of its tolerance any value uses: max |got - want|
+    / (atol + rtol |want|)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def mxu_plain(u, delta, A, B, C, width, dy=None, dlast=None, *, k6=False,
+              f64=False):
+    """K7's (with ``k6``, K6's) plain forward (y, chunk states) or, given
+    dy and dlast, its plain backward (du, ddelta, dA, dB, dC: autograd of
+    (y, last state)), over channel slices of ``width`` in turn: the
+    channels are independent, so the slices' results go side by side, and
+    dB, dC (sums over channels) are summed. In float32, or with ``f64`` in
+    float64 (results returned in float32)."""
+    ref = (scan_core.selective_scan_core_ref if k6
+           else scan_mxu.selective_scan_mxu_core_ref)
+    dt = torch.float64 if f64 else torch.float32
     parts = []
     for d0 in range(0, u.shape[-1], width):
         sl = slice(d0, d0 + width)
+        ops = [t.to(dt) for t in (u[..., sl], delta[..., sl], A[sl], B, C)]
         if dy is None:
-            parts.append(scan_mxu.selective_scan_mxu_core_ref(
-                u[..., sl], delta[..., sl], A[sl], B, C, return_states=True))
-        else:
-            parts.append(scan_mxu.selective_scan_mxu_core_bwd_ref(
-                u[..., sl], delta[..., sl], A[sl], B, C, dy[..., sl],
-                dlast[:, sl]))
+            parts.append([t.float() for t in ref(*ops, return_states=True)])
+            continue
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ops]
+            y, st = ref(*leaves, return_states=True)
+            grads = torch.autograd.grad(
+                (y, scan_core._last_state(st)), leaves,
+                (dy[..., sl].to(dt), dlast[:, sl].to(dt)))
+        parts.append([g.float() for g in grads])
     cat = lambda i, dim: torch.cat([q[i] for q in parts], dim)
     if dy is None:
         return cat(0, -1), cat(1, -1)
@@ -1930,8 +2010,9 @@ def mxu_plain(u, delta, A, B, C, width, dy=None, dlast=None):
 
 
 def mxu_plain_run(direction, R, L, D, fn_of_width):
-    """Run a plain K7 call over as few channel slices as keep its predicted
-    peak (``MXU_PLAIN_BPE``) under 3/4 of the free memory; returns (its
+    """Run a plain K7 (or K6) call over as few channel slices as keep its
+    predicted peak (``MXU_PLAIN_BPE[direction]``) under 3/4 of the free
+    memory; returns (its
     result, its ms by CUDA events, the slice width, the measured peak
     bytes per element, which then replaces the prediction)."""
     torch.cuda.empty_cache()
@@ -1954,8 +2035,9 @@ def mxu_plain_run(direction, R, L, D, fn_of_width):
 
 def phase_mxu(results):
     """K7 forward and backward vs their plain versions at the LM prefill's
-    shape, a ragged one and SegMamba's stage 0 (R = 1 and 2), on three
-    kinds of input; times beside K6's on the same inputs; fills
+    shape, a ragged one and SegMamba's stage 0 (R = 1 and 2), on four
+    kinds of input (on "spiked", K7 and K6 against float64 runs of their
+    plain versions); times beside K6's on the same inputs; fills
     ``results``."""
     rtol, atol = TOL[torch.float32]
     for shape_name, (R, L, D) in MXU_SHAPES.items():
@@ -1963,19 +2045,25 @@ def phase_mxu(results):
         reps = 5 if L * D > 1e7 else 10
         k6 = None
         for kind in MXU_KINDS:
+            f64 = kind == "spiked"
+            key = lambda d: d + ("64" if f64 else "")
             u, delta, A, B, C = mxu_inputs(R, L, D, kind, seed=L + D + R)
             tag = f"K7 {shape_name} {(R, L, D)} {kind}"
+            if f64:
+                tag += " vs float64"
             jax_bound = scan_mxu.block_drop(delta, A, S)
             with scan_mxu.tally() as tl:
                 y, st = scan_mxu._launch(u, delta, A, B, C, T, S, True)
             (y_p, st_p), plain_f, width_f, bpe_f = mxu_plain_run(
-                "fwd", R, L, D,
-                lambda w: mxu_plain(u, delta, A, B, C, w))
+                key("fwd"), R, L, D,
+                lambda w: mxu_plain(u, delta, A, B, C, w, f64=f64))
             err_f = max(check_close(f"{tag} y", y, y_p, rtol, atol),
                         check_close(f"{tag} states", st, st_p, rtol, atol),
                         check_close(f"{tag} last state",
                                     scan_core._last_state(st),
                                     scan_core._last_state(st_p), rtol, atol))
+            use = max(tier_use(y, y_p, rtol, atol),
+                      tier_use(st, st_p, rtol, atol))
             del y, y_p, st_p
 
             # backward through the public wrapper and its autograd Function
@@ -1997,15 +2085,25 @@ def phase_mxu(results):
             got = [t.grad for t in leaves]
             del out, last, leaves
             want, plain_b, width_b, bpe_b = mxu_plain_run(
-                "bwd", R, L, D,
-                lambda w: mxu_plain(u, delta, A, B, C, w, dy, dlast))
+                key("bwd"), R, L, D,
+                lambda w: mxu_plain(u, delta, A, B, C, w, dy, dlast,
+                                    f64=f64))
             err_b = 0.0
             for name, gk, w in zip(CORE_GRADS, got, want):
                 a = atol * max(1.0, float(w.abs().max())) \
                     if name in ("dA", "dB", "dC") else atol
+                if f64 and name == "ddelta":   # held by ddelta_report
+                    ddelta = ddelta_report(tag, gk, w, mxu_plain_run(
+                        "bwd", R, L, D, lambda w_: mxu_plain(
+                            u, delta, A, B, C, w_, dy, dlast))[0][1])
+                    continue
                 err_b = max(err_b, check_close(f"{tag} {name}", gk, w, rtol,
                                                a))
+                use = max(use, tier_use(gk, w, rtol, a))
             del got, want
+            if f64:
+                ddelta6 = spiked_k6(tag, u, delta, A, B, C, dy, dlast, R, L,
+                                    D)
 
             ms_f = cuda_ms(lambda: scan_mxu._launch(u, delta, A, B, C, T, S,
                                                     True), reps)
@@ -2021,7 +2119,8 @@ def phase_mxu(results):
                           scan_core.DEF_CHUNK), reps))
                 del st6
             bounds = core_bound("fwd", R, L, D), core_bound("bwd", R, L, D)
-            log(f"kernel {tag}: ratio-form share {tl.share():.4f} "
+            log(f"kernel {tag}: share of the f32 tier used {use:.4f}; "
+                f"ratio-form share {tl.share():.4f} "
                 f"({tl.ratio} of {tl.ratio + tl.step} units; JAX's "
                 f"call-wide bound {jax_bound:.1f}: "
                 f"{'K6' if jax_bound >= scan_mxu.MAX_BLOCK_DROP else 'K7'} "
@@ -2040,9 +2139,285 @@ def phase_mxu(results):
                     direction=direction, shape=shape_name, kind=kind,
                     max_abs_err=err, ms=ms, k6_ms=k6_ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=bound_by, share=tl.share(),
-                    jax_bound=jax_bound))
+                    jax_bound=jax_bound, tier_use=use,
+                    ddelta=dict(K7=ddelta, K6=ddelta6) if f64 else None))
             del u, delta, A, B, C, st, dy, dlast
             torch.cuda.empty_cache()
+
+
+def ddelta_report(tag, got, want, plain32):
+    """ddelta on the spiked input against float64: the share of the f32
+    tier that the kernel and the plain float32 version use, and how many
+    values exceed it. Held to ``DDELTA_PLAIN_MULT`` times the plain float32
+    version's share, not to the tier: after a spiked chunk the state is
+    ~40x larger and ddelta = sum_n A g x a + u sum_n g B cancels terms
+    many thousand times larger than the result, so float32 rounding of x
+    and g alone moves it by more than the tier, in the plain float32
+    version as in the kernels."""
+    rtol, atol = TOL[torch.float32]
+    want = want.double()
+    over = lambda g: int(((g.double() - want).abs()
+                          > atol + rtol * want.abs()).sum())
+    rep = dict(share=tier_use(got, want, rtol, atol), over=over(got),
+               plain32_share=tier_use(plain32, want, rtol, atol),
+               plain32_over=over(plain32), n=want.numel())
+    limit = DDELTA_PLAIN_MULT * rep["plain32_share"]
+    log(f"{tag} ddelta vs float64: kernel uses {rep['share']:.3f} of the "
+        f"f32 tier ({rep['over']} of {rep['n']} values over), the plain "
+        f"float32 version {rep['plain32_share']:.3f} ({rep['plain32_over']}"
+        f" over); held to {DDELTA_PLAIN_MULT}x the plain share, "
+        f"{limit:.3f}")
+    if not rep["share"] <= limit:
+        raise AssertionError(f"{tag} ddelta: {rep['share']:.3f} of the f32 "
+                             f"tier against float64, over {limit:.3f}")
+    return rep
+
+
+def spiked_k6(tag, u, delta, A, B, C, dy, dlast, R, L, D):
+    """K6 on phase 14's spiked input, forward (y, chunk states) and
+    backward (du, dA, dB, dC; ddelta held by ``ddelta_report``),
+    against a float64 run of its plain version at the f32 tier. Returns
+    the ddelta report."""
+    rtol, atol = TOL[torch.float32]
+    T = scan_core.DEF_CHUNK
+    tag = tag.replace("K7", "K6")
+    y, st = scan_core._launch(u, delta, A, B, C, T)
+    (y_p, st_p), *_ = mxu_plain_run(
+        "k6_fwd64", R, L, D,
+        lambda w: mxu_plain(u, delta, A, B, C, w, k6=True, f64=True))
+    check_close(f"{tag} y", y, y_p, rtol, atol)
+    check_close(f"{tag} states", st, st_p, rtol, atol)
+    use = max(tier_use(y, y_p, rtol, atol), tier_use(st, st_p, rtol, atol))
+    del y, y_p, st_p
+    got = scan_core._launch_bwd(u, delta, A, B, C, dy, dlast, st, T)
+    want, *_ = mxu_plain_run(
+        "k6_bwd64", R, L, D,
+        lambda w: mxu_plain(u, delta, A, B, C, w, dy, dlast, k6=True,
+                            f64=True))
+    for name, gk, w in zip(CORE_GRADS, got, want):
+        a = atol * max(1.0, float(w.abs().max())) \
+            if name in ("dA", "dB", "dC") else atol
+        if name == "ddelta":
+            rep = ddelta_report(tag, gk, w, mxu_plain_run(
+                "k6_bwd", R, L, D, lambda w_: mxu_plain(
+                    u, delta, A, B, C, w_, dy, dlast, k6=True))[0][1])
+            continue
+        check_close(f"{tag} {name}", gk, w, rtol, a)
+        use = max(use, tier_use(gk, w, rtol, a))
+    log(f"kernel {tag}: share of the f32 tier used {use:.4f} (y, states, "
+        "du, dA, dB, dC)")
+    del got, want, st
+    torch.cuda.empty_cache()
+    return rep
+
+
+def conv_bound(direction, s, cin, cout):
+    """Least time (ms) of one bf16 conv call at batch 1, s^3 positions, and
+    what bounds it: 2 s^3 27 Cin Cout products over the bf16 tensor-core
+    rate, against each input read once and each output written once over
+    the HBM rate. fwd: x, w read, y written (bf16); dw: x, dy read (bf16),
+    dw written (float32)."""
+    pos = s ** 3
+    flops = 2 * pos * 27 * cin * cout
+    if direction == "fwd":
+        nbytes = 2 * pos * (cin + cout) + 2 * 27 * cin * cout
+    else:
+        nbytes = 2 * pos * (cin + cout) + 4 * 27 * cin * cout
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_inputs(shape, dtype, seed):
+    """x (B, D, H, W, Cin) and dy (..., Cout) unit normal in ``dtype``, w
+    (3, 3, 3, Cin, Cout) float32 at fan-in scale."""
+    B, D, H, W, cin, cout = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=DEVICE)
+    return (rn(B, D, H, W, cin).to(dtype),
+            rn(3, 3, 3, cin, cout) * (27 * cin) ** -0.5,
+            rn(B, D, H, W, cout).to(dtype))
+
+
+def conv_hold(tag, x, w, dy, y, dx, dw):
+    """Hold K9's y and dx (the forward kernel) at x.dtype's tier and dw at
+    the f32 tier, its absolute part scaled by max(1, max|plain|), against
+    the plain versions on the same inputs. Returns (the forward kernel's
+    largest absolute error, dw's)."""
+    rtol, atol = TOL[x.dtype]
+    f_rtol, f_atol = TOL[torch.float32]
+    with torch.no_grad():
+        err_f = max(
+            check_close(f"{tag} y", y, conv3d.conv3d_k3s1_ref(x, w), rtol,
+                        atol),
+            check_close(f"{tag} dx", dx,
+                        conv3d.conv3d_k3s1_ref(dy, conv3d._flip_w(w)), rtol,
+                        atol))
+        want_dw = conv3d.conv3d_k3s1_dw_ref(x, dy)
+        err_dw = check_close(f"{tag} dw", dw, want_dw, f_rtol,
+                             f_atol * max(1.0, float(want_dw.abs().max())))
+    return err_f, err_dw
+
+
+def conv_run(x, w, dy):
+    """``conv3d_k3s1`` forward and backward through its autograd Function:
+    (y, dx, dw)."""
+    lx, lw = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = conv3d.conv3d_k3s1(lx, lw)
+    y.backward(dy)
+    return y.detach(), lx.grad, lw.grad
+
+
+def phase_conv(results):
+    """K9 (``conv3d``): kernel vs plain at small ragged shapes in float32
+    and bfloat16; then its main path, ``conv3d_k3s1`` forward and backward
+    once at each of ``benchmarks/bench_conv.py``'s shapes (bf16, batch 1)
+    with the counters read around it, and y, dx and dw of that run held
+    against the plain versions (``conv_hold``); then, per shape, the
+    kernel's forward and dw times, forward + backward through the autograd
+    Function, the plain versions' times and cuDNN's (``F.conv3d`` on
+    channels_last_3d views, ``torch.nn.grad.conv3d_weight``, and their
+    forward + backward), CUDA events, median of 5 after a warm-up, beside
+    the bounds. Fills ``results``; returns (the main path's counts, each
+    kernel's largest absolute error: {"fwd": .., "dw": ..})."""
+    errs = dict(fwd=0.0, dw=0.0)
+    for shape in CONV_CHECKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dy = conv_inputs(shape, dtype, seed=sum(shape))
+            e = conv_hold(f"K9 {shape} {str(dtype)[6:]}", x, w, dy,
+                          *conv_run(x, w, dy))
+            errs = dict(fwd=max(errs["fwd"], e[0]), dw=max(errs["dw"], e[1]))
+    log(f"K9 checks at {len(CONV_CHECKS)} ragged shapes, float32 and "
+        f"bfloat16: max_abs_err forward {errs['fwd']:.3e}, dw "
+        f"{errs['dw']:.3e}")
+    torch.cuda.empty_cache()
+
+    bf16 = torch.bfloat16
+    runs = []
+    reset_counts()
+    for s, cin, cout in CONV_SHAPES:
+        x, w, dy = conv_inputs((1, s, s, s, cin, cout), bf16, seed=s + cin)
+        runs.append((x, w, dy, *conv_run(x, w, dy)))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n = len(CONV_SHAPES)
+    if counts != expected_counts(conv3d=2 * n, conv3d_dw=n):
+        raise AssertionError(f"K9 main path launches {counts}")
+    for (s, cin, cout), run in zip(CONV_SHAPES, runs):
+        e = conv_hold(f"K9 {s}^3 {cin}->{cout} bfloat16", *run)
+        log(f"K9 main path {s}^3 {cin}->{cout}: y and dx max_abs_err "
+            f"{e[0]:.3e}, dw {e[1]:.3e} (max|dw| "
+            f"{float(run[-1].abs().max()):.1f})")
+        errs = dict(fwd=max(errs["fwd"], e[0]), dw=max(errs["dw"], e[1]))
+    del runs, run
+    torch.cuda.empty_cache()
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True    # cuDNN at its best algorithm
+    try:
+        for s, cin, cout in CONV_SHAPES:
+            results.append(conv_times(s, cin, cout))
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    return counts, errs
+
+
+def conv_times(s, cin, cout):
+    """One ``CONV_SHAPES`` row: times of the kernels, the plain versions
+    and cuDNN, and the bounds."""
+    x, w, dy = conv_inputs((1, s, s, s, cin, cout), torch.bfloat16,
+                           seed=s + cin + 1)
+    ncdhw = lambda t: t.permute(0, 4, 1, 2, 3)   # channels_last_3d views
+    wc = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    xc, dyc = ncdhw(x), ncdhw(dy)
+    tag = f"K9 {s}^3 {cin}->{cout}"
+
+    def fwd_bwd():
+        lx = x.detach().requires_grad_()
+        lw = w.detach().requires_grad_()
+        conv3d.conv3d_k3s1(lx, lw).backward(dy)
+
+    def lib_fwd_bwd():
+        lx = xc.detach().requires_grad_()
+        lw = wc.detach().requires_grad_()
+        torch.nn.functional.conv3d(lx, lw, padding=1).backward(dyc)
+
+    reps = 5
+    row = dict(
+        shape=f"{s}^3 {cin}->{cout}",
+        ms=cuda_ms(lambda: conv3d._launch(x, w), reps),
+        dw_ms=cuda_ms(lambda: conv3d._launch_dw(x, dy), reps),
+        fwd_bwd_ms=cuda_ms(fwd_bwd, reps),
+        library_ms=cuda_ms(lambda: torch.nn.functional.conv3d(
+            xc, wc, padding=1), reps),
+        dw_library_ms=cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+            xc, wc.shape, dyc, padding=1), reps),
+        library_fwd_bwd_ms=cuda_ms(lib_fwd_bwd, reps),
+        plain_ms=cuda_ms(lambda: conv3d.conv3d_k3s1_ref(x, w), reps),
+        dw_plain_ms=cuda_ms(lambda: conv3d.conv3d_k3s1_dw_ref(x, dy), reps))
+    row["bound_ms"], row["bound_by"] = conv_bound("fwd", s, cin, cout)
+    row["dw_bound_ms"], row["dw_bound_by"] = conv_bound("dw", s, cin, cout)
+    log(f"kernel {tag} (bf16): fwd {row['ms']:.4f} ms (cuDNN "
+        f"{row['library_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f} {row['bound_by']}); dw {row['dw_ms']:.4f} "
+        f"ms (cuDNN {row['dw_library_ms']:.4f}, plain "
+        f"{row['dw_plain_ms']:.4f}, bound {row['dw_bound_ms']:.4f} "
+        f"{row['dw_bound_by']}); fwd + bwd {row['fwd_bwd_ms']:.4f} ms "
+        f"(cuDNN {row['library_fwd_bwd_ms']:.4f})")
+    del x, w, dy, xc, dyc, wc
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_state_groups():
+    """``MambaV3(d_state=4)`` and ``(d_state=32)`` at SegMamba's stage-0
+    width (d_model 48) under each kernel composition on the card, forward
+    and backward through the kernels (ceil(N / 16) launches per scan call,
+    counted), against the same module on the plain scans: output at the
+    f32 tier, every parameter gradient at the f32 tier with the absolute
+    part scaled by max(1, max|plain|); the kernel path's forward and
+    backward ms."""
+    b, L, d_model, S = GROUP_SHAPE
+    rtol, atol = TOL[torch.float32]
+    h = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (b, L, d_model)).astype(np.float32)).to(DEVICE)
+    for n, (name, (impl, slice_kernel, per)) in itertools.product(
+            GROUP_D_STATES, GROUP_COMPOSITIONS.items()):
+        m = MambaV3(d_model, d_state=n, nslices=S, scan_impl=impl,
+                    slice_kernel=slice_kernel,
+                    generator=torch.Generator().manual_seed(n), device=DEVICE)
+        tag = f"MambaV3 d_state={n} {name}"
+
+        def run():
+            m.zero_grad(set_to_none=True)
+            out = m(h)
+            out.square().mean().backward()
+            return out.detach(), {k: p.grad for k, p in m.named_parameters()}
+
+        reset_counts()
+        out, grads = run()
+        torch.cuda.synchronize()
+        groups = -(-n // 16)
+        fwd = {k: v * groups for k, v in per.items()}
+        bwd = {(k.replace("slice", "slice_bwd") if k.endswith("slice")
+                else f"{k}_bwd"): v for k, v in fwd.items()}
+        counts = launch_counts()
+        if counts != expected_counts(**fwd, **bwd):
+            raise AssertionError(f"{tag}: launches {counts}")
+        with plain_scans():
+            out_p, grads_p = run()
+        err = check_close(f"{tag} out", out, out_p, rtol, atol)
+        for k, w in grads_p.items():
+            err = max(err, check_close(f"{tag} d{k}", grads[k], w, rtol,
+                                       atol * max(1.0,
+                                                  float(w.abs().max()))))
+        ms = cuda_ms(run, 3)
+        log(f"{tag} {(b, L, d_model)}: kernel path vs plain max_abs_err "
+            f"{err:.3e} (output and {len(grads)} gradients); forward + "
+            f"backward {ms:.3f} ms; launches {counts}")
+        del m, out, grads, out_p, grads_p
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -2060,15 +2435,17 @@ def main():
         f"{kind}, count {torch.cuda.device_count()}")
     # one nvcc per source, all started together (threads wait on them)
     loaders = (scan_dir._lib, scan_dir._bwd_lib, scan_proj._lib,
-               scan_proj._bwd_lib, scan_mxu._lib, scan_mxu._bwd_lib)
+               scan_proj._bwd_lib, scan_mxu._lib, scan_mxu._bwd_lib,
+               conv3d._lib, conv3d._dw_lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
     for name in ("gated_scan_fwd", "gated_scan_bwd", "proj_scan_fwd",
-                 "proj_scan_bwd", "mxu_scan_fwd", "mxu_scan_bwd"):
+                 "proj_scan_bwd", "mxu_scan_fwd", "mxu_scan_bwd",
+                 "conv3d_k3s1_fwd", "conv3d_k3s1_dw"):
         info = _build.BUILD_INFO[name]
-        log(f"built {name} in {info['seconds']:.1f} s (all six sources in "
-            "parallel)")
+        log(f"built {name} in {info['seconds']:.1f} s (all eight sources "
+            "in parallel)")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line.lower():
                 log(f"  ptxas: {line.strip()}")
@@ -2143,7 +2520,20 @@ def main():
     t0 = time.perf_counter()
     mxu_results = []
     phase_mxu(mxu_results)
-    log(f"phase 14 (K7 vs plain, three kinds of input): "
+    log(f"phase 14 (K7 vs plain, four kinds of input): "
+        f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    conv_results = []
+    conv_counts, conv_errs = phase_conv(conv_results)
+    log(f"phase 15 (K9, the 3x3x3 conv, vs plain and cuDNN): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_state_groups()
+    log(f"phase 16 (MambaV3 at d_state 4 and 32, every composition): "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s; ms per window "
         f"{model_stats['ms_per_window']:.2f}; s/step "
@@ -2268,6 +2658,25 @@ def main():
             library_ms=None, variant="ratio_form_guarded",
             k6_ms=main_row["k6_ms"], ratio_share=main_row["share"],
             launches_by_path=by_path))
+    main_row = conv_results[0]     # 128^3 48 -> 48, the decoder's conv
+    for direction, pre, counter in (("fwd", "", "conv3d"),
+                                    ("dw", "dw_", "conv3d_dw")):
+        kernels.append(dict(
+            name=f"conv3d_k3s1_{direction}[conv3d]", route="cuda",
+            source=CONV_SOURCES[direction],
+            replaces=CONV_REPLACES[direction],
+            launches=conv_counts[counter],
+            max_abs_err=conv_errs[direction],
+            ms=main_row[f"{pre}ms"], plain_ms=main_row[f"{pre}plain_ms"],
+            bound_ms=main_row[f"{pre}bound_ms"],
+            bound_by=main_row[f"{pre}bound_by"],
+            library_ms=main_row[f"{pre}library_ms"], variant="bf16",
+            shape=main_row["shape"],
+            shapes=[{k: r[k] for k in ("shape", f"{pre}ms", f"{pre}plain_ms",
+                                       f"{pre}library_ms", f"{pre}bound_ms",
+                                       "fwd_bwd_ms", "library_fwd_bwd_ms")}
+                    for r in conv_results],
+            launches_by_path={"bench_conv_fwd_bwd": conv_counts[counter]}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

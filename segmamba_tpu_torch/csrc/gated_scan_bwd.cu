@@ -9,7 +9,8 @@
 //   K5  segmamba_tpu/ops/scan_pallas_dir.py:514   _slice_bwd_kernel
 //       (= SLICE: REVERSE=0, GATE=1, HAS_ACC=0, scan-order step t at original
 //       row (t mod S) P + floor(t / S); driven by _slice_bwd_call :555 and the
-//       custom VJP of _make_slice_core :680)
+//       custom VJP of _make_slice_core :680; GATE=0 and HAS_ACC=1 are the
+//       wrapper's chain over groups of 16 states when N > 16)
 //   K6  segmamba_tpu/ops/scan_pallas.py:194       _bwd_kernel
 //       (= SOFTPLUS=0, REVERSE=0, GATE=0, HAS_ACC=0, float32, D and bias
 //       zero; _bwd_call :281, _make_core :333): the ungated core's adjoint,
@@ -490,17 +491,14 @@ cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
   cudaError_t err;
   if (p.nc > 1) {
     const size_t smem = (size_t)p.T * NS * sizeof(float);
-    if constexpr (SLICE)  // K5: gated
-      bwd_chunk_kernel<S, false, true, true, true>
-          <<<grid, threads, smem, stream>>>(p);
-    else if constexpr (!SOFTPLUS)  // K6: ungated
+    if constexpr (!SOFTPLUS)  // K6: ungated
       bwd_chunk_kernel<S, REVERSE, false, false, false>
           <<<grid, threads, smem, stream>>>(p);
     else if (gate)
-      bwd_chunk_kernel<S, REVERSE, true, true, false>
+      bwd_chunk_kernel<S, REVERSE, true, true, SLICE>
           <<<grid, threads, smem, stream>>>(p);
     else
-      bwd_chunk_kernel<S, REVERSE, false, true, false>
+      bwd_chunk_kernel<S, REVERSE, false, true, SLICE>
           <<<grid, threads, smem, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const dim3 g2((unsigned)((NS * p.D + CARRY_THREADS - 1) / CARRY_THREADS),
@@ -508,21 +506,21 @@ cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
     bwd_carry_kernel<REVERSE><<<g2, CARRY_THREADS, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if constexpr (SLICE) {  // K5: gated, no acc
-    return launch_grad<S, false, true, false, true, true>(p, grid, threads,
-                                                          stream);
-  } else if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
+  if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
     return launch_grad<S, REVERSE, false, false, false>(p, grid, threads,
                                                         stream);
   } else {
     if (gate && has_acc)
-      return launch_grad<S, REVERSE, true, true, true>(p, grid, threads,
-                                                       stream);
-    if (gate)
-      return launch_grad<S, REVERSE, true, false, true>(p, grid, threads,
-                                                        stream);
-    return launch_grad<S, REVERSE, false, false, true>(p, grid, threads,
-                                                       stream);
+      return launch_grad<S, REVERSE, true, true, true, SLICE>(p, grid,
+                                                              threads,
+                                                              stream);
+    if (gate)  // K5's own flags with SLICE
+      return launch_grad<S, REVERSE, true, false, true, SLICE>(p, grid,
+                                                               threads,
+                                                               stream);
+    return launch_grad<S, REVERSE, false, false, true, SLICE>(p, grid,
+                                                              threads,
+                                                              stream);
   }
 }
 
@@ -536,7 +534,8 @@ extern "C" {
 // chunk: (R, nc, nsub, N, D) float32. dlast (R, N, D) float32 or null seeds
 // the adjoint of the last state in scan order. softplus = 0 is K6's mode:
 // float32, no reverse, no gate, no acc. nslices > 0 is K5's mode (SLICE,
-// nslices | L): forward, gated, no acc; dB / dC partials at original rows.
+// nslices | L): forward, gate and acc as for K1; dB / dC partials at
+// original rows.
 // Returns a cudaError_t value (0 = launched).
 int gated_scan_bwd(const void* u, const void* dt, const void* z,
                    const void* acc, const void* B, const void* C,
@@ -555,7 +554,7 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
     return (int)cudaErrorInvalidValue;
   if (!softplus && (is_bf16 || reverse || gate || has_acc || nslices))
     return (int)cudaErrorInvalidValue;
-  if (nslices && (nslices < 1 || L % nslices || reverse || !gate || has_acc))
+  if (nslices && (nslices < 1 || L % nslices || reverse))
     return (int)cudaErrorInvalidValue;
   const long long nc = (L + T - 1) / T;
   if (nc > 65535) return (int)cudaErrorInvalidValue;
@@ -588,10 +587,9 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
   if (!softplus)
     err = launch<float, false, false>(p, false, false, threads, st);
   else if (nslices)
-    err = is_bf16 ? launch<__nv_bfloat16, false, true, true>(p, true, false,
+    err = is_bf16 ? launch<__nv_bfloat16, false, true, true>(p, g, a,
                                                              threads, st)
-                  : launch<float, false, true, true>(p, true, false, threads,
-                                                     st);
+                  : launch<float, false, true, true>(p, g, a, threads, st);
   else if (is_bf16)
     err = reverse ? launch<__nv_bfloat16, true, true>(p, g, a, threads, st)
                   : launch<__nv_bfloat16, false, true>(p, g, a, threads, st);

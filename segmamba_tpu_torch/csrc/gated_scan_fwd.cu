@@ -7,7 +7,8 @@
 //       (= REVERSE=0, GATE=1, HAS_ACC=0; entry mamba_scan_fused :250)
 //   K5  segmamba_tpu/ops/scan_pallas_dir.py:477  _slice_fwd_kernel
 //       (= SLICE: REVERSE=0, GATE=1, HAS_ACC=0 over a slice-major layout;
-//       entry mamba_scan_fused_slice :728)
+//       entry mamba_scan_fused_slice :728; GATE=0 and HAS_ACC=1 are the
+//       wrapper's chain over groups of 16 states when N > 16)
 //   K6  segmamba_tpu/ops/scan_pallas.py:162      _fwd_kernel
 //       (= SOFTPLUS=0, REVERSE=0, GATE=0, HAS_ACC=0, float32 I/O, D and bias
 //       zero; entry selective_scan_pallas :361): the ungated core
@@ -285,23 +286,20 @@ cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
     chunk_carry_kernel<REVERSE><<<g2, CARRY_THREADS, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if constexpr (SLICE) {  // K5: gated, no acc
-    chunk_output_kernel<S, false, true, false, true, true>
-        <<<grid, threads, 2 * smem, stream>>>(p);
-  } else if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
+  if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
     chunk_output_kernel<S, REVERSE, false, false, false, false>
         <<<grid, threads, 2 * smem, stream>>>(p);
   } else if (gate && has_acc) {
-    chunk_output_kernel<S, REVERSE, true, true, true, false>
+    chunk_output_kernel<S, REVERSE, true, true, true, SLICE>
         <<<grid, threads, 2 * smem, stream>>>(p);
-  } else if (gate) {
-    chunk_output_kernel<S, REVERSE, true, false, true, false>
+  } else if (gate) {  // K5's own flags with SLICE
+    chunk_output_kernel<S, REVERSE, true, false, true, SLICE>
         <<<grid, threads, 2 * smem, stream>>>(p);
   } else if (has_acc) {
-    chunk_output_kernel<S, REVERSE, false, true, true, false>
+    chunk_output_kernel<S, REVERSE, false, true, true, SLICE>
         <<<grid, threads, 2 * smem, stream>>>(p);
   } else {
-    chunk_output_kernel<S, REVERSE, false, false, true, false>
+    chunk_output_kernel<S, REVERSE, false, false, true, SLICE>
         <<<grid, threads, 2 * smem, stream>>>(p);
   }
   return cudaGetLastError();
@@ -314,8 +312,8 @@ extern "C" {
 // strides: u_r, u_l, dt_r, dt_l, z_r, z_l, acc_r, acc_l, B_r, B_l, C_r, C_l,
 //          A_r, Dv_r, bias_r (elements; host array of 15).
 // softplus = 0 is K6's mode: float32, no reverse, no gate, no acc.
-// nslices > 0 is K5's mode (SLICE, nslices | L): forward, gated, no acc.
-// Returns a cudaError_t value (0 = launched).
+// nslices > 0 is K5's mode (SLICE, nslices | L): forward; gate and acc
+// (in original row order) as for K1. Returns a cudaError_t value (0 = launched).
 int gated_scan_fwd(const void* u, const void* dt, const void* z,
                    const void* acc, const void* B, const void* C,
                    const float* A, const float* Dv, const float* bias,
@@ -330,7 +328,7 @@ int gated_scan_fwd(const void* u, const void* dt, const void* z,
     return (int)cudaErrorInvalidValue;
   if (!softplus && (is_bf16 || reverse || gate || has_acc || nslices))
     return (int)cudaErrorInvalidValue;
-  if (nslices && (nslices < 1 || L % nslices || reverse || !gate || has_acc))
+  if (nslices && (nslices < 1 || L % nslices || reverse))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.u = u; p.dt = dt; p.z = z; p.acc = acc; p.B = B; p.C = C;
@@ -357,10 +355,9 @@ int gated_scan_fwd(const void* u, const void* dt, const void* z,
   if (!softplus)
     err = launch<float, false, false>(p, false, false, threads, st);
   else if (nslices)
-    err = is_bf16 ? launch<__nv_bfloat16, false, true, true>(p, true, false,
+    err = is_bf16 ? launch<__nv_bfloat16, false, true, true>(p, g, a,
                                                              threads, st)
-                  : launch<float, false, true, true>(p, true, false, threads,
-                                                     st);
+                  : launch<float, false, true, true>(p, g, a, threads, st);
   else if (is_bf16)
     err = reverse ? launch<__nv_bfloat16, true, true>(p, g, a, threads, st)
                   : launch<__nv_bfloat16, false, true>(p, g, a, threads, st);

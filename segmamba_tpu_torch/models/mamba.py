@@ -111,11 +111,12 @@ class MambaV3(nn.Module):
     without the mesh arguments. ``scan_chunk`` is the scan kernels' chunk
     length; ``slice_kernel`` opts ``scan_impl="dir"`` into the slice-order
     kernel. ``dtype`` is the compute dtype; parameters stay float32.
+    ``bias`` adds an ``out_proj.bias`` (JAX's ``out_proj_bias``).
     """
 
     def __init__(self, d_model, d_state=16, d_conv=4, expand=2, dt_rank=None,
                  dt_min=0.001, dt_max=0.1, dt_init_floor=1e-4,
-                 conv_bias=True, bimamba_type="v3", nslices=None,
+                 conv_bias=True, bias=False, bimamba_type="v3", nslices=None,
                  scan_impl="dir2", scan_chunk=128, slice_kernel=False, *,
                  dtype=torch.float32, generator=None, device=None):
         super().__init__()
@@ -149,7 +150,9 @@ class MambaV3(nn.Module):
             setattr(self, f"A{suf}_log",
                     nn.Parameter(_a_log_init(E, d_state)))
             setattr(self, f"D{suf}", nn.Parameter(torch.ones(E)))
-        self.out_proj = _Params(torch_kaiming_uniform((d_model, E), E, g))
+        self.out_proj = _Params(
+            torch_kaiming_uniform((d_model, E), E, g),
+            torch_bias_uniform((d_model,), E, g) if bias else None)
         if device is not None:
             self.to(device)
 
@@ -336,4 +339,6 @@ class MambaV3(nn.Module):
             impl = ("auto" if self.scan_impl == "per_direction"
                     else self.scan_impl)
             combined = self._run_directions_per_direction(xz, impl)
-        return F.linear(combined, self.out_proj.weight.to(dt))
+        out_bias = self.out_proj.bias
+        return F.linear(combined, self.out_proj.weight.to(dt),
+                        None if out_bias is None else out_bias.to(dt))

@@ -110,12 +110,14 @@ class GSC(nn.Module):
 
 class MambaEncoder(nn.Module):
     """Four-stage Mamba encoder: stem k7 s2 p3, then 3x (IN + conv k2 s2);
-    per stage GSC -> depth x MambaLayer; per-stage head IN + MlpChannel."""
+    per stage GSC -> depth x MambaLayer; for each stage in ``out_indices``
+    a head IN + MlpChannel (``mlps[str(i)]``), whose outputs are returned
+    in stage order, as JAX's ``MambaEncoder.out_indices``."""
 
     def __init__(self, in_chans=1, depths=(2, 2, 2, 2),
                  dims=(48, 96, 192, 384), num_slices_list=(64, 32, 16, 8),
-                 scan_impl="dir2", *, remat=False, dtype=torch.float32,
-                 generator):
+                 out_indices=(0, 1, 2, 3), scan_impl="dir2", *, remat=False,
+                 dtype=torch.float32, generator):
         super().__init__()
         g = generator
         self.remat_layers = remat is True
@@ -135,8 +137,10 @@ class MambaEncoder(nn.Module):
                                         generator=g)
                              for _ in range(depths[i])])
              for i in range(4)])
-        self.mlps = nn.ModuleList(
-            [MlpChannel(d, 2 * d, dtype=dtype, generator=g) for d in dims])
+        self.out_indices = tuple(out_indices)
+        self.mlps = nn.ModuleDict(
+            {str(i): MlpChannel(d, 2 * d, dtype=dtype, generator=g)
+             for i, d in enumerate(dims) if i in self.out_indices})
 
     def forward(self, x):
         outs = []
@@ -144,7 +148,8 @@ class MambaEncoder(nn.Module):
             x = self.gscs[i](self.downsample_layers[i](x))
             for layer in self.stages[i]:
                 x = _call(layer, self.remat_layers, x)
-            outs.append(self.mlps[i](instance_norm(x)))
+            if i in self.out_indices:
+                outs.append(self.mlps[str(i)](instance_norm(x)))
         return tuple(outs)
 
 
@@ -166,7 +171,7 @@ class SegMamba(nn.Module):
         f, kw = feat_size, dict(dtype=dtype, generator=generator)
         self.dtype, self.remat = dtype, remat
         self.vit = MambaEncoder(in_chans, depths, f, num_slices_list,
-                                scan_impl, remat=remat, **kw)
+                                scan_impl=scan_impl, remat=remat, **kw)
         self.encoder1 = UnetrBasicBlock(in_chans, f[0], **kw)
         self.encoder2 = UnetrBasicBlock(f[0], f[1], **kw)
         self.encoder3 = UnetrBasicBlock(f[1], f[2], **kw)

@@ -1,9 +1,11 @@
 """Op layer of the port: plain-PyTorch scans, convs, decode steps and
-norms, and the wrappers of the hand-written Hopper scan kernels
+norms, and the wrappers of the hand-written Hopper kernels
 (``csrc/gated_scan_fwd.cu``, ``csrc/gated_scan_bwd.cu``: K1-K5 through
 ``scan_dir`` / ``scan_fused``, K6 through ``scan_core``;
 ``csrc/proj_scan_*.cu``: K8 through ``scan_proj``; ``csrc/mxu_scan_*.cu``:
-the ratio-form scan K7 through ``scan_mxu``).
+the ratio-form scan K7 through ``scan_mxu``; ``csrc/conv3d_k3s1_fwd.cu``
+and ``csrc/conv3d_k3s1_dw.cu``: the channels-last 3x3x3 conv K9 and its
+weight gradient through ``conv3d``).
 
 Counterpart of ``segmamba_tpu/ops``. Importing this package builds nothing;
 the kernel library is compiled at its first launch (``_build.py``).
@@ -13,6 +15,13 @@ from segmamba_tpu_torch.ops.causal_conv1d import (
     causal_conv1d,
     causal_conv1d_directional,
     causal_conv1d_update,
+)
+from segmamba_tpu_torch.ops.conv3d import (
+    conv3d_k3s1,
+    conv3d_k3s1_dw_ref,
+    conv3d_k3s1_ref,
+    conv3d_k3s1_supported,
+    conv3d_k3s1_v2,
 )
 from segmamba_tpu_torch.ops.fused_norm import layer_norm_fn, rms_norm_fn
 from segmamba_tpu_torch.ops.mamba_inner import mamba_inner
@@ -50,6 +59,11 @@ __all__ = [
     "causal_conv1d",
     "causal_conv1d_directional",
     "causal_conv1d_update",
+    "conv3d_k3s1",
+    "conv3d_k3s1_dw_ref",
+    "conv3d_k3s1_ref",
+    "conv3d_k3s1_supported",
+    "conv3d_k3s1_v2",
     "layer_norm_fn",
     "mamba_inner",
     "mamba_scan_fused",

@@ -85,20 +85,8 @@ def _zeros_param(u):
     return torch.zeros(u.shape[-1], dtype=torch.float32, device=u.device)
 
 
-def _groups(N):
-    """Launches per call: groups of 16 states."""
-    return -(-N // _GROUP)
-
-
-def _pad_states(A, B, C):
-    """Pad the state axis to a multiple of 16: A with -1, B and C with zero
-    columns."""
-    pad = (-A.shape[-1]) % _GROUP
-    if not pad:
-        return A, B, C
-    return (torch.nn.functional.pad(A, (0, pad), value=-1.0),
-            torch.nn.functional.pad(B, (0, pad)),
-            torch.nn.functional.pad(C, (0, pad)))
+_groups = scan_dir._groups             # launches per call
+_pad_states = scan_dir._pad_states     # state axis to a multiple of 16
 
 
 def _group_forward(A, B, C, launch):

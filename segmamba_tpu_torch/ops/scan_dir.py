@@ -34,6 +34,25 @@ plain scan, de-interleave; ``autograd.grad`` through that).
   backward kernel launches (K1, K3); ``SLICE_LAUNCHES`` /
   ``SLICE_BWD_LAUNCHES`` count the slice-order kernel's (K5).
 
+The templates are built for N = 16 states; the entry points take any N, as
+JAX's kernels do. ``_group_fwd`` / ``_group_bwd`` run a call as
+ceil(N / 16) launches over groups of 16 states, each launch given as an
+argument (so the CPU tests run the same logic with the plain N = 16 scan
+in the kernel's place). N < 16 pads B and C with zero state columns and A
+with -1: a padded state starts at 0 and stays 0, so the padding is exact,
+and its gradients are dropped. N > 16 chains the groups' ungated partials
+through ``acc`` (the dir2 link): group g adds its states' ``C . x`` to the
+partial of groups 0..g-1, and only the last group adds ``D u`` and applies
+the ``silu(z)`` gate. The backward runs the last group first; its ``dacc``
+is the gradient of every earlier group's output, and the earlier groups,
+ungated and without acc, need no saved partial: only the last group's
+``acc`` (the partial of the others) is saved. A bfloat16 chain runs on
+float32 copies of its operands (``_wide``), so the partial is never
+rounded between groups and the output is rounded once. This beats template
+instances per N: the backward of a chain is the existing ``acc`` link,
+while an instance per N would multiply the backward's registers and
+shared memory by N / 16.
+
 The launchers ``_launch`` / ``_launch_bwd`` and ``_GatedScan`` are shared
 with ``scan_fused.py`` (K2/K4 are the same templates with REVERSE=0,
 GATE=1, HAS_ACC=0); each call counts on the module of its entry point.
@@ -65,6 +84,21 @@ _LIB_NAME = "gated_scan_fwd"
 _BWD_LIB_NAME = "gated_scan_bwd"
 _KERNEL_N = 16
 _IO_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _groups(N):
+    """Launches per call: groups of 16 states."""
+    return -(-N // _KERNEL_N)
+
+
+def _pad_states(A, B, C):
+    """Pad the state axis to a multiple of 16: A with -1, B and C with zero
+    columns."""
+    pad = (-A.shape[-1]) % _KERNEL_N
+    if not pad:
+        return A, B, C
+    return (F.pad(A, (0, pad), value=-1.0), F.pad(B, (0, pad)),
+            F.pad(C, (0, pad)))
 
 
 def _postprocess_acc(y, u, D, acc, z, out_dtype):
@@ -144,32 +178,36 @@ def _deinterleave(t, S):
 
 
 def mamba_scan_fused_slice_ref(u, dt, z, A, B, C, D, dt_bias, *, nslices,
-                               chunk_size=DEF_CHUNK, return_states=False):
+                               chunk_size=DEF_CHUNK, return_states=False,
+                               acc=None, gate=True):
     """Plain PyTorch version of ``mamba_scan_fused_slice``: interleave the
     operands, run the plain gated scan, de-interleave the output. With
     ``return_states`` also the chunk exit states (R, nc, N, dim), chunks cut
     at multiples of ``chunk_size`` of the scan (interleaved) order, as the
-    kernel cuts them."""
-    il = lambda t: _interleave(t, nslices)
+    kernel cuts them. ``acc`` (original order) and ``gate=False`` are the
+    state groups' chain (``_group_fwd``)."""
+    il = lambda t: None if t is None else _interleave(t, nslices)
     out, states = mamba_scan_fused_dir_ref(
-        il(u), il(dt), il(z), A, il(B), il(C), D, dt_bias, gate=True,
-        chunk_size=chunk_size, return_states=True)
+        il(u), il(dt), il(z) if gate else None, A, il(B), il(C), D, dt_bias,
+        acc=il(acc), gate=gate, chunk_size=chunk_size, return_states=True)
     out = _deinterleave(out, nslices)
     return (out, states) if return_states else out
 
 
 def mamba_scan_fused_slice_bwd_ref(u, dt, z, A, B, C, D, dt_bias, dout, *,
-                                   nslices, chunk_size=DEF_CHUNK):
+                                   nslices, chunk_size=DEF_CHUNK, acc=None,
+                                   gate=True):
     """Plain PyTorch backward of ``mamba_scan_fused_slice``: (du, ddt, dz,
-    None, dA, dB, dC, dD, dbias), float32, in the inputs' shapes, as
-    ``mamba_scan_fused_dir_bwd_ref``."""
-    il = lambda t: _interleave(t, nslices)
+    dacc, dA, dB, dC, dD, dbias), float32, in the inputs' shapes, as
+    ``mamba_scan_fused_dir_bwd_ref``; dz is None without the gate and dacc
+    None without acc."""
+    il = lambda t: None if t is None else _interleave(t, nslices)
     grads = mamba_scan_fused_dir_bwd_ref(
-        il(u), il(dt), il(z), A, il(B), il(C), D, dt_bias, il(dout),
-        gate=True, chunk_size=chunk_size)
-    de = lambda t: _deinterleave(t, nslices)
-    du, ddt, dz, _, dA, dB, dC, dD, dbias = grads
-    return de(du), de(ddt), de(dz), None, dA, de(dB), de(dC), dD, dbias
+        il(u), il(dt), il(z) if gate else None, A, il(B), il(C), D, dt_bias,
+        il(dout), acc=il(acc), gate=gate, chunk_size=chunk_size)
+    de = lambda t: None if t is None else _deinterleave(t, nslices)
+    du, ddt, dz, dacc, dA, dB, dC, dD, dbias = grads
+    return de(du), de(ddt), de(dz), de(dacc), dA, de(dB), de(dC), dD, dbias
 
 
 def _plain(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate, chunk_size,
@@ -179,7 +217,8 @@ def _plain(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate, chunk_size,
     if nslices:
         return mamba_scan_fused_slice_ref(
             u, dt, z, A, B, C, D, dt_bias, nslices=nslices,
-            chunk_size=chunk_size, return_states=return_states)
+            chunk_size=chunk_size, return_states=return_states, acc=acc,
+            gate=gate)
     return mamba_scan_fused_dir_ref(
         u, dt, z, A, B, C, D, dt_bias, acc=acc, gate=gate, reverse=reverse,
         chunk_size=chunk_size, return_states=return_states)
@@ -192,7 +231,7 @@ def _plain_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, *, reverse, gate,
     if nslices:
         return mamba_scan_fused_slice_bwd_ref(
             u, dt, z, A, B, C, D, dt_bias, dout, nslices=nslices,
-            chunk_size=chunk_size)
+            chunk_size=chunk_size, acc=acc, gate=gate)
     return mamba_scan_fused_dir_bwd_ref(
         u, dt, z, A, B, C, D, dt_bias, dout, acc=acc, gate=gate,
         reverse=reverse, chunk_size=chunk_size)
@@ -309,8 +348,9 @@ def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
     and call the library's ``gated_scan_fwd`` on ``stream``. With
     ``softplus=False`` (K6) dt is the final delta, and the call must be
     float32, forward, ungated and without acc. ``nslices`` > 0 (K5) scans
-    in slice-interleaved order; the call must be forward, gated, without
-    acc, with ``nslices`` dividing L."""
+    in slice-interleaved order; the call must be forward, with ``nslices``
+    dividing L (acc, in original order, and an ungated output are the
+    state groups' chain). N must be 16 (``_launch_groups`` takes any N)."""
     R, L, dim, N, T, Af, Df, bf, strides = _operands(
         u, dt, z, acc, A, B, C, D, dt_bias, gate=gate, chunk_size=chunk_size)
     nc = -(-L // T)
@@ -454,11 +494,120 @@ def _bwd_lib():
     return _BWD_LIB
 
 
-def _count(owner, name, nslices):
-    """One launch on ``owner``'s counter ``name``, or on ``SLICE_<name>``
-    for the slice-order kernel (K5)."""
+def _group_fwd(acc, A, B, C, D, *, gate, launch):
+    """A scan call over any N as ceil(N / 16) launches of 16 states:
+    ``launch(acc_g, A_g, B_g, C_g, D_g, gate_g)`` -> (out_g, chunk exit
+    states_g or None). Group g takes the previous group's output as its
+    acc (the caller's ``acc`` for g = 0); the last group takes D and the
+    gate, the others D = 0 and no gate. Returns (out, states (R, nc, N,
+    dim) or None, the acc the last group took)."""
+    N = A.shape[-1]
+    A, B, C = _pad_states(A, B, C)
+    G = _groups(N)
+    states, part, last_acc = [], acc, acc
+    for g in range(G):
+        sl = slice(g * _KERNEL_N, (g + 1) * _KERNEL_N)
+        last = g == G - 1
+        last_acc = part
+        part, st = launch(part, A[..., sl], B[..., sl], C[..., sl],
+                          D if last else torch.zeros_like(D), gate and last)
+        states.append(st)
+    if states[0] is not None:
+        states = (states[0] if G == 1 else torch.cat(states, 2))[:, :, :N]
+    else:
+        states = None
+    return part, states, last_acc
+
+
+def _group_bwd(acc, A, B, C, D, dout, states, last_acc, *, gate,
+               launch_bwd):
+    """The backward of ``_group_fwd``: ``launch_bwd(acc_g, A_g, B_g, C_g,
+    D_g, gate_g, dout_g, states_g)`` -> (du, ddt, dz, dacc, dA, dB, dC, dD,
+    dbias) of one group. The last group runs first with ``last_acc`` and
+    ``dout``; its dacc is the dout of every earlier group (ungated links),
+    which runs without acc. Returns the nine gradients of the call: du,
+    ddt and dbias summed over the groups (du, ddt in float32 before the
+    cast back), dA, dB, dC concatenated and cropped to N, dz and dD from
+    the last group, dacc the chain's (None without ``acc``)."""
+    N = A.shape[-1]
+    A, B, C = _pad_states(A, B, C)
+    if A.shape[-1] != N:   # the padded states' exit states are 0
+        states = F.pad(states, (0, 0, 0, A.shape[-1] - N))
+    G = _groups(N)
+    at = lambda t, g: t[..., g * _KERNEL_N:(g + 1) * _KERNEL_N]
+    st = lambda g: states[:, :, g * _KERNEL_N:(g + 1) * _KERNEL_N]
+    du, ddt, dz, dpart, dA, dB, dC, dD, dbias = launch_bwd(
+        last_acc, at(A, G - 1), at(B, G - 1), at(C, G - 1), D, gate, dout,
+        st(G - 1).contiguous())
+    if N == _KERNEL_N:
+        return du, ddt, dz, dpart, dA, dB, dC, dD, dbias
+    dt_dtype = ddt.dtype
+    du, ddt, dAs, dBs, dCs = du.float(), ddt.float(), [dA], [dB], [dC]
+    for g in range(G - 2, -1, -1):
+        du_g, ddt_g, _, _, dA_g, dB_g, dC_g, _, dbias_g = launch_bwd(
+            None, at(A, g), at(B, g), at(C, g), torch.zeros_like(D), False,
+            dpart, st(g).contiguous())
+        du, ddt, dbias = du + du_g.float(), ddt + ddt_g.float(), \
+            dbias + dbias_g
+        dAs.insert(0, dA_g)
+        dBs.insert(0, dB_g)
+        dCs.insert(0, dC_g)
+    cat = lambda ts: torch.cat(ts, -1)[..., :N]
+    return (du.to(dt_dtype), ddt.to(dt_dtype), dz,
+            dpart if acc is not None else None, cat(dAs), cat(dBs),
+            cat(dCs), dD, dbias)
+
+
+def _wide(N, *ts):
+    """bfloat16 operands of a chain of groups (N > 16) as float32 copies:
+    the partial handed from group to group then stays float32, and the
+    output is rounded once, as the plain version rounds it."""
+    if _groups(N) == 1 or ts[0].dtype != torch.bfloat16:
+        return ts
+    return tuple(None if t is None else t.float() for t in ts)
+
+
+def _launch_groups(u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
+                   chunk_size, return_states, nslices=0):
+    """The forward kernel over any N (``_group_fwd``): (out, states or
+    None, the last group's acc)."""
+    out_dtype = u.dtype
+    u, dt, z, acc, B, C = _wide(A.shape[-1], u, dt, z, acc, B, C)
+
+    def launch(acc_g, A_g, B_g, C_g, D_g, gate_g):
+        res = _launch(u, dt, z if gate_g else None, acc_g, A_g, B_g, C_g,
+                      D_g, dt_bias, reverse=reverse, gate=gate_g,
+                      chunk_size=chunk_size, return_states=return_states,
+                      nslices=nslices)
+        return res if return_states else (res, None)
+
+    out, states, last_acc = _group_fwd(acc, A, B, C, D, gate=gate,
+                                       launch=launch)
+    return out.to(out_dtype), states, last_acc
+
+
+def _launch_groups_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, states,
+                       last_acc, *, reverse, gate, chunk_size, nslices=0):
+    """The backward kernel over any N (``_group_bwd``); gradients in the
+    kernel's dtype (float32 for a bfloat16 chain), cast by the caller."""
+    u, dt, z, acc, B, C, dout = _wide(A.shape[-1], u, dt, z, acc, B, C,
+                                      dout)
+
+    def launch_bwd(acc_g, A_g, B_g, C_g, D_g, gate_g, dout_g, states_g):
+        return _launch_bwd(u, dt, z if gate_g else None, acc_g, A_g, B_g,
+                           C_g, D_g, dt_bias, dout_g, states_g,
+                           reverse=reverse, gate=gate_g,
+                           chunk_size=chunk_size, nslices=nslices)
+
+    return _group_bwd(acc, A, B, C, D, dout, states, last_acc, gate=gate,
+                      launch_bwd=launch_bwd)
+
+
+def _count(owner, name, nslices, n=1):
+    """``n`` launches on ``owner``'s counter ``name``, or on
+    ``SLICE_<name>`` for the slice-order kernel (K5)."""
     name = f"SLICE_{name}" if nslices else name
-    setattr(owner, name, getattr(owner, name) + 1)
+    setattr(owner, name, getattr(owner, name) + n)
 
 
 class _GatedScan(torch.autograd.Function):
@@ -481,11 +630,14 @@ class _GatedScan(torch.autograd.Function):
                   return_states=True, nslices=nslices)
         if u.device.type == "cpu":
             out, states = _plain(u, dt, z, acc, A, B, C, D, dt_bias, **kw)
+            last_acc = None
         else:
-            out, states = _launch(u, dt, z, acc, A, B, C, D, dt_bias, **kw)
-            _count(owner, "LAUNCHES", nslices)
+            out, states, last_acc = _launch_groups(
+                u, dt, z, acc, A, B, C, D, dt_bias, **kw)
+            _count(owner, "LAUNCHES", nslices, _groups(A.shape[-1]))
         ctx.owner, ctx.flags = owner, flags
-        ctx.save_for_backward(u, dt, z, acc, A, B, C, D, dt_bias, states)
+        ctx.save_for_backward(u, dt, z, acc, A, B, C, D, dt_bias, states,
+                              last_acc)
         ctx.mark_non_differentiable(states)
         return out, states
 
@@ -494,13 +646,14 @@ class _GatedScan(torch.autograd.Function):
         reverse, gate, chunk_size, nslices = ctx.flags
         kw = dict(reverse=reverse, gate=gate, chunk_size=chunk_size,
                   nslices=nslices)
-        u, dt, z, acc, A, B, C, D, dt_bias, states = ctx.saved_tensors
+        u, dt, z, acc, A, B, C, D, dt_bias, states, last_acc = (
+            ctx.saved_tensors)
         if u.device.type == "cpu":
             grads = _plain_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, **kw)
         else:
-            grads = _launch_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout,
-                                states, **kw)
-            _count(ctx.owner, "BWD_LAUNCHES", nslices)
+            grads = _launch_groups_bwd(u, dt, z, acc, A, B, C, D, dt_bias,
+                                       dout, states, last_acc, **kw)
+            _count(ctx.owner, "BWD_LAUNCHES", nslices, _groups(A.shape[-1]))
         inputs = (u, dt, z, acc, A, B, C, D, dt_bias)
         return (None, None) + tuple(
             None if g is None or not need else g.to(t.dtype)
@@ -526,9 +679,9 @@ def _scan(owner, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse, gate,
               return_states=return_states, nslices=nslices)
     if u.device.type == "cpu":
         return _plain(u, dt, z, acc, A, B, C, D, dt_bias, **kw)
-    result = _launch(u, dt, z, acc, A, B, C, D, dt_bias, **kw)
-    _count(owner, "LAUNCHES", nslices)
-    return result
+    out, states, _ = _launch_groups(u, dt, z, acc, A, B, C, D, dt_bias, **kw)
+    _count(owner, "LAUNCHES", nslices, _groups(A.shape[-1]))
+    return (out, states) if return_states else out
 
 
 def mamba_scan_fused_dir(u, dt, z, A, B, C, D, dt_bias, *, acc=None,
@@ -537,7 +690,8 @@ def mamba_scan_fused_dir(u, dt, z, A, B, C, D, dt_bias, *, acc=None,
     """Gated scan that runs right to left in place when ``reverse=True``.
 
     u/dt/z/acc: (R, L, dim) in one storage dtype (float32 or bfloat16);
-    B/C: (R, L, N) in that dtype (N = 16 on the kernel); A: (dim, N) shared
+    B/C: (R, L, N) in that dtype (any N; the kernel runs ceil(N / 16)
+    launches of 16 states, ``_group_fwd``); A: (dim, N) shared
     or (R, dim, N) per row; D/dt_bias: (dim,) or (R, dim). With
     ``gate=False`` the raw partial ``y + D u (+ acc)`` is returned (the
     reverse link of the dir2 chain); with ``gate=True`` it is multiplied by

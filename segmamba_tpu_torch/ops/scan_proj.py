@@ -26,6 +26,15 @@ padding is exact).
   with ``acc`` and the gate); ``mamba_scan_proj_bwd_ref`` the plain
   backward, ``autograd.grad`` through it in float32.
 - ``LAUNCHES`` / ``BWD_LAUNCHES`` count this wrapper's kernel launches.
+
+The kernels are built for N = 16 states; ``mamba_scan_proj`` takes any N
+as ceil(N / 16) launches (``scan_dir._group_fwd`` / ``_group_bwd`` here,
+each launch given as an argument): group g projects with x_proj's dt
+columns and its own 16 B and 16 C columns (N < 16: zero columns, A
+padded with -1, exact), takes the previous group's ungated output as
+``acc``, and only the last group adds ``D xc`` and applies the gate, as
+``scan_dir``'s chain does (a bfloat16 chain on float32 copies of its
+operands).
 """
 
 from __future__ import annotations
@@ -34,11 +43,14 @@ import ctypes
 
 import torch
 
-from segmamba_tpu_torch.ops import _build
+from segmamba_tpu_torch.ops import _build, scan_dir
 from segmamba_tpu_torch.ops.scan_dir import (
     _IO_DTYPES,
     _check_cuda,
+    _group_fwd,
+    _groups,
     _ptr,
+    _wide,
     mamba_scan_fused_dir_ref,
 )
 
@@ -290,18 +302,92 @@ def _launch_bwd(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, dout,
                                reverse=reverse, chunk_size=chunk_size)
 
 
+def _split_proj(x_proj, N):
+    """x_proj (E, rank + 2N) -> its dt, B and C columns."""
+    rank = x_proj.shape[1] - 2 * N
+    return x_proj[:, :rank], x_proj[:, rank:rank + N], x_proj[:, rank + N:]
+
+
+def _launch_groups(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, *,
+                   reverse, chunk_size, return_states):
+    """The forward kernel over any N: ``scan_dir._group_fwd`` over x_proj's
+    B and C columns, each group projecting with the dt columns and its own
+    16 B and C columns; a bfloat16 chain on float32 copies
+    (``scan_dir._wide``). Returns (out, states or None, the last group's
+    acc)."""
+    out_dtype = xc.dtype
+    xc, z, acc = _wide(A.shape[-1], xc, z, acc)
+    Wdt, WB, WC = _split_proj(x_proj, A.shape[-1])
+
+    def launch(acc_g, A_g, WB_g, WC_g, D_g, gate_g):
+        res = _launch(xc, torch.cat([Wdt, WB_g, WC_g], 1), dt_proj, dt_bias,
+                      A_g, D_g, z if gate_g else None, acc_g,
+                      reverse=reverse, chunk_size=chunk_size,
+                      return_states=return_states)
+        return res if return_states else (res, None)
+
+    out, states, last_acc = _group_fwd(acc, A, WB, WC, D_skip,
+                                       gate=z is not None, launch=launch)
+    return out.to(out_dtype), states, last_acc
+
+
+def _group_bwd(x_proj, A, D_skip, z, acc, dout, states, last_acc, *,
+               launch_bwd):
+    """The backward of a K8 call over groups of 16 states:
+    ``scan_dir._group_bwd`` over x_proj's B and C columns, with
+    ``launch_bwd(x_proj_g, A_g, D_g, z_g, acc_g, dout_g, states_g)`` ->
+    (dxc, dx_proj_g, ddt_proj, ddt_bias, dA_g, dD, dz, dacc) of one group
+    given in its slots: dxc as du, x_proj's dt columns as ddt (float32),
+    ddt_proj and ddt_bias packed in float32 as dbias, so that all four are
+    summed over the groups. Returns the call's eight gradients."""
+    Wdt, WB, WC = _split_proj(x_proj, A.shape[-1])
+    rank, E = Wdt.shape[1], x_proj.shape[0]
+
+    def launch(acc_g, A_g, WB_g, WC_g, D_g, gate_g, dout_g, states_g):
+        dxc, dW, ddtp, dbias, dA, dD, dz, dacc = launch_bwd(
+            torch.cat([Wdt, WB_g, WC_g], 1), A_g, D_g, z if gate_g else None,
+            acc_g, dout_g, states_g)
+        packed = torch.cat([ddtp.float().flatten(), dbias.float()])
+        return (dxc, dW[:, :rank].float(), dz, dacc, dA,
+                dW[:, rank:rank + _KERNEL_N], dW[:, rank + _KERNEL_N:], dD,
+                packed)
+
+    dxc, dWdt, dz, dacc, dA, dWB, dWC, dD, packed = scan_dir._group_bwd(
+        acc, A, WB, WC, D_skip, dout, states, last_acc, gate=z is not None,
+        launch_bwd=launch)
+    ddtp, dbias = packed.split([rank * E, E])
+    return (dxc, torch.cat([dWdt.to(dWB.dtype), dWB, dWC], 1),
+            ddtp.view(rank, E), dbias, dA, dD, dz, dacc)
+
+
+def _launch_groups_bwd(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, dout,
+                       states, last_acc, *, reverse, chunk_size):
+    """The backward kernel over any N (``_group_bwd``); gradients in the
+    kernel's dtype (float32 for a bfloat16 chain), cast by the caller."""
+    xc, z, acc, dout = _wide(A.shape[-1], xc, z, acc, dout)
+
+    def launch_bwd(W_g, A_g, D_g, z_g, acc_g, dout_g, states_g):
+        return _launch_bwd(xc, W_g, dt_proj, dt_bias, A_g, D_g, z_g, acc_g,
+                           dout_g, states_g, reverse=reverse,
+                           chunk_size=chunk_size)
+
+    return _group_bwd(x_proj, A, D_skip, z, acc, dout, states, last_acc,
+                      launch_bwd=launch_bwd)
+
+
 def _forward(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, *, reverse,
              chunk_size, return_states):
-    """The kernel for CUDA tensors (counted), the plain version for CPU
-    tensors."""
+    """(out, states or None, the last group's acc): the kernels for CUDA
+    tensors (counted), the plain version for CPU tensors."""
     global LAUNCHES
     args = (xc, x_proj, dt_proj, dt_bias, A, D_skip)
     kw = dict(reverse=reverse, chunk_size=chunk_size,
               return_states=return_states)
     if xc.device.type == "cpu":
-        return mamba_scan_proj_ref(*args, z=z, acc=acc, **kw)
-    out = _launch(*args, z, acc, **kw)
-    LAUNCHES += 1
+        out = mamba_scan_proj_ref(*args, z=z, acc=acc, **kw)
+        return (*out, None) if return_states else (out, None, None)
+    out = _launch_groups(*args, z, acc, **kw)
+    LAUNCHES += _groups(A.shape[-1])
     return out
 
 
@@ -313,12 +399,12 @@ class _ProjScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, flags, xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc):
         reverse, chunk_size = flags
-        out, states = _forward(xc, x_proj, dt_proj, dt_bias, A, D_skip, z,
-                               acc, reverse=reverse, chunk_size=chunk_size,
-                               return_states=True)
+        out, states, last_acc = _forward(
+            xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, reverse=reverse,
+            chunk_size=chunk_size, return_states=True)
         ctx.flags = flags
         ctx.save_for_backward(xc, x_proj, dt_proj, dt_bias, A, D_skip, z,
-                              acc, states)
+                              acc, states, last_acc)
         ctx.mark_non_differentiable(states)
         return out, states
 
@@ -326,7 +412,7 @@ class _ProjScan(torch.autograd.Function):
     def backward(ctx, dout, _dstates):
         global BWD_LAUNCHES
         reverse, chunk_size = ctx.flags
-        xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, states = (
+        xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, states, last_acc = (
             ctx.saved_tensors)
         args = (xc, x_proj, dt_proj, dt_bias, A, D_skip)
         if xc.device.type == "cpu":
@@ -334,9 +420,9 @@ class _ProjScan(torch.autograd.Function):
                                             reverse=reverse,
                                             chunk_size=chunk_size)
         else:
-            grads = _launch_bwd(*args, z, acc, dout, states, reverse=reverse,
-                                chunk_size=chunk_size)
-            BWD_LAUNCHES += 1
+            grads = _launch_groups_bwd(*args, z, acc, dout, states, last_acc,
+                                       reverse=reverse, chunk_size=chunk_size)
+            BWD_LAUNCHES += _groups(A.shape[-1])
         inputs = args + (z, acc)
         return (None,) + tuple(
             None if g is None or not need else g.to(t.dtype)
@@ -351,8 +437,8 @@ def mamba_scan_proj(xc, x_proj, dt_proj, dt_bias, A, D_skip, *, z=None,
     xc: (batch, L, d_inner) conv output (post-silu), float32 or bfloat16,
     d_inner <= 128; x_proj: (d_inner, dt_rank + 2 N) combined projection;
     dt_proj: (dt_rank, d_inner); dt_bias: (d_inner,); A: (d_inner, N)
-    negative real (N = 16 on the kernel); D_skip: (d_inner,). z and acc:
-    optional (batch, L, d_inner) in xc's dtype: with z the output is
+    negative real (any N: ceil(N / 16) launches); D_skip: (d_inner,). z
+    and acc: optional (batch, L, d_inner) in xc's dtype: with z the output is
     ``(y [+ acc]) * silu(z)``, without it the raw partial ``y [+ acc]``.
     ``reverse`` scans right to left in place. Returns (batch, L, d_inner)
     in xc.dtype, and with ``return_states`` the float32 chunk exit states
@@ -369,6 +455,8 @@ def mamba_scan_proj(xc, x_proj, dt_proj, dt_bias, A, D_skip, *, z=None,
             t is not None and t.requires_grad for t in inputs):
         out, states = _ProjScan.apply((bool(reverse), chunk_size), *inputs)
         return (out, states) if return_states else out
-    return _forward(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc,
-                    reverse=bool(reverse), chunk_size=chunk_size,
-                    return_states=return_states)
+    out, states, _ = _forward(xc, x_proj, dt_proj, dt_bias, A, D_skip, z,
+                              acc, reverse=bool(reverse),
+                              chunk_size=chunk_size,
+                              return_states=return_states)
+    return (out, states) if return_states else out

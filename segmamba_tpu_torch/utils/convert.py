@@ -2,7 +2,9 @@
 
 ``flax_to_state_dict`` is the exact inverse of
 ``segmamba_tpu/utils/torch_convert.py`` ``convert_segmamba_state_dict``
-(:83-156); ``lm_flax_to_state_dict`` that of
+(:83-156); ``encoder_flax_to_state_dict`` and ``mamba_flax_to_state_dict``
+do the same for a lone ``MambaEncoder`` (any ``out_indices``) and
+``MambaV3`` (with its ``out_proj_bias``); ``lm_flax_to_state_dict`` that of
 ``segmamba_tpu/utils/hf.py`` ``convert_lm_state_dict`` (:34-69), for the
 Mamba language model. The port's module names are the reference torch
 model's, so the same names serve both directions. Layout rules undone
@@ -43,6 +45,8 @@ def _conv1d_depthwise(w):
 def _mamba(sd, prefix, p):
     sd[f"{prefix}.in_proj.weight"] = _linear(p["in_proj"])
     sd[f"{prefix}.out_proj.weight"] = _linear(p["out_proj"])
+    if "out_proj_bias" in p:   # MambaV3(bias=True)
+        sd[f"{prefix}.out_proj.bias"] = np.asarray(p["out_proj_bias"])
     for suf in ("", "_b", "_s"):
         if f"x_proj{suf}" not in p:
             continue
@@ -63,12 +67,10 @@ def _res_block(sd, prefix, p):
             sd[f"{prefix}.{name}.conv.weight"] = _conv3d(p[name]["kernel"])
 
 
-def flax_to_state_dict(params):
-    """JAX ``{"params": ...}`` tree (numpy leaves) -> the port's
-    ``state_dict`` (float32 CPU tensors, reference torch names)."""
-    p = params["params"] if "params" in params else params
-    sd = {}
-    vit = p["vit"]
+def _vit(sd, vit):
+    """The encoder (JAX ``MambaEncoder``, the ``vit`` subtree) into ``sd``
+    under ``vit.``; a stage's head MlpChannel only where the tree has one
+    (the encoder's ``out_indices``)."""
     sd["vit.downsample_layers.0.0.weight"] = _conv3d(vit["stem"]["kernel"])
     sd["vit.downsample_layers.0.0.bias"] = np.asarray(vit["stem"]["bias"])
     for i in range(1, 4):
@@ -88,10 +90,42 @@ def flax_to_state_dict(params):
             sd[f"{pre}.norm.bias"] = np.asarray(blk["LayerNorm_0"]["bias"])
             _mamba(sd, f"{pre}.mamba", blk["mamba"])
             j += 1
-        for fc in ("fc1", "fc2"):
+        for fc in ("fc1", "fc2") if f"mlp{i}" in vit else ():
             c = vit[f"mlp{i}"][fc]
             sd[f"vit.mlps.{i}.{fc}.weight"] = _conv3d(c["kernel"])
             sd[f"vit.mlps.{i}.{fc}.bias"] = np.asarray(c["bias"])
+
+
+def _tensors(sd):
+    # copies: leaves may be read-only views of the caller's arrays
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def encoder_flax_to_state_dict(vit):
+    """JAX ``MambaEncoder`` params (numpy leaves) -> the port's
+    ``MambaEncoder`` ``state_dict`` (float32 CPU tensors)."""
+    sd = {}
+    _vit(sd, vit)
+    return _tensors({k[len("vit."):]: v for k, v in sd.items()})
+
+
+def mamba_flax_to_state_dict(params):
+    """JAX ``MambaV3`` params (numpy leaves) -> the port's ``MambaV3``
+    ``state_dict`` (float32 CPU tensors; ``out_proj.bias`` where the tree
+    has ``out_proj_bias``, i.e. ``bias=True``)."""
+    p = params["params"] if "params" in params else params
+    sd = {}
+    _mamba(sd, "m", p)
+    return _tensors({k[len("m."):]: v for k, v in sd.items()})
+
+
+def flax_to_state_dict(params):
+    """JAX ``{"params": ...}`` tree (numpy leaves) -> the port's
+    ``state_dict`` (float32 CPU tensors, reference torch names)."""
+    p = params["params"] if "params" in params else params
+    sd = {}
+    _vit(sd, p["vit"])
     for k in range(1, 6):
         _res_block(sd, f"encoder{k}.layer", p[f"encoder{k}"]["layer"])
     for k in range(2, 6):
@@ -102,8 +136,7 @@ def flax_to_state_dict(params):
     _res_block(sd, "decoder1.layer", p["decoder1"]["layer"])
     sd["out.conv.conv.weight"] = _conv3d(p["out"]["conv"]["kernel"])
     sd["out.conv.conv.bias"] = np.asarray(p["out"]["conv"]["bias"])
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-            for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def lm_flax_to_state_dict(params):
@@ -134,9 +167,7 @@ def lm_flax_to_state_dict(params):
     sd["backbone.norm_f.weight"] = np.asarray(bb["norm_f_weight"])
     if "norm_f_bias" in bb:
         sd["backbone.norm_f.bias"] = np.asarray(bb["norm_f_bias"])
-    # copies: leaves may be read-only views of the caller's arrays
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-            for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def load_flax_params(model, params):

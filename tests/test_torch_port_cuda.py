@@ -1,7 +1,9 @@
-"""The Hopper scan kernels against their plain PyTorch versions, on the card
+"""The Hopper kernels against their plain PyTorch versions, on the card
 (K1-K4 through ``scan_dir`` / ``scan_fused``, K5 through
 ``scan_dir.mamba_scan_fused_slice``, K6 through ``scan_core``, K7 through
-``scan_mxu``, K8 through ``scan_proj``).
+``scan_mxu``, K8 through ``scan_proj``; at d_state 4 and 32 through the
+wrappers' groups of 16 states; the 3x3x3 conv K9 and its weight gradient
+through ``conv3d``).
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; the
 ``cuda`` fixture skips it where ``torch.cuda.is_available()`` is false (it
@@ -27,6 +29,7 @@ import torch
 from segmamba_tpu_torch.models import MambaLMHeadModel, SegMamba
 from segmamba_tpu_torch.models.mamba import MambaV3
 from segmamba_tpu_torch.ops import (
+    conv3d,
     scan_core,
     scan_dir,
     scan_fused,
@@ -52,7 +55,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(seed, R, L, D, dtype, per_row, strided, device):
+def _inputs(seed, R, L, D, dtype, per_row, strided, device, N=N):
     """Numpy-seeded operands; ``strided`` makes z a half of xz and B/C
     column slices of an x_dbl with 3 + 2N columns, as the model passes."""
     rng = np.random.default_rng(seed)
@@ -130,9 +133,10 @@ def test_launch_counters_count_kernel_calls(cuda):
 def test_kernel_rejects_unsupported_operands(cuda):
     u, dt, z, _, B, C, A, Dv, bias = _inputs(3, 1, 64, 32, torch.float32,
                                              False, False, cuda)
-    with pytest.raises(ValueError, match="N=16"):
-        scan_fused.mamba_scan_fused(u, dt, z, A[:, :8], B[..., :8],
-                                    C[..., :8], Dv, bias)
+    with pytest.raises(ValueError, match="N=16"):   # one launch: 16 states
+        scan_dir._launch(u, dt, z, None, A[:, :8], B[..., :8], C[..., :8],
+                         Dv, bias, reverse=False, gate=True, chunk_size=128,
+                         return_states=False)
     with pytest.raises(ValueError, match="unit stride"):
         scan_fused.mamba_scan_fused(u.transpose(1, 2).contiguous()
                                     .transpose(1, 2), dt, z, A, B, C, Dv,
@@ -245,17 +249,25 @@ def _param_grads(model, x, labels):
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
+# Conv biases that feed an instance norm (every GSC conv: ``cir`` is
+# relu(instance_norm(conv(h)))): the norm subtracts each channel's mean, so
+# the gradient of such a bias is zero up to rounding, and a bound relative
+# to its own max |grad| would hold rounding noise to 1e-2 of itself. They
+# are held by the relative-L2 check over all gradients instead, and each
+# must stay at rounding level (below 1e-3 of the model's largest |grad|).
+IN_FED_BIASES = tuple(f"vit.gscs.{i}.{name}.bias" for i in range(4)
+                      for name in ("proj", "proj2", "proj3", "proj4"))
+
+
 def test_tiny_segmamba_grads_kernel_path_matches_plain(cuda):
     """Every parameter gradient of the tiny model (f32): the kernel path
     against the same model on the plain scans: all together within 1e-3
     relative L2 (two plain compositions of the same math differ by ~5e-5),
-    and each within rtol 2e-3 / atol 5e-2 of the larger of the
-    parameter's own largest |gradient| and 1e-3 of the model's. The
-    per-parameter bound is a wiring check: a conv bias followed by
-    instance norm has a gradient that is zero up to rounding, and the
-    deepest blocks' instance norms over a few voxels amplify rounding (two
-    plain compositions of the same math already differ there by percents
-    of such a parameter's scale)."""
+    and each parameter but ``IN_FED_BIASES`` within rtol 2e-3 / atol 1e-2
+    of its own largest |gradient|; every out-of-bound parameter is named
+    in the failure with its error and the disagreement of two plain
+    compositions of the same math (dir2 and per-direction "chunked") on
+    it."""
     cfg = dict(in_chans=2, out_chans=3, depths=(1, 1, 1, 1),
                feat_size=(4, 8, 16, 32), hidden_size=64,
                num_slices_list=(8, 4, 2, 1))
@@ -277,9 +289,27 @@ def test_tiny_segmamba_grads_kernel_path_matches_plain(cuda):
     finally:
         scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused = saved
     top = max(float(w.abs().max()) for w in want.values())
+    assert set(IN_FED_BIASES) <= set(want)
+    bad = {}
     for k, w in want.items():
-        scale = max(float(w.abs().max()), 1e-3 * top)
-        _close(got[k], w, (2e-3, 5e-2 * scale))
+        if k in IN_FED_BIASES:
+            assert max(float(got[k].abs().max()),
+                       float(w.abs().max())) <= 1e-3 * top, k
+            continue
+        err = (got[k] - w).abs()
+        lim = 1e-2 * float(w.abs().max()) + 2e-3 * w.abs()
+        if (err > lim).any():
+            bad[k] = float(err.max()) / max(float(w.abs().max()), 1e-30)
+    if bad:   # two plain compositions' disagreement on the same ones
+        for layer in model.modules():
+            if isinstance(layer, MambaV3):
+                layer.scan_impl = "chunked"     # per direction, plain
+        twin = _param_grads(model, x, labels)
+        rel = {k: float((twin[k] - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-30) for k in bad}
+        raise AssertionError("; ".join(
+            f"{k}: max err {v:.3e} of its max |grad| (plain dir2 vs plain "
+            f"per-direction: {rel[k]:.3e})" for k, v in bad.items()))
     diff = sum(float((got[k] - w).double().square().sum())
                for k, w in want.items())
     norm = sum(float(w.double().square().sum()) for w in want.values())
@@ -545,12 +575,17 @@ def _mxu_inputs(seed, R, L, D, N_, kind, device):
     scaled down: every unit in the ratio form), "model", "tripped" (delta
     + 40: every unit in the step form) or "mixed" (delta + 2 on every
     third chunk of 128 steps and every other channel: there the units with
-    larger |A| trip)."""
+    larger |A| trip) or "spiked" (delta + 40 on every third chunk of 128
+    steps, every channel: the next chunk starts from a state ~40x larger
+    that hardly decays)."""
     u, delta, A, B, C = _core_inputs(seed, R, L, D, device, N_=N_)
     if kind == "benign":
         A = A * 0.05
     elif kind == "tripped":
         delta = delta + 40.0
+    elif kind == "spiked":
+        t = (torch.arange(L, device=device) // 128) % 3 == 1
+        delta = delta + 40.0 * t[:, None]
     elif kind == "mixed":
         t = (torch.arange(L, device=device) // 128) % 3 == 1
         delta = delta + 2.0 * (t[:, None] & (torch.arange(
@@ -645,3 +680,256 @@ def test_mxu_dispatch_sends_grouped_bc_to_chunked(cuda):
     assert scan_mxu.LAUNCHES == before
     want = selective_scan(u, delta, A, B, C, impl="chunked")
     assert torch.equal(y, want)
+
+
+def _f64_core(ref, u, delta, A, B, C, dy, dlast):
+    """A plain core (``scan_core.selective_scan_core_ref`` or
+    ``scan_mxu.selective_scan_mxu_core_ref``) run in float64: (y, chunk
+    states, du, ddelta, dA, dB, dC) as float32 tensors."""
+    leaves = [t.detach().double().requires_grad_()
+              for t in (u, delta, A, B, C)]
+    y, st = ref(*leaves, return_states=True)
+    last = scan_core._last_state(st)
+    grads = torch.autograd.grad((y, last), leaves, (dy.double(),
+                                                    dlast.double()))
+    return [t.detach().float() for t in (y, st, *grads)]
+
+
+@pytest.mark.parametrize("R,L,D", [(1, 1000, 384), (2, 520, 96)])
+def test_k6_k7_on_spiked_input_match_float64(cuda, R, L, D):
+    """K6 and K7 on delta + 40 every third chunk, held against a float64
+    run of their own plain versions at the f32 tier (forward y and chunk
+    states, all five gradients with a nonzero gradient of the last state).
+    With this file's deltas (softplus of N(-1, 0.5), near 0.3) all five
+    hold; with model-range deltas (0.001-0.1, chip_smoke.py phase 14)
+    ddelta cancels terms thousands of times its size after a spiked chunk
+    and no float32 implementation, the plain versions included, meets the
+    tier there (phase 14 reports it)."""
+    u, delta, A, B, C = _mxu_inputs(19, R, L, D, 16, "spiked", cuda)
+    dy = torch.randn(R, L, D, device=cuda)
+    dlast = torch.randn(R, D, 16, device=cuda)
+    T, S = scan_mxu._geometry(L)
+    runs = {
+        "K6": (lambda *a: scan_core._ScanCore.apply(T, *a),
+               lambda *a, **k: scan_core.selective_scan_core_ref(
+                   *a, chunk_size=T, **k),
+               lambda: scan_core._launch(u, delta, A, B, C, T)[1]),
+        "K7": (lambda *a: scan_mxu._MxuCore.apply(T, S, True, *a),
+               lambda *a, **k: scan_mxu.selective_scan_mxu_core_ref(
+                   *a, chunk_size=T, **k),
+               lambda: scan_mxu._launch(u, delta, A, B, C, T, S, True)[1]),
+    }
+    for name, (kernel, plain, states) in runs.items():
+        want = _f64_core(plain, u, delta, A, B, C, dy, dlast)
+        leaves = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
+        y, last = kernel(*leaves)
+        torch.autograd.backward((y, last), (dy, dlast))
+        _close(y, want[0], F32)
+        _close(states(), want[1], F32)
+        for g, leaf, w in zip(("du", "ddelta", "dA", "dB", "dC"), leaves,
+                              want[2:]):
+            _grad_close(f"{name} {g} {(R, L, D)}", leaf.grad, w, F32)
+
+
+# d_state other than 16: the wrappers' groups of 16 states (K1-K5, K8)
+GROUP_CALLS = {
+    "dir_reverse": dict(reverse=True, gate=False, acc=False),
+    "dir_gate_acc": dict(reverse=False, gate=True, acc=True),
+    "fused": dict(fused=True),
+    "slice": dict(nslices=8),
+}
+
+
+@pytest.mark.parametrize("N_", [4, 32])
+@pytest.mark.parametrize("call", list(GROUP_CALLS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_state_groups_match_plain(cuda, N_, call, dtype):
+    """K1-K5 at d_state 4 (one launch, zero-padded states) and 32 (two
+    launches chained through acc): output, chunk states and every gradient
+    against the plain versions at the full N; ceil(N / 16) launches each
+    way."""
+    R, L, D = 2, 320, 96
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(20 + N_, R, L, D, dtype,
+                                               False, True, cuda, N=N_)
+    kw = dict(GROUP_CALLS[call])
+    groups = -(-N_ // 16)
+    if call == "fused":
+        mod, counter, fn = scan_fused, "LAUNCHES", scan_fused.mamba_scan_fused
+        ref, bwd_ref = (scan_fused.mamba_scan_fused_ref,
+                        scan_fused.mamba_scan_fused_bwd_ref)
+        kw, inputs = {}, [u, dt, z, None]
+    elif call == "slice":
+        mod, counter = scan_dir, "SLICE_LAUNCHES"
+        fn, ref, bwd_ref = (scan_dir.mamba_scan_fused_slice,
+                            scan_dir.mamba_scan_fused_slice_ref,
+                            scan_dir.mamba_scan_fused_slice_bwd_ref)
+        inputs = [u, dt, z, None]
+    else:
+        mod, counter = scan_dir, "LAUNCHES"
+        fn, ref, bwd_ref = (scan_dir.mamba_scan_fused_dir,
+                            scan_dir.mamba_scan_fused_dir_ref,
+                            scan_dir.mamba_scan_fused_dir_bwd_ref)
+        inputs = [u, dt, z if kw["gate"] else None,
+                  acc if kw.pop("acc") else None]
+    u, dt, zz, a = inputs
+    extra = {} if a is None else {"acc": a}
+    args = (u, dt, zz, A, B, C, Dv, bias)
+    bwd_counter = counter.replace("LAUNCHES", "BWD_LAUNCHES")
+    before = getattr(mod, counter), getattr(mod, bwd_counter)
+    got, st = fn(*args, return_states=True, **kw, **extra)
+    want, st_ref = ref(*args, return_states=True, **kw, **extra)
+    _close(got, want, TOL[dtype])
+    _close(st, st_ref, F32)
+    dout = torch.randn(R, L, D, device=cuda).to(dtype)
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in (u, dt, zz, a, A, B, C, Dv, bias)]
+    lu, ldt, lz, la, *rest = leaves
+    extra = {} if la is None else {"acc": la}
+    fn(lu, ldt, lz, *rest, **kw, **extra).backward(dout)
+    assert (getattr(mod, counter) - before[0],
+            getattr(mod, bwd_counter) - before[1]) == (2 * groups,
+                                                            groups)
+    extra = {} if a is None else {"acc": a}
+    want = bwd_ref(*args, dout, **kw, **extra)
+    for name, leaf, w in zip(GRADS, leaves, want):
+        if leaf is None:
+            continue
+        assert leaf.grad.shape == leaf.shape
+        _grad_close(f"{name} N={N_} {call}", leaf.grad, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("N_", [4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_proj_state_groups_match_plain(cuda, N_, dtype):
+    """K8 at d_state 4 and 32 in its three chain links: output, chunk
+    states and all eight gradients against the plain versions."""
+    b, L, D, rank = 2, 300, 96, 3
+    xc, _, dtp, bias, _, Dv, z, acc = _proj_inputs(21, b, L, D, rank, dtype,
+                                                   cuda)
+    rng = np.random.default_rng(N_)
+    wp = torch.from_numpy((0.1 * rng.standard_normal(
+        (D, rank + 2 * N_))).astype(np.float32)).to(cuda).to(dtype)
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(
+        (D, N_)).astype(np.float32))).to(cuda)
+    groups = -(-N_ // 16)
+    for zk, acck, reverse in ((False, False, False), (False, True, True),
+                              (True, True, False)):
+        kw = dict(z=z if zk else None, acc=acc if acck else None,
+                  reverse=reverse)
+        args = (xc, wp, dtp, bias, A, Dv)
+        before = scan_proj.LAUNCHES, scan_proj.BWD_LAUNCHES
+        got, st = scan_proj.mamba_scan_proj(*args, return_states=True, **kw)
+        want, st_ref = scan_proj.mamba_scan_proj_ref(
+            *args, return_states=True, **kw)
+        _close(got, want, TOL[dtype])
+        _close(st, st_ref, F32)
+        dout = torch.randn(b, L, D, device=cuda).to(dtype)
+        leaves = [None if t is None else t.detach().requires_grad_()
+                  for t in args + (kw["z"], kw["acc"])]
+        scan_proj.mamba_scan_proj(*leaves[:6], z=leaves[6], acc=leaves[7],
+                                  reverse=reverse).backward(dout)
+        assert (scan_proj.LAUNCHES - before[0],
+                scan_proj.BWD_LAUNCHES - before[1]) == (2 * groups, groups)
+        want = scan_proj.mamba_scan_proj_bwd_ref(*args, dout, **kw)
+        for name, leaf, w in zip(("dxc", "dx_proj", "ddt_proj", "ddt_bias",
+                                  "dA", "dD", "dz", "dacc"), leaves, want):
+            if leaf is None:
+                continue
+            _grad_close(f"{name} N={N_} z={zk} acc={acck}", leaf.grad, w,
+                        TOL[dtype])
+
+
+COMPOSITION_LAUNCHES = {   # per MambaV3 call and group of 16 states
+    ("dir2", False): dict(scan_dir=2, scan_fused=1),
+    ("dir", False): dict(scan_dir=2, scan_fused=1),
+    ("dir", True): dict(scan_dir=2, scan_dir_slice=1),
+    ("fused", False): dict(scan_fused=1),
+    ("proj", False): dict(scan_proj=3),
+}
+
+
+def _launches():
+    return dict(scan_dir=scan_dir.LAUNCHES, scan_fused=scan_fused.LAUNCHES,
+                scan_dir_slice=scan_dir.SLICE_LAUNCHES,
+                scan_proj=scan_proj.LAUNCHES)
+
+
+@pytest.mark.parametrize("d_state", [4, 32])
+@pytest.mark.parametrize("comp", list(COMPOSITION_LAUNCHES))
+def test_mamba_v3_d_state_kernels_match_plain(cuda, d_state, comp):
+    """``MambaV3(d_state=4)`` and ``(d_state=32)`` under each composition
+    on the card (the kernels, ceil(N / 16) launches per scan call) against
+    the same module on the CPU (the plain versions): output and every
+    parameter gradient, float32."""
+    scan_impl, slice_kernel = comp
+    h = np.random.default_rng(22).standard_normal((2, 512, 48)).astype(
+        np.float32)
+    grads, outs = [], []
+    for device in (cuda, torch.device("cpu")):
+        m = MambaV3(d_model=48, d_state=d_state, nslices=8,
+                    scan_impl=scan_impl, slice_kernel=slice_kernel,
+                    generator=torch.Generator().manual_seed(0),
+                    device=device)
+        before = _launches()
+        out = m(torch.from_numpy(h).to(device))
+        out.square().mean().backward()
+        if device == cuda:
+            assert m.composition(device) == scan_impl
+            moved = {k: v - before[k] for k, v in _launches().items()}
+            groups = -(-d_state // 16)
+            want = {k: n * groups for k, n in
+                    COMPOSITION_LAUNCHES[comp].items()}
+            assert moved == {**dict.fromkeys(moved, 0), **want}
+        outs.append(out.detach().cpu())
+        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+    _close(outs[0], outs[1], F32)
+    for k, w in grads[1].items():
+        _grad_close(k, grads[0][k], w, F32)
+
+
+CONV_SHAPES = [(2, 5, 7, 9, 4, 6), (1, 6, 10, 12, 48, 48),
+               (1, 4, 9, 17, 96, 48), (1, 3, 5, 6, 192, 96),
+               (1, 3, 16, 16, 48, 4),
+               (2, 8, 15, 30, 192, 192)]         # B, D, H, W, Cin, Cout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_kernels_match_plain(cuda, dtype):
+    """K9 forward, dx and dw against the plain versions (float32 sums of 27
+    shifted products) at ragged shapes: Cin = 4 (K = 108), H and W that no
+    tile divides, B = 2, Cout = 4 / 6 (masked output tiles); through
+    ``conv3d_k3s1`` and ``conv3d_k3s1_v2`` with their autograd Function:
+    two forward-kernel launches (y, dx) and one dw launch per call. y and
+    dx at the dtype's tier; dw (float32 sums of products exact in float32)
+    at the f32 tier with the absolute part scaled by max(1, max|plain|).
+    The last shape has more position tiles than dw partials, so each dw
+    block runs its two-stage copy pipeline over several tiles."""
+    pipelined = False
+    for shape, fn in itertools.product(
+            CONV_SHAPES, (conv3d.conv3d_k3s1, conv3d.conv3d_k3s1_v2)):
+        B, D, H, W, cin, cout = shape
+        rng = np.random.default_rng(sum(shape))
+        f = lambda *s, sc=1.0: torch.from_numpy(
+            (sc * rng.standard_normal(s)).astype(np.float32)).to(cuda)
+        x = f(B, D, H, W, cin).to(dtype)
+        w = f(3, 3, 3, cin, cout, sc=(27 * cin) ** -0.5)
+        dy = f(B, D, H, W, cout).to(dtype)
+        nparts, tiles = conv3d._dw_parts(x, cout)
+        pipelined |= nparts < tiles
+        lx, lw = x.detach().requires_grad_(), w.detach().requires_grad_()
+        before = conv3d.LAUNCHES, conv3d.DW_LAUNCHES
+        y = fn(lx, lw)
+        assert y.dtype == dtype and y.shape == (B, D, H, W, cout)
+        y.backward(dy)
+        assert (conv3d.LAUNCHES - before[0],
+                conv3d.DW_LAUNCHES - before[1]) == (2, 1)
+        _close(y, conv3d.conv3d_k3s1_ref(x, w), TOL[dtype])
+        dx = conv3d.conv3d_k3s1_ref(dy, conv3d._flip_w(w))
+        assert lx.grad.dtype == dtype and lw.grad.dtype == torch.float32
+        _close(lx.grad, dx, TOL[dtype])
+        _grad_close(f"dw {shape}", lw.grad, conv3d.conv3d_k3s1_dw_ref(x, dy),
+                    F32)
+        with torch.no_grad():
+            fn(x, w)
+        assert conv3d.LAUNCHES - before[0] == 3
+    assert pipelined
