@@ -19,7 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    sets the path launches (dir reverse ungated, dir gate + acc, fused gate
    with shared params) plus the chunk exit states; float32 at rtol 6e-4 /
    atol 2e-3, bfloat16 I/O compared in float32 at rtol 3e-2 / atol 5e-2.
-   Times by CUDA events, median of several runs.
+   Times by CUDA events, median of several runs; the bf16 stage-0
+   ``dir_reverse`` and ``fused_gate`` calls also split by kernel name
+   under torch.profiler (``kernel_breakdown``: the single-pass kernel and
+   the zero fill of its flags).
 3. Full-width SegMamba forward on 1x4x128^3 (random weights, seed 0):
    float32 kernel path vs the same model on the plain scans (rtol 2e-3,
    atol 1e-2 * max|ref|); bfloat16 logits finite, their deviation from
@@ -198,6 +201,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -257,6 +261,8 @@ PLAIN_BWD_SHARE = 0.75        # of the card's free memory, per plain slice
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12        # float32 outside the tensor cores (data sheet)
 BF16_TC_FLOP_PER_S = 989e12   # bf16 on the tensor cores, dense (data sheet)
+# phase 2: the calls whose device time is also split by kernel name
+BREAKDOWN_TAGS = ("dir_reverse stage0 bfloat16", "fused_gate stage0 bfloat16")
 VARIANTS = {
     "dir_reverse": ("scan_dir", dict(reverse=True, gate=False)),
     "dir_gate_acc": ("scan_dir", dict(gate=True, acc=True)),
@@ -479,10 +485,12 @@ def phase_kernels(results):
                 log(f"kernel {tag}: max_abs_err {err:.3e} (states "
                     f"{err_st:.3e}), kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms")
-                results.append(dict(wrapper=wrapper, variant=vname,
-                                    shape=shape_name, dtype=str(dtype)[6:],
-                                    max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms))
+                row = dict(wrapper=wrapper, variant=vname, shape=shape_name,
+                           dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms)
+                if tag in BREAKDOWN_TAGS:
+                    row["breakdown"] = kernel_breakdown(tag, kern)
+                results.append(row)
                 del out_k, st_k, out_p, st_p
             del a
             torch.cuda.empty_cache()
@@ -800,8 +808,7 @@ KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
       "mxu_chunk_output_kernel")),
     ("scan backward (gated_scan_bwd)",
      ("bwd_chunk_kernel", "bwd_carry_kernel", "bwd_grad_kernel")),
-    ("scan forward (gated_scan_fwd)",
-     ("chunk_exit_kernel", "chunk_carry_kernel", "chunk_output_kernel")),
+    ("scan forward (gated_scan_fwd)", ("scan_fwd_kernel",)),
     ("cuDNN convolution (incl. layout transforms)",
      ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "nchwtonhwc",
       "nhwctonchw")),
@@ -835,6 +842,22 @@ def profiled(fn):
                      if any(x in key for x in subs)), "other")
         classes[name] = classes.get(name, 0.0) + e.self_device_time_total
     return busy, classes, kernels
+
+
+def kernel_breakdown(tag, fn):
+    """Device time of one call of ``fn`` by kernel name (torch.profiler),
+    logged on one line; returns {kernel name: device ms}."""
+    _, _, kernels = profiled(fn)
+    name = lambda e: (re.search(r"(\w+)<", e.key) or re.search(
+        r"(\w+)", e.key)).group(1)
+    parts = {}
+    for e in kernels:
+        parts[name(e)] = parts.get(name(e), 0.0) + (
+            e.self_device_time_total / 1e3)
+    log(f"breakdown {tag}: device {sum(parts.values()):.4f} ms: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in sorted(parts.items(),
+                                              key=lambda kv: -kv[1])))
+    return parts
 
 
 def profile_step(state, batch, sec):

@@ -33,40 +33,81 @@
 // is not carried over.)
 // I/O is float32 or bfloat16 (u, dt, z, acc, B, C and out share one type);
 // A (D x N), D and bias are float32, shared (row stride 0) or per row.
+// Rows may be strided (z is the second half of xz; B and C are column
+// slices of x_dbl): every sequence operand has its own row and step strides
+// and unit stride along its last axis; no vector alignment is assumed.
 //
-// What bounds it on this card: an elementwise recurrence with 16 states per
-// (token, channel): one exp and two FMAs per state per token, so the SFU's
-// exp rate and the bytes of u/dt/z/acc/out bound it, not the tensor cores
-// (no wgmma/TMA needed). The sequence dimension is long (262,144 tokens at
-// stage 0 of a 128^3 window) while R = 1 and D = 96, so a walk of L in one
-// thread per (row, channel) would use 96 threads of one SM. (K6 on the LM's
-// prefill is the other way round: R = 2, L = 2048, D = 5120, 40 channel
-// blocks of 128 per row and chunk; the same passes fill the card.) The
-// design cuts L into chunks of T steps, as the TPU kernel's saved chunk
-// states do:
-//   1. chunk_exit:   one thread per (row, chunk, channel) runs its chunk
-//                    from a zero state, keeping the 16 states in registers;
-//                    writes the exit state and the chunk's sum of delta
-//                    (its decay is exp(A * sum delta)).
-//   2. chunk_carry:  one thread per (row, state, channel) combines the
-//                    chunk carries in scan order and leaves each chunk's
-//                    entry state in place of its zero-entry exit state.
-//   3. chunk_output: one thread per (row, chunk, channel) re-runs its chunk
-//                    from the entry state and writes the gated output (and
-//                    the exact exit state when asked for).
-// B and C of a chunk are staged in shared memory as float32 (every channel
-// of the block reads them); u/dt/z/acc/out are read with the channel index
-// fastest, so a warp touches consecutive addresses. Rows may be strided
-// (z is the second half of xz; B and C are column slices of x_dbl), so every
-// sequence operand comes with its own row and step strides, unit stride
-// along the last axis, and no vector alignment is assumed. Ragged L and D
-// are masked: a thread whose channel is out of range only helps stage B/C,
-// and a chunk's steps stop at L, so the reverse scan starts at the last
-// real step and no masked step enters any state. (The JAX K6 pads L with
-// delta = 0, identity steps, so its last state is exact too.)
+// What bounds it on this card: one exp per state and step, 16 per (token,
+// channel), so the SFU (16 ex2 results per clock per SM) bounds it first,
+// then the issue slots (four float ops beside each exp), then the bytes of
+// u/dt/z/acc/out. The tensor cores have no part. The sequence is long
+// (262,144 tokens at stage 0 of a 128^3 window) while R = 1 and D = 96, so
+// L is cut into chunks of T steps (the chunk_size cuts the backward's saved
+// states sit on) and the carries must cross blocks.
+//
+// The design: ONE kernel, a single-pass chunk scan with decoupled
+// look-back. A block owns a tile: row r, DB channels (TPC = 2 threads per
+// channel, 8 of the 16 states each) and one scan-order chunk.
+//   - The tile comes from an atomic ticket, chunk slowest, not from
+//     blockIdx (CUDA starts blocks in no order): every tile a block waits on
+//     holds a smaller ticket, so its block is already running and the wait
+//     ends. In REVERSE the scan order starts at the last physical chunk.
+//   - Staging: the chunk's B and C, delta = softplus(dt + bias) (once per
+//     token and channel) and u go to shared memory, T x (2 N + DB) floats
+//     and T x DB of u's type, in sub-chunks of TS steps. A sub-chunk's loads
+//     are issued, unconditional and unconverted, before the sub-chunk ahead
+//     of it is swept, and stored after: no load waits on another (a guarded
+//     load converted inside its branch serialised them, one round trip
+//     each), and a full sub-chunk steps its pointers by constant strides.
+//     The z / acc rows the outputs read are asked into L2 meanwhile.
+//   - Sweep 1: each thread runs its states over the chunk from a zero state
+//     in registers: the chunk's aggregate (its exit state from zero) and
+//     sum delta, whose decay is exp(A sum delta).
+//   - Look-back: every thread writes its aggregate record (its 8 states;
+//     the channel's sum delta beside), and the block raises its flag AGG.
+//     One warp polls the flags of 32 predecessors per load, back to the
+//     nearest one with inclusive states (flag INCL); then each thread
+//     folds forward from that chunk's inclusive record, FOLD records'
+//     loads at once: x = exp2(A log2(e) sum delta_m) x + agg_m, in chunk
+//     order. Every inclusive state is this one fold, in this order, from
+//     chunk 0's aggregate, so wherever a walk stops the entry state has the
+//     same bits: the result is deterministic. The block then writes its
+//     inclusive records and raises INCL. Records are per (row, chunk,
+//     channel, state half); flags per (row, channel block, chunk), so a
+//     poll is one 128-byte line for 32 chunks.
+//   - Sweep 2: from the entry state over the staged chunk, with the
+//     outputs: the two threads of a channel sum their halves of C . x with
+//     one shuffle per two steps, and thread g writes the steps of parity g,
+//     out = (C . x + D u (+ acc)) (* silu(z)), so each output's gate costs
+//     one exp and sweep 2 needs no block barrier; a sub-chunk's z / acc
+//     loads are in flight before it is swept. With `states` the exact exit
+//     state is written, (R, nc, N, D) in scan order.
+// Memory order of the look-back: each thread's record stores, then its
+// fence (__threadfence), then the block barrier, then thread 0's relaxed
+// store of the flag (the fences before it make it a release); the polling
+// warp loads flags with ld.relaxed.gpu, then fence.acq_rel.gpu (an
+// acquire), then the block barrier hands the walk's end to every thread,
+// which reads records with ld.global.cg (L2, not the SM's L1, which is not
+// coherent across SMs).
+// exp is ex2.approx.ftz on A pre-scaled by log2(e): one MUFU and no extra
+// FMUL per state and step. Sweep 2 repeats sweep 1's exps (a chunk's decays
+// would take 16 x its staged delta in shared memory), so the SFU floor is
+// two sweeps' worth; the three kernels this design replaced also ran two,
+// re-read u and dt from device memory and carried the chunks on 6 of 132
+// SMs, one dependent round trip per chunk. What it costs beyond the two
+// sweeps: the look-back, whose records are 16 x DB floats a chunk, not one
+// value, so a walk of d chunks reads d of them; walks grow when the
+// inclusive states lag, and a block idles while it walks.
+// Ragged L and D are masked: a thread whose channel is out of range only
+// stages, and a chunk's steps stop at L, so the reverse scan starts at the
+// last real step and no masked step enters any state. (The JAX K6 pads L
+// with delta = 0, identity steps, so its last state is exact too.)
 //
 // The kernel allocates nothing: the caller passes the output, the optional
-// exit-state output (R, nc, N, D) and the scratch (R, nc, N, D) + (R, nc, D).
+// exit-state output (R, nc, N, D), the scratch records agg and incl (R,
+// nc, D, TPC, SPT floats each) and sdel (R, nc, D floats), and the flags
+// (TICKET_PAD + R nc D TPC unsigned ints, zeroed on the launch's stream;
+// the first is the ticket); gated_scan_fwd_scratch sizes them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,7 +115,16 @@
 namespace {
 
 constexpr int NS = 16;            // state size N the kernel is built for
-constexpr int CARRY_THREADS = 256;
+constexpr int TPC = 2;            // threads per channel
+constexpr int SPT = NS / TPC;     // states per thread
+constexpr int MAX_THREADS = 192;  // threads per block (DB x TPC)
+constexpr int FOLD = 12;          // look-back: records loaded at once
+constexpr int TS = 32;            // steps of a sub-chunk (staging unit)
+constexpr int G = 8;              // sweep 2: steps whose outputs go together
+constexpr int BC_PER = TS * NS / 64;   // B / C entries a thread stages
+constexpr int TICKET_PAD = 32;    // flags[0] is the ticket; flags from [32]
+constexpr unsigned FLAG_AGG = 1, FLAG_INCL = 2;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const void* u;
@@ -87,11 +137,13 @@ struct Params {
   const float* Dv;      // (R|1, D)
   const float* bias;    // (R|1, D)
   void* out;            // (R, L, D) contiguous
-  float* states;        // (R, nc, NS, D) or nullptr
-  float* hbuf;          // (R, nc, NS, D) scratch (nc > 1)
-  float* sdelta;        // (R, nc, D) scratch (nc > 1)
+  float* states;        // (R, nc, NS, D) scan order, or nullptr
+  float* agg;           // (R, nc, D, TPC, SPT) scratch: exit states from zero
+  float* incl;          // (R, nc, D, TPC, SPT) scratch: inclusive states
+  float* sdel;          // (R, nc, D) scratch: sums of delta
+  unsigned* flags;      // TICKET_PAD + (R, ncb, nc), zeroed
   long long R, L, D;
-  int T, nc;
+  int T, nc, DB, ncb;   // steps per chunk, chunks, channels per block, blocks
   unsigned S, P;        // SLICE: slices and positions (L = S P)
   long long su_r, su_l, sdt_r, sdt_l, sz_r, sz_l, sacc_r, sacc_l;
   long long sB_r, sB_l, sC_r, sC_l;
@@ -112,14 +164,67 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// fence.acq_rel.gpu after relaxed flag loads: an acquire.
+__device__ __forceinline__ void fence_acquire() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// A block's flag: every thread fences its record stores, the block meets,
+// and thread 0 stores the flag (the fences make it a release).
+__device__ __forceinline__ void publish(unsigned* flag, unsigned v) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) st_relaxed(flag, v);
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+}
+
+// softplus(x) = max(x, 0) + log1p(e), e = exp(-|x|) in (0, 1]: the series
+// to e^4 below 2^-6 (truncation < 2e-8 relative), else log(1 + e) (error
+// < 2e-7, relative < 1e-5 there).
 __device__ __forceinline__ float softplus_f(float x) {
-  return fmaxf(x, 0.f) + log1pf(__expf(-fabsf(x)));
+  const float e = __expf(-fabsf(x));
+  const float series = e * (1.f - e * (0.5f - e * (0.33333334f - 0.25f * e)));
+  return fmaxf(x, 0.f) + (e < 0.015625f ? series : __logf(1.f + e));
 }
 
 // delta from dt + bias: softplus of it, or (K6) as it is.
 template <bool SOFTPLUS>
 __device__ __forceinline__ float delta_of(float x) {
   return SOFTPLUS ? softplus_f(x) : x;
+}
+
+// The carry across a chunk: its decay exp(A sum delta) applied to the entry
+// state, plus its aggregate. The look-back and a chunk's own inclusive
+// state use this one function, so every fold rounds alike.
+__device__ __forceinline__ float fold(float x, float a2, float sd, float h) {
+  return __fmaf_rn(ex2(a2 * sd), x, h);
+}
+
+__device__ __forceinline__ void unpack(const float4& lo, const float4& hi,
+                                       float (&v)[SPT]) {
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
 }
 
 // Original row of scan-order step tt: itself, or with SLICE the step's place
@@ -131,178 +236,470 @@ __device__ __forceinline__ long long row_of(const Params& p, long long tt) {
   return (long long)(t % p.S) * p.P + t / p.S;
 }
 
-// Stage scan-order steps [t0, t0 + len) of B (and C) of row r into shared
-// memory.
-template <typename S, bool WITH_C, bool SLICE>
-__device__ __forceinline__ void stage_bc(const Params& p, long long r,
-                                         long long t0, int len, float* sB,
-                                         float* sC) {
+// First physical step of scan-order chunk v.
+template <bool REVERSE>
+__device__ __forceinline__ long long chunk_start(const Params& p, int v) {
+  return (long long)(REVERSE ? p.nc - 1 - v : v) * p.T;
+}
+
+// Physical rows [lo, hi) of the chunk's sub-chunk s (scan steps s TS ..
+// s TS + TS - 1 of a chunk of len steps).
+template <bool REVERSE>
+__device__ __forceinline__ void sub_rows(int s, int len, int& lo, int& hi) {
+  const int a = s * TS, b = min(len, a + TS);
+  lo = REVERSE ? len - b : a;
+  hi = REVERSE ? len - a : b;
+}
+
+// One sub-chunk's operands in flight in registers, as loaded: B and C
+// entries tid, tid + nthr, ... of its TS x NS, and dt and u of channel
+// tid % DB at rows tid / DB, + TPC, ... No load is guarded by a branch and
+// none is converted before the last is issued, so the loads overlap.
+template <typename S>
+struct Staged {
+  S b[BC_PER], c[BC_PER], dt[TS / TPC], u[TS / TPC];
+};
+
+// Issue the loads of rows [lo, hi) of the chunk at t0; with `for_output`
+// also ask L2 for the z / acc rows the outputs read. A full sub-chunk
+// (not SLICE) steps its pointers by constant strides; otherwise every index
+// is clamped into range.
+template <typename S, bool GATE, bool HAS_ACC, bool SLICE>
+__device__ __forceinline__ void load_sub(const Params& p, long long r,
+                                         long long d0, long long t0, int lo,
+                                         int hi, bool for_output,
+                                         Staged<S>& q) {
+  const int tid = threadIdx.x, nthr = blockDim.x, DB = p.DB;
   const S* B = static_cast<const S*>(p.B) + r * p.sB_r;
   const S* C = static_cast<const S*>(p.C) + r * p.sC_r;
-  for (int i = threadIdx.x; i < len * NS; i += blockDim.x) {
-    const long long t = row_of<SLICE>(p, t0 + i / NS);
-    const int n = i % NS;
-    sB[i] = to_f(B[t * p.sB_l + n]);
-    if (WITH_C) sC[i] = to_f(C[t * p.sC_l + n]);
-  }
-  __syncthreads();
-}
-
-template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE>
-__global__ void chunk_exit_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* sB = smem;
-  const long long r = blockIdx.z;
-  const int c = blockIdx.y;
-  const long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long t0 = (long long)c * p.T;
-  const int len = (int)min((long long)p.T, p.L - t0);
-  stage_bc<S, false, SLICE>(p, r, t0, len, sB, nullptr);
-  if (d >= p.D) return;
-
-  float A[NS], h[NS];
-  const float* Ar = p.A + r * p.sA_r + d * NS;
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    A[n] = Ar[n];
-    h[n] = 0.f;
-  }
-  const float bias = p.bias[r * p.sbias_r + d];
+  const int nbc = (hi - lo) * NS;
+  const int k = tid % DB;
+  const long long d = min(d0 + k, p.D - 1);
   const S* u = static_cast<const S*>(p.u) + r * p.su_r + d;
   const S* dt = static_cast<const S*>(p.dt) + r * p.sdt_r + d;
-  float sd = 0.f;
-  for (int i = 0; i < len; ++i) {
-    const int t = REVERSE ? len - 1 - i : i;
-    const long long tt = row_of<SLICE>(p, t0 + t);
-    const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
-    const float du = delta * to_f(u[tt * p.su_l]);
-    sd += delta;
-    const float* b = sB + t * NS;
+  const S* z = static_cast<const S*>(p.z) + r * p.sz_r + d;
+  const S* acc = static_cast<const S*>(p.acc) + r * p.sacc_r + d;
+  // one prefetch per 32 bytes of a z / acc row, and at the row's end
+  const bool pf = for_output && (GATE || HAS_ACC) && d0 + k < p.D &&
+                  (k % (32 / (int)sizeof(S)) == 0 || d == p.D - 1);
+  if (!SLICE && hi - lo == TS) {
+    const long long rb = t0 + lo + tid / NS;
+    const S* pb = B + rb * p.sB_l + tid % NS;
+    const S* pc = C + rb * p.sC_l + tid % NS;
+    const long long stb = (nthr / NS) * p.sB_l, stc = (nthr / NS) * p.sC_l;
 #pragma unroll
-    for (int n = 0; n < NS; ++n) h[n] = __expf(delta * A[n]) * h[n] + du * b[n];
+    for (int e = 0; e < BC_PER; ++e) {
+      if (tid + e * nthr < nbc) {
+        q.b[e] = *pb;
+        q.c[e] = *pc;
+      }
+      pb += stb;
+      pc += stc;
+    }
+    const long long t1 = t0 + lo + tid / DB;
+    const S* pd = dt + t1 * p.sdt_l;
+    const S* pu = u + t1 * p.su_l;
+    const S* pz = z + t1 * p.sz_l;
+    const S* pa = acc + t1 * p.sacc_l;
+#pragma unroll
+    for (int e = 0; e < TS / TPC; ++e) {
+      q.dt[e] = pd[e * TPC * p.sdt_l];
+      q.u[e] = pu[e * TPC * p.su_l];
+      if (pf) {
+        if (GATE) prefetch_l2(pz + e * TPC * p.sz_l);
+        if (HAS_ACC) prefetch_l2(pa + e * TPC * p.sacc_l);
+      }
+    }
+    return;
   }
-  float* hb = p.hbuf + ((r * p.nc + c) * NS) * p.D + d;
 #pragma unroll
-  for (int n = 0; n < NS; ++n) hb[n * p.D] = h[n];
-  p.sdelta[(r * p.nc + c) * p.D + d] = sd;
+  for (int e = 0; e < BC_PER; ++e) {
+    const int i = min(tid + e * nthr, nbc - 1);
+    const long long tt = row_of<SLICE>(p, t0 + lo + i / NS);
+    q.b[e] = B[tt * p.sB_l + i % NS];
+    q.c[e] = C[tt * p.sC_l + i % NS];
+  }
+#pragma unroll
+  for (int e = 0; e < TS / TPC; ++e) {
+    const int t = lo + tid / DB + e * TPC;
+    const long long tt = row_of<SLICE>(p, t0 + min(t, hi - 1));
+    q.dt[e] = dt[tt * p.sdt_l];
+    q.u[e] = u[tt * p.su_l];
+    if (pf && t < hi) {
+      if (GATE) prefetch_l2(z + tt * p.sz_l);
+      if (HAS_ACC) prefetch_l2(acc + tt * p.sacc_l);
+    }
+  }
 }
 
-template <bool REVERSE>
-__global__ void chunk_carry_kernel(Params p) {
-  const long long r = blockIdx.y;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= NS * p.D) return;
-  const int n = (int)(idx / p.D);
-  const long long d = idx % p.D;
-  const float a = p.A[r * p.sA_r + d * NS + n];
-  float carry = 0.f;
-  for (int i = 0; i < p.nc; ++i) {
-    const long long c = REVERSE ? p.nc - 1 - i : i;
-    const long long hi = ((r * p.nc + c) * NS + n) * p.D + d;
-    const float h = p.hbuf[hi];
-    const float sd = p.sdelta[(r * p.nc + c) * p.D + d];
-    p.hbuf[hi] = carry;  // entry state of chunk c
-    carry = __expf(a * sd) * carry + h;
+// Write a loaded sub-chunk into the chunk's shared buffers: B, C, delta =
+// softplus(dt + bias) and u. Out-of-range channels stage zeros. A full
+// sub-chunk needs no row test: its stores are predicated, not branched.
+template <typename S, bool SOFTPLUS>
+__device__ __forceinline__ void store_sub(const Params& p, float bias,
+                                          long long d0, int lo, int hi,
+                                          const Staged<S>& q, float* sB,
+                                          float* sC, float* sDel, S* sU) {
+  const int tid = threadIdx.x, nthr = blockDim.x, DB = p.DB;
+  const int nbc = (hi - lo) * NS;
+#pragma unroll
+  for (int e = 0; e < BC_PER; ++e) {
+    const int i = tid + e * nthr;
+    if (i < nbc) {
+      sB[lo * NS + i] = to_f(q.b[e]);
+      sC[lo * NS + i] = to_f(q.c[e]);
+    }
+  }
+  const int k = tid % DB;
+  const bool live = d0 + k < p.D;
+  const int t1 = lo + tid / DB;
+  float* del = sDel + t1 * DB + k;
+  S* us = sU + t1 * DB + k;
+  auto put = [&](int e) {
+    const float dv = delta_of<SOFTPLUS>(to_f(q.dt[e]) + bias);
+    del[e * TPC * DB] = live ? dv : 0.f;
+    us[e * TPC * DB] = live ? q.u[e] : from_f<S>(0.f);
+  };
+  if (hi - lo == TS) {
+#pragma unroll
+    for (int e = 0; e < TS / TPC; ++e) put(e);
+  } else {
+#pragma unroll
+    for (int e = 0; e < TS / TPC; ++e)
+      if (t1 + e * TPC < hi) put(e);
+  }
+}
+
+// Sweep 2 over NSTEP scan steps from i0: the states advance; returns each
+// step's C . x over this thread's half of the states, and u.
+template <typename S, bool REVERSE, int NSTEP>
+__device__ __forceinline__ void sweep_out(int i0, int len, int DB, int dl,
+                                          int g, const float* sB,
+                                          const float* sC, const float* sDel,
+                                          const S* sU, const float (&a2)[SPT],
+                                          float (&x)[SPT], float (&y)[NSTEP],
+                                          float (&uv)[NSTEP]) {
+#pragma unroll
+  for (int e = 0; e < NSTEP; ++e) {
+    const int t = REVERSE ? len - 1 - (i0 + e) : i0 + e;
+    const float delta = sDel[t * DB + dl];
+    uv[e] = to_f(sU[t * DB + dl]);
+    const float du = delta * uv[e];
+    float b[SPT], c[SPT];
+    const float4* b4 = reinterpret_cast<const float4*>(sB + t * NS + g * SPT);
+    const float4* c4 = reinterpret_cast<const float4*>(sC + t * NS + g * SPT);
+    unpack(b4[0], b4[1], b);
+    unpack(c4[0], c4[1], c);
+    float ya = 0.f, yb = 0.f;   // two chains of C . x
+#pragma unroll
+    for (int n = 0; n < SPT; n += 2) {
+      x[n] = __fmaf_rn(ex2(delta * a2[n]), x[n], du * b[n]);
+      x[n + 1] = __fmaf_rn(ex2(delta * a2[n + 1]), x[n + 1], du * b[n + 1]);
+      ya = __fmaf_rn(c[n], x[n], ya);
+      yb = __fmaf_rn(c[n + 1], x[n + 1], yb);
+    }
+    y[e] = ya + yb;
+  }
+}
+
+// The output of one step: (C . x + D u (+ acc)) (* silu(z)).
+template <typename S, bool GATE, bool HAS_ACC>
+__device__ __forceinline__ S out_of(float y, float uu, float Dv, S zz, S aa) {
+  float o = __fmaf_rn(Dv, uu, y);
+  if (HAS_ACC) o += to_f(aa);
+  if (GATE) {
+    const float zf = to_f(zz);
+    o *= zf / (1.f + __expf(-zf));
+  }
+  return from_f<S>(o);
+}
+
+// Sweep 1 over a staged sub-chunk (scan steps i0 .. i1 - 1): the states
+// and the sum of delta advance.
+template <typename S, bool REVERSE>
+__device__ __forceinline__ void sweep_agg(int i0, int i1, int len, int DB,
+                                          int dl, int g, const float* sB,
+                                          const float* sDel, const S* sU,
+                                          const float (&a2)[SPT],
+                                          float (&h)[SPT], float& sd) {
+  auto step = [&](int i) {
+    const int t = REVERSE ? len - 1 - i : i;
+    const float delta = sDel[t * DB + dl];
+    const float du = delta * to_f(sU[t * DB + dl]);
+    sd += delta;
+    float b[SPT];
+    const float4* b4 = reinterpret_cast<const float4*>(sB + t * NS + g * SPT);
+    unpack(b4[0], b4[1], b);
+#pragma unroll
+    for (int n = 0; n < SPT; ++n)
+      h[n] = __fmaf_rn(ex2(delta * a2[n]), h[n], du * b[n]);
+  };
+  if (i1 - i0 == TS) {   // a full sub-chunk, unrolled
+#pragma unroll
+    for (int e = 0; e < TS; ++e) step(i0 + e);
+  } else {
+    for (int i = i0; i < i1; ++i) step(i);
+  }
+}
+
+// Sweep 2 over a staged sub-chunk (scan steps s TS .. i1 - 1 of the chunk
+// at t0) with its outputs: the two threads of a channel sum their halves of
+// C . x by shuffles, and thread g writes the steps of parity g, so each
+// step's gate costs one exp and no block barrier is needed. A full
+// sub-chunk's z / acc loads are all in flight before it is swept.
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SLICE>
+__device__ __forceinline__ void sweep_sub_out(
+    const Params& p, int s, int i1, int len, long long t0, int DB, int dl,
+    int g, unsigned pair, const float* sB, const float* sC, const float* sDel,
+    const S* sU, const float (&a2)[SPT], float (&x)[SPT], float Dv,
+    const S* z, const S* acc, S* out) {
+  if (i1 - s * TS == TS) {
+    // rows of steps s TS + 2 j + g: stepped, or SLICE's map
+    const int i0 = s * TS + g;
+    const long long tb = t0 + (REVERSE ? len - 1 - i0 : i0);
+    const long long dir = REVERSE ? -2 : 2;
+    S zq[TS / TPC], aq[TS / TPC];
+#pragma unroll
+    for (int j2 = 0; j2 < TS / TPC; ++j2) {
+      const long long tt =
+          SLICE ? row_of<SLICE>(p, tb + dir * j2) : tb + dir * j2;
+      if (GATE) zq[j2] = z[tt * p.sz_l];
+      if (HAS_ACC) aq[j2] = acc[tt * p.sacc_l];
+    }
+#pragma unroll
+    for (int q0 = 0; q0 < TS; q0 += G) {
+      float y[G], uv[G];
+      sweep_out<S, REVERSE, G>(s * TS + q0, len, DB, dl, g, sB, sC, sDel, sU,
+                               a2, x, y, uv);
+#pragma unroll
+      for (int j2 = 0; j2 < G / 2; ++j2) {
+        // send the partner the half of its step, receive ours
+        const float mine = g ? y[2 * j2 + 1] : y[2 * j2];
+        const float theirs = g ? y[2 * j2] : y[2 * j2 + 1];
+        const float yy = mine + __shfl_xor_sync(pair, theirs, 1);
+        const float uu = g ? uv[2 * j2 + 1] : uv[2 * j2];
+        const int o = q0 / 2 + j2;
+        const long long tt =
+            SLICE ? row_of<SLICE>(p, tb + dir * o) : tb + dir * o;
+        out[tt * p.D] = out_of<S, GATE, HAS_ACC>(yy, uu, Dv, zq[o], aq[o]);
+      }
+    }
+    return;
+  }
+  for (int i = s * TS; i < i1; ++i) {   // a ragged chunk's last steps
+    float y[1], uv[1];
+    sweep_out<S, REVERSE, 1>(i, len, DB, dl, g, sB, sC, sDel, sU, a2, x, y,
+                             uv);
+    const float yy = y[0] + __shfl_xor_sync(pair, y[0], 1);
+    if ((i & 1) == g) {
+      const long long tt = row_of<SLICE>(p, t0 + (REVERSE ? len - 1 - i : i));
+      S zz = from_f<S>(0.f), aa = from_f<S>(0.f);
+      if (GATE) zz = z[tt * p.sz_l];
+      if (HAS_ACC) aa = acc[tt * p.sacc_l];
+      out[tt * p.D] = out_of<S, GATE, HAS_ACC>(yy, uv[0], Dv, zz, aa);
+    }
   }
 }
 
 template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
           bool SLICE>
-__global__ void chunk_output_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* sB = smem;
-  float* sC = smem + p.T * NS;
-  const long long r = blockIdx.z;
-  const int c = blockIdx.y;
-  const long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long t0 = (long long)c * p.T;
-  const int len = (int)min((long long)p.T, p.L - t0);
-  stage_bc<S, true, SLICE>(p, r, t0, len, sB, sC);
-  if (d >= p.D) return;
+__global__ void __launch_bounds__(MAX_THREADS, 2) scan_fwd_kernel(Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int T = p.T, DB = p.DB;
+  unsigned* sMisc = reinterpret_cast<unsigned*>(smem);   // ticket, walk
+  float* sB = smem + 4;             // (T, NS)
+  float* sC = sB + T * NS;          // (T, NS)
+  float* sDel = sC + T * NS;        // (T, DB) delta
+  S* sU = reinterpret_cast<S*>(sDel + T * DB);   // (T, DB) u
+  const int tid = threadIdx.x;
 
-  float A[NS], x[NS];
-  const float* Ar = p.A + r * p.sA_r + d * NS;
+  if (tid == 0) sMisc[0] = atomicAdd(p.flags, 1u);
+  __syncthreads();
+  const unsigned ticket = sMisc[0];
+  const unsigned per_chunk = (unsigned)(p.R * p.ncb);
+  const int w = (int)(ticket / per_chunk);           // chunk, scan order
+  const long long r = (ticket % per_chunk) / p.ncb;
+  const long long d0 = (long long)((ticket % per_chunk) % p.ncb) * DB;
+  const long long t0 = chunk_start<REVERSE>(p, w);
+  const int len = (int)min((long long)T, p.L - t0);
+  const int nsub = (len + TS - 1) / TS;
+  const int dl = tid / TPC;         // channel of this thread in the block
+  const int g = tid % TPC;          // its half of the states
+  const long long d = d0 + dl;
+  const bool active = d < p.D;      // others only stage
+  const long long dc = active ? d : 0;
+
+  Staged<S> q;
+  int lo, hi;
+  sub_rows<REVERSE>(0, len, lo, hi);
+  load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, true, q);
+  float a2[SPT];
+  const float* Ar = p.A + r * p.sA_r + dc * NS + g * SPT;
 #pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    A[n] = Ar[n];
-    x[n] = 0.f;
-  }
-  if (p.nc > 1) {  // entry state left by chunk_carry
-    const float* hb = p.hbuf + ((r * p.nc + c) * NS) * p.D + d;
+  for (int n = 0; n < SPT; ++n) a2[n] = Ar[n] * LOG2E;
+  // the staging channel's bias
+  const float bias = p.bias[r * p.sbias_r + min(d0 + tid % DB, p.D - 1)];
+  store_sub<S, SOFTPLUS>(p, bias, d0, lo, hi, q, sB, sC, sDel, sU);
+  __syncthreads();
+
+  // Sweep 1: the chunk from a zero state, each sub-chunk's loads in flight
+  // while the one before it is swept.
+  float h[SPT], sd = 0.f;
 #pragma unroll
-    for (int n = 0; n < NS; ++n) x[n] = hb[n * p.D];
-  }
-  const float bias = p.bias[r * p.sbias_r + d];
-  const float Dv = p.Dv[r * p.sDv_r + d];
-  const S* u = static_cast<const S*>(p.u) + r * p.su_r + d;
-  const S* dt = static_cast<const S*>(p.dt) + r * p.sdt_r + d;
-  const S* z = GATE ? static_cast<const S*>(p.z) + r * p.sz_r + d : nullptr;
-  const S* acc =
-      HAS_ACC ? static_cast<const S*>(p.acc) + r * p.sacc_r + d : nullptr;
-  S* out = static_cast<S*>(p.out) + r * p.L * p.D + d;
-  for (int i = 0; i < len; ++i) {
-    const int t = REVERSE ? len - 1 - i : i;
-    const long long tt = row_of<SLICE>(p, t0 + t);
-    const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
-    const float uu = to_f(u[tt * p.su_l]);
-    const float du = delta * uu;
-    const float* b = sB + t * NS;
-    const float* cc = sC + t * NS;
-    float y = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      x[n] = __expf(delta * A[n]) * x[n] + du * b[n];
-      y += cc[n] * x[n];
+  for (int n = 0; n < SPT; ++n) h[n] = 0.f;
+  for (int s = 0; s < nsub; ++s) {
+    const bool more = s + 1 < nsub;
+    if (more) {
+      sub_rows<REVERSE>(s + 1, len, lo, hi);
+      load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, true, q);
     }
-    y += Dv * uu;
-    if (HAS_ACC) y += to_f(acc[tt * p.sacc_l]);
-    if (GATE) {
-      const float zz = to_f(z[tt * p.sz_l]);
-      y *= zz / (1.f + __expf(-zz));
+    if (active)
+      sweep_agg<S, REVERSE>(s * TS, min(len, (s + 1) * TS), len, DB, dl, g,
+                            sB, sDel, sU, a2, h, sd);
+    if (more) {   // rows of sub-chunk s + 1: nobody reads them yet
+      store_sub<S, SOFTPLUS>(p, bias, d0, lo, hi, q, sB, sC, sDel, sU);
+      __syncthreads();
     }
-    out[tt * p.D] = from_f<S>(y);
   }
+  // Look-back: the entry state x of chunk w. Records are per thread; the
+  // flag is the block's, set by thread 0 after every thread's records are
+  // out (each thread fences its stores, then the block barrier), and one
+  // warp polls the flags of 32 predecessors with one load.
+  float x[SPT];
+#pragma unroll
+  for (int n = 0; n < SPT; ++n) x[n] = 0.f;
+  const long long rec = (r * p.nc * p.D + dc) * TPC + g;  // chunk 0's
+  const long long rec_m = p.D * TPC;                      // per chunk
+  float* sdel = p.sdel + r * p.nc * p.D + dc;             // chunk 0's
+  unsigned* flags =   // (row, channel block)'s flag of chunk 0
+      p.flags + TICKET_PAD + (r * p.ncb + d0 / DB) * p.nc;
+  if (w > 0) {
+    if (active) {
+      float4* ag =
+          reinterpret_cast<float4*>(p.agg + (rec + w * rec_m) * SPT);
+      ag[0] = make_float4(h[0], h[1], h[2], h[3]);
+      ag[1] = make_float4(h[4], h[5], h[6], h[7]);
+      sdel[w * p.D] = sd;   // both threads of the channel: the same bits
+    }
+    publish(flags + w, FLAG_AGG);
+    // warp 0 walks back to the nearest inclusive state; every chunk between
+    // it and w has its aggregate out
+    if (tid < 32) {
+      const int lane = tid;
+      int top = w - 1;
+      for (;;) {
+        const int m = top - lane;
+        const unsigned f = m >= 0 ? ld_relaxed(flags + m) : 0u;
+        const unsigned not_agg = __ballot_sync(0xffffffffu, f != FLAG_AGG);
+        if (not_agg == 0) {   // 32 aggregates: further back
+          top -= 32;
+          continue;
+        }
+        const int k = __ffs(not_agg) - 1;   // the nearest one that is not
+        if (__shfl_sync(0xffffffffu, f, k) == FLAG_INCL) {
+          top -= k;
+          break;
+        }
+        top -= k;             // wait at the one not out yet
+        __nanosleep(32);
+      }
+      fence_acquire();
+      if (lane == 0) sMisc[1] = (unsigned)top;
+    }
+    __syncthreads();
+    const int j = (int)sMisc[1];
+    if (active) {
+      const float4* in = reinterpret_cast<const float4*>(
+          p.incl + (rec + j * rec_m) * SPT);
+      unpack(__ldcg(in), __ldcg(in + 1), x);
+      for (int m = j + 1; m < w; m += FOLD) {   // FOLD records at once
+        float4 a[FOLD][2];
+        float sdm[FOLD];
+#pragma unroll
+        for (int e = 0; e < FOLD; ++e) {   // past w - 1: loaded, not folded
+          const int me = min(m + e, w - 1);
+          const float4* am = reinterpret_cast<const float4*>(
+              p.agg + (rec + me * rec_m) * SPT);
+          a[e][0] = __ldcg(am);
+          a[e][1] = __ldcg(am + 1);
+          sdm[e] = __ldcg(sdel + me * p.D);
+        }
+#pragma unroll
+        for (int e = 0; e < FOLD; ++e)
+          if (m + e < w) {
+            float hm[SPT];
+            unpack(a[e][0], a[e][1], hm);
+#pragma unroll
+            for (int n = 0; n < SPT; ++n)
+              x[n] = fold(x[n], a2[n], sdm[e], hm[n]);
+          }
+      }
+    }
+  }
+  if (w < p.nc - 1) {   // publish the inclusive state of w
+    if (active) {
+      float xi[SPT];
+#pragma unroll
+      for (int n = 0; n < SPT; ++n)
+        xi[n] = w > 0 ? fold(x[n], a2[n], sd, h[n]) : h[n];
+      float4* in =
+          reinterpret_cast<float4*>(p.incl + (rec + w * rec_m) * SPT);
+      in[0] = make_float4(xi[0], xi[1], xi[2], xi[3]);
+      in[1] = make_float4(xi[4], xi[5], xi[6], xi[7]);
+    }
+    publish(flags + w, FLAG_INCL);
+  }
+  if (!active) return;   // no barrier follows
+
+  // Sweep 2 from the entry state, with the outputs, and the exit state.
+  const unsigned pair = 3u << (tid & 30);
+  const float Dv = p.Dv[r * p.sDv_r + dc];
+  const S* z = static_cast<const S*>(p.z) + r * p.sz_r + dc;
+  const S* acc = static_cast<const S*>(p.acc) + r * p.sacc_r + dc;
+  S* out = static_cast<S*>(p.out) + r * p.L * p.D + dc;
+  for (int s = 0; s < nsub; ++s)
+    sweep_sub_out<S, REVERSE, GATE, HAS_ACC, SLICE>(
+        p, s, min(len, (s + 1) * TS), len, t0, DB, dl, g, pair, sB, sC, sDel,
+        sU, a2, x, Dv, z, acc, out);
   if (p.states != nullptr) {
-    const long long vc = REVERSE ? p.nc - 1 - c : c;  // scan-order index
-    float* st = p.states + ((r * p.nc + vc) * NS) * p.D + d;
+    float* st = p.states + ((r * p.nc + w) * NS + g * SPT) * p.D + d;
 #pragma unroll
-    for (int n = 0; n < NS; ++n) st[n * p.D] = x[n];
+    for (int n = 0; n < SPT; ++n) st[n * p.D] = x[n];
   }
 }
 
-template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE = false>
-cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
-                   cudaStream_t stream) {
-  const dim3 grid((unsigned)((p.D + threads - 1) / threads), (unsigned)p.nc,
-                  (unsigned)p.R);
-  const size_t smem = (size_t)p.T * NS * sizeof(float);
-  cudaError_t err;
-  if (p.nc > 1) {
-    chunk_exit_kernel<S, REVERSE, SOFTPLUS, SLICE>
-        <<<grid, threads, smem, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const dim3 g2((unsigned)((NS * p.D + CARRY_THREADS - 1) / CARRY_THREADS),
-                  (unsigned)p.R);
-    chunk_carry_kernel<REVERSE><<<g2, CARRY_THREADS, 0, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
-    chunk_output_kernel<S, REVERSE, false, false, false, false>
-        <<<grid, threads, 2 * smem, stream>>>(p);
-  } else if (gate && has_acc) {
-    chunk_output_kernel<S, REVERSE, true, true, true, SLICE>
-        <<<grid, threads, 2 * smem, stream>>>(p);
-  } else if (gate) {  // K5's own flags with SLICE
-    chunk_output_kernel<S, REVERSE, true, false, true, SLICE>
-        <<<grid, threads, 2 * smem, stream>>>(p);
-  } else if (has_acc) {
-    chunk_output_kernel<S, REVERSE, false, true, true, SLICE>
-        <<<grid, threads, 2 * smem, stream>>>(p);
-  } else {
-    chunk_output_kernel<S, REVERSE, false, false, true, SLICE>
-        <<<grid, threads, 2 * smem, stream>>>(p);
-  }
+template <typename S>
+size_t smem_bytes(const Params& p) {
+  return 16 + (size_t)p.T * (2 * NS + p.DB) * sizeof(float) +
+         (size_t)p.T * p.DB * sizeof(S);
+}
+
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
+          bool SLICE>
+cudaError_t launch_one(const Params& p, cudaStream_t stream) {
+  auto kernel = scan_fwd_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>;
+  const size_t smem = smem_bytes<S>(p);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)(p.R * p.ncb * p.nc);
+  kernel<<<blocks, p.DB * TPC, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE>
+cudaError_t launch_flags(const Params& p, bool gate, bool has_acc,
+                         cudaStream_t stream) {
+  if constexpr (!SOFTPLUS)   // K6: ungated, no acc
+    return launch_one<S, REVERSE, false, false, false, false>(p, stream);
+  if (gate && has_acc)
+    return launch_one<S, REVERSE, true, true, true, SLICE>(p, stream);
+  if (gate)   // K5's own flags with SLICE
+    return launch_one<S, REVERSE, true, false, true, SLICE>(p, stream);
+  if (has_acc)
+    return launch_one<S, REVERSE, false, true, true, SLICE>(p, stream);
+  return launch_one<S, REVERSE, false, false, true, SLICE>(p, stream);
 }
 
 }  // namespace
@@ -313,35 +710,46 @@ extern "C" {
 //          A_r, Dv_r, bias_r (elements; host array of 15).
 // softplus = 0 is K6's mode: float32, no reverse, no gate, no acc.
 // nslices > 0 is K5's mode (SLICE, nslices | L): forward; gate and acc
-// (in original row order) as for K1. Returns a cudaError_t value (0 = launched).
+// (in original row order) as for K1. channels: channels per block (DB, a
+// multiple of 32). agg, incl and flags as
+// gated_scan_fwd_scratch sizes them, flags zeroed; all required. Returns a
+// cudaError_t value (0 = launched).
 int gated_scan_fwd(const void* u, const void* dt, const void* z,
                    const void* acc, const void* B, const void* C,
                    const float* A, const float* Dv, const float* bias,
-                   void* out, float* states, float* hbuf, float* sdelta,
-                   int is_bf16, int reverse, int gate, int has_acc,
-                   int softplus, long long nslices, long long R, long long L,
-                   long long D, int N, int T, int threads,
+                   void* out, float* states, float* agg, float* incl,
+                   float* sdel, unsigned* flags, int is_bf16, int reverse,
+                   int gate, int has_acc, int softplus, long long nslices,
+                   long long R,
+                   long long L, long long D, int N, int T, int channels,
                    const long long* strides, void* stream) {
-  if (N != NS || T < 1 || T > 256 || threads < 32 || threads > 1024 ||
-      threads % 32 != 0 || R < 1 || L < 1 || D < 1 || R > 65535 ||
-      L > 0x7fffffffLL)
+  if (N != NS || T < 1 || T > 256 || channels < 32 || channels % 32
+      || channels * TPC > MAX_THREADS || R < 1 || L < 1
+      || D < 1 || L > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (!softplus && (is_bf16 || reverse || gate || has_acc || nslices))
     return (int)cudaErrorInvalidValue;
   if (nslices && (nslices < 1 || L % nslices || reverse))
     return (int)cudaErrorInvalidValue;
+  if (agg == nullptr || incl == nullptr || sdel == nullptr ||
+      flags == nullptr)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.u = u; p.dt = dt; p.z = z; p.acc = acc; p.B = B; p.C = C;
   p.A = A; p.Dv = Dv; p.bias = bias;
-  p.out = out; p.states = states; p.hbuf = hbuf; p.sdelta = sdelta;
-  p.R = R; p.L = L; p.D = D; p.T = T;
+  p.out = out; p.states = states; p.agg = agg; p.incl = incl;
+  p.sdel = sdel; p.flags = flags;
+  p.R = R; p.L = L; p.D = D; p.T = T; p.DB = channels;
   p.S = nslices ? (unsigned)nslices : 1u;
   p.P = (unsigned)(L / p.S);
   const long long nc = (L + T - 1) / T;
-  if (nc > 65535) return (int)cudaErrorInvalidValue;
+  const long long ncb = (D + channels - 1) / channels;
+  if (R * ncb * nc > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   p.nc = (int)nc;
-  if (nc > 1 && (hbuf == nullptr || sdelta == nullptr))
-    return (int)cudaErrorInvalidValue;
+  p.ncb = (int)ncb;
+  const size_t smem = is_bf16 ? smem_bytes<__nv_bfloat16>(p)
+                              : smem_bytes<float>(p);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   p.su_r = strides[0]; p.su_l = strides[1];
   p.sdt_r = strides[2]; p.sdt_l = strides[3];
   p.sz_r = strides[4]; p.sz_l = strides[5];
@@ -351,20 +759,30 @@ int gated_scan_fwd(const void* u, const void* dt, const void* z,
   p.sA_r = strides[12]; p.sDv_r = strides[13]; p.sbias_r = strides[14];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool g = gate != 0, a = has_acc != 0;
+  using bf = __nv_bfloat16;
   cudaError_t err;
   if (!softplus)
-    err = launch<float, false, false>(p, false, false, threads, st);
+    err = launch_flags<float, false, false, false>(p, false, false, st);
   else if (nslices)
-    err = is_bf16 ? launch<__nv_bfloat16, false, true, true>(p, g, a,
-                                                             threads, st)
-                  : launch<float, false, true, true>(p, g, a, threads, st);
+    err = is_bf16 ? launch_flags<bf, false, true, true>(p, g, a, st)
+                  : launch_flags<float, false, true, true>(p, g, a, st);
   else if (is_bf16)
-    err = reverse ? launch<__nv_bfloat16, true, true>(p, g, a, threads, st)
-                  : launch<__nv_bfloat16, false, true>(p, g, a, threads, st);
+    err = reverse ? launch_flags<bf, true, true, false>(p, g, a, st)
+                  : launch_flags<bf, false, true, false>(p, g, a, st);
   else
-    err = reverse ? launch<float, true, true>(p, g, a, threads, st)
-                  : launch<float, false, true>(p, g, a, threads, st);
+    err = reverse ? launch_flags<float, true, true, false>(p, g, a, st)
+                  : launch_flags<float, false, true, false>(p, g, a, st);
   return (int)err;
+}
+
+// Scratch sizes in elements: agg and incl (floats each), sdel (floats),
+// flags (unsigned ints, to be zeroed).
+void gated_scan_fwd_scratch(long long R, long long L, long long D, int T,
+                            long long* sizes) {
+  const long long nc = (L + T - 1) / T;
+  sizes[0] = R * nc * D * TPC * SPT;
+  sizes[1] = R * nc * D;
+  sizes[2] = TICKET_PAD + R * ((D + 31) / 32) * nc;
 }
 
 const char* gated_scan_error_string(int err) {

@@ -246,6 +246,17 @@ def _block_threads(dim):
     return min(128, -(-dim // 32) * 32)
 
 
+def _block_channels(dim):
+    """Channels per block of the forward kernel (two threads each): the
+    largest of 96/64/32 that divides ``dim``, else a masked block of 64.
+    Its shared memory, T x (32 + channels) floats and T x channels of u,
+    keeps two blocks of 96 on an SM."""
+    for c in (96, 64, 32):
+        if dim % c == 0:
+            return c
+    return 64
+
+
 def _row_step_strides(t, name, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
@@ -345,7 +356,8 @@ def _ptr(t):
 def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
                 gate, chunk_size, return_states, softplus=True, nslices=0):
     """Validate the operands, allocate the output and scratch on u's device
-    and call the library's ``gated_scan_fwd`` on ``stream``. With
+    and call the library's ``gated_scan_fwd`` on ``stream``: one kernel, and
+    a zero fill of its flags and ticket before it on the same stream. With
     ``softplus=False`` (K6) dt is the final delta, and the call must be
     float32, forward, ungated and without acc. ``nslices`` > 0 (K5) scans
     in slice-interleaved order; the call must be forward, with ``nslices``
@@ -357,20 +369,25 @@ def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
     out = torch.empty((R, L, dim), dtype=u.dtype, device=u.device)
     states = (torch.empty((R, nc, N, dim), dtype=torch.float32,
                           device=u.device) if return_states else None)
-    hbuf = sdelta = None
-    if nc > 1:
-        hbuf = torch.empty((R, nc, N, dim), dtype=torch.float32,
-                           device=u.device)
-        sdelta = torch.empty((R, nc, dim), dtype=torch.float32,
-                             device=u.device)
+    channels = _block_channels(dim)
+    # look-back scratch: aggregate and inclusive records (n_st floats
+    # each), sums of delta (n_sd floats) and the flags, the first of them
+    # the chunks' ticket (ints, zeroed here)
+    sizes = (ctypes.c_longlong * 3)()
+    lib.gated_scan_fwd_scratch(R, L, dim, T, sizes)
+    n_st, n_sd, n_fl = sizes
+    scratch = torch.empty(2 * n_st + n_sd, dtype=torch.float32,
+                          device=u.device)
+    flags = torch.zeros(n_fl, dtype=torch.int32, device=u.device)
+    base = scratch.data_ptr()
 
     err = lib.gated_scan_fwd(
         _ptr(u), _ptr(dt), _ptr(z) if gate else None, _ptr(acc), _ptr(B),
         _ptr(C), _ptr(Af), _ptr(Df), _ptr(bf), _ptr(out), _ptr(states),
-        _ptr(hbuf), _ptr(sdelta), int(u.dtype == torch.bfloat16),
-        int(reverse), int(gate), int(acc is not None), int(softplus),
-        int(nslices), R, L, dim, N, T, _block_threads(dim),
-        (ctypes.c_longlong * 15)(*strides), stream)
+        base, base + 4 * n_st, base + 8 * n_st, _ptr(flags),
+        int(u.dtype == torch.bfloat16), int(reverse), int(gate),
+        int(acc is not None), int(softplus), int(nslices), R, L, dim, N, T,
+        channels, (ctypes.c_longlong * 15)(*strides), stream)
     if err != 0:
         msg = lib.gated_scan_error_string(err).decode()
         raise RuntimeError(f"gated_scan_fwd launch failed: {msg} ({err})")
@@ -463,9 +480,12 @@ def _lib():
         lib = _build.load_library(_LIB_NAME)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.gated_scan_fwd.argtypes = (
-            [vp] * 13 + [i] * 5 + [ll] * 4 + [i] * 3
+            [vp] * 15 + [i] * 5 + [ll] * 4 + [i] * 3
             + [ctypes.POINTER(ll), vp])
         lib.gated_scan_fwd.restype = i
+        lib.gated_scan_fwd_scratch.argtypes = [ll, ll, ll, i,
+                                               ctypes.POINTER(ll)]
+        lib.gated_scan_fwd_scratch.restype = None
         lib.gated_scan_error_string.argtypes = [i]
         lib.gated_scan_error_string.restype = ctypes.c_char_p
         _LIB = lib

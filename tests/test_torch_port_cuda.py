@@ -242,6 +242,123 @@ def test_cuda_forward_records_gradient(cuda):
         assert out.grad_fn is None and mod.BWD_LAUNCHES == before[1] + 1
 
 
+# The forward template is one single-pass kernel with a decoupled
+# look-back over chunk tiles; these cases stress the look-back and the
+# tile edges. (R, L, D, chunk_size, per-row parameters)
+SINGLE_PASS_CASES = [
+    (2, 65536, 96, 128, False),   # 512 tiles a row: long look-back chains
+    (1, 128, 96, 128, False),     # nc = 1: no look-back
+    (2, 256, 96, 128, True),      # nc = 2, per-row A, D and bias
+    (1, 1000, 50, 128, False),    # ragged L and ragged D
+    (2, 333, 96, 128, True),      # ragged L, per row
+    (1, 8192, 192, 32, False),    # 256 tiles of 32 steps, two channel blocks
+]
+
+
+@pytest.mark.parametrize("R,L,D,T,per_row", SINGLE_PASS_CASES)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_pass_forward_matches_plain(cuda, R, L, D, T, per_row,
+                                           reverse, dtype):
+    """Output and chunk exit states (R, ceil(L / T), N, D) in scan order,
+    with acc and the gate, forward and reverse, against the plain
+    version."""
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(
+        11, R, L, D, dtype, per_row, True, cuda)
+    kw = dict(acc=acc, gate=True, reverse=reverse, chunk_size=T,
+              return_states=True)
+    args = (u, dt, z, A, B, C, Dv, bias)
+    got, st = scan_dir.mamba_scan_fused_dir(*args, **kw)
+    want, st_ref = scan_dir.mamba_scan_fused_dir_ref(*args, **kw)
+    assert st.shape == (R, -(-L // T), N, D)
+    _close(got, want, TOL[dtype])
+    _close(st, st_ref, F32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_many_chunks_of_32_matches_plain(cuda, dtype):
+    """K2 at chunk_size 32 over 2,048 tiles a row."""
+    u, dt, z, _, B, C, A, Dv, bias = _inputs(15, 2, 65536, 96, dtype, True,
+                                             True, cuda)
+    args = (u, dt, z, A, B, C, Dv, bias)
+    got, st = scan_fused.mamba_scan_fused(*args, chunk_size=32,
+                                          return_states=True)
+    want, st_ref = scan_fused.mamba_scan_fused_ref(*args, chunk_size=32,
+                                                   return_states=True)
+    _close(got, want, TOL[dtype])
+    _close(st, st_ref, F32)
+
+
+def test_single_pass_forward_is_deterministic(cuda):
+    """Repeated launches on the same inputs give the same bits (K1 both
+    ways, K2, K5, K6): wherever a tile's look-back stops, it folds the
+    chunk carries in chunk order from chunk 0's state."""
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(
+        12, 2, 65536, 96, torch.bfloat16, False, True, cuda)
+    args = (u, dt, z, A, B, C, Dv, bias)
+    uf, deltaf = u.float(), torch.nn.functional.softplus(dt.float())
+    calls = {
+        "K1 reverse": lambda: scan_dir.mamba_scan_fused_dir(
+            *args, acc=acc, reverse=True, return_states=True),
+        "K1 forward": lambda: scan_dir.mamba_scan_fused_dir(
+            *args, acc=acc, return_states=True),
+        "K2": lambda: scan_fused.mamba_scan_fused(*args, return_states=True),
+        "K5": lambda: scan_dir.mamba_scan_fused_slice(
+            *args, nslices=64, return_states=True),
+        "K6": lambda: scan_core._launch(uf, deltaf, A, B.float(), C.float(),
+                                        128),
+    }
+    for name, call in calls.items():
+        first = call()
+        for _ in range(3):
+            again = call()
+            assert all(torch.equal(a, b) for a, b in zip(first, again)), name
+
+
+def test_forward_scan_is_one_kernel(cuda):
+    """One forward call runs one kernel on the card, beside the zero fill
+    of its flags: no carry pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(
+        13, 1, 8192, 96, torch.bfloat16, False, True, cuda)
+    call = lambda: scan_dir.mamba_scan_fused_dir(
+        u, dt, z, A, B, C, Dv, bias, acc=acc, reverse=True)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and e.self_device_time_total > 0]
+    kernels = [n for n in names if "scan_fwd_kernel" in n]
+    others = [n for n in names if "scan_fwd_kernel" not in n]
+    assert len(kernels) == 1 and sum(
+        e.count for e in prof.key_averages() if e.key == kernels[0]) == 1
+    assert all("fill" in n.lower() or "memset" in n.lower()
+               for n in others), others
+
+
+def test_single_pass_states_feed_the_backward(cuda):
+    """The backward rebuilds x from the forward's saved states: gradients
+    through ``_GatedScan`` over 32 tiles match the plain backward."""
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(
+        16, 2, 4096, 96, torch.float32, True, True, cuda)
+    dout = torch.randn(2, 4096, 96, device=cuda)
+    leaves = [t.detach().requires_grad_()
+              for t in (u, dt, z, acc, A, B, C, Dv, bias)]
+    lu, ldt, lz, la, lA, lB, lC, lD, lb = leaves
+    scan_dir.mamba_scan_fused_dir(lu, ldt, lz, lA, lB, lC, lD, lb, acc=la,
+                                  reverse=True).backward(dout)
+    want = scan_dir.mamba_scan_fused_dir_bwd_ref(
+        u, dt, z, A, B, C, Dv, bias, dout, acc=acc, reverse=True)
+    for name, leaf, w in zip(GRADS, leaves, want):
+        _grad_close(name, leaf.grad, w, F32)
+
+
 def _param_grads(model, x, labels):
     model.zero_grad(set_to_none=True)
     logits = model(x)
