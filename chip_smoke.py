@@ -10,9 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    required, the forward scan kernel built from ``segmamba_tpu_torch/csrc``.
 1b. The backward scan kernel (``gated_scan_bwd.cu``), the
    projection-fused kernels (``proj_scan_fwd.cu``, ``proj_scan_bwd.cu``),
-   the ratio-form scan K7 (``mxu_scan_fwd.cu``, ``mxu_scan_bwd.cu``) and
-   the 3x3x3 conv K9 (``conv3d_k3s1_fwd.cu``, ``conv3d_k3s1_dw.cu``),
-   built in parallel with the forward one (one nvcc each, from eight
+   the ratio-form scan K7 (``mxu_scan_fwd.cu``, ``mxu_scan_bwd.cu``), the
+   3x3x3 conv K9 (``conv3d_k3s1_fwd.cu``, ``conv3d_k3s1_dw.cu``) and the
+   scan probes K10 (``scan_lb_fwd.cu``) and K11 (``scan_flat_fwd.cu``),
+   built in parallel with the forward one (one nvcc each, from ten
    threads): build times, ptxas registers/spills.
 2. Kernel vs plain PyTorch at the main path's shapes (stage 0: R=1,
    L=262144, D=96; stage 3: R=1, L=512, D=768; N=16) for the three flag
@@ -21,8 +22,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    atol 2e-3, bfloat16 I/O compared in float32 at rtol 3e-2 / atol 5e-2.
    Times by CUDA events, median of several runs; the bf16 stage-0
    ``dir_reverse`` and ``fused_gate`` calls also split by kernel name
-   under torch.profiler (``kernel_breakdown``: the single-pass kernel and
-   the zero fill of its flags).
+   under torch.profiler (``breakdown_in_child``: the single-pass kernel and
+   the zero fill of its flags), each profile the only session of a fresh
+   process; a profile that records no device kernel twice is written as
+   not measured.
 3. Full-width SegMamba forward on 1x4x128^3 (random weights, seed 0):
    float32 kernel path vs the same model on the plain scans (rtol 2e-3,
    atol 1e-2 * max|ref|); bfloat16 logits finite, their deviation from
@@ -187,6 +190,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain scans, output and every parameter gradient at the f32 tier (the
    gradients' absolute part scaled by max(1, max|plain|)); forward +
    backward ms.
+17. The scan probes, through the benchmark twins
+   ``segmamba_tpu_torch.benchmarks.bench_scan_lb`` (K10, ``variant_call``:
+   "noshift" and "nohs") and ``bench_scan_flat`` (K11, ``flat_call``), at
+   the JAX scripts' shape (L = 262,144, D = 96, N = 16; R = 1, and R = 3
+   for K11): each against its plain version (serial carry) in float32 at
+   6e-4 / 2e-3 and bfloat16 at 3e-2 / 5e-2, compared in float32, the
+   plain versions over channel slices that keep their predicted peak
+   under 3/4 of the free memory; K11 against K2's kernel on the same
+   inputs at the same tiers; exactly one launch per call. bf16 times by
+   CUDA events, median of 5, beside K2's on the same inputs, the bounds
+   (``probe_bound``) and the plain versions (one run); device time by
+   kernel name (torch.profiler, each in a fresh process:
+   ``breakdown_in_child``) for K10, K11 and K2 at R = 1, and the K2
+   - K10("nohs") gap. Then both twins' ``main()`` at their defaults, the
+   counters set to 0 before and read after: exactly 19 launches of each
+   K10 variant, 40 of K11 and 59 of K2.
+
+Bounds (``bound_of``): the largest of the bytes over the HBM rate, the
+float32 operations over 67 TFLOP/s, the transcendental results over the
+SFU rate (16 per clock per SM x the SMs x the max SM clock from
+nvidia-smi) and the bf16 tensor-core operations over 989 TFLOP/s; the
+JSON line names the unit in ``bound_unit`` and "bytes" or "operations"
+in ``bound_by``.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
@@ -196,6 +222,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import itertools
 import json
@@ -204,6 +231,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -211,6 +239,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from segmamba_tpu_torch.benchmarks import bench_scan_flat, bench_scan_lb
 from segmamba_tpu_torch.config import Config, ModelConfig
 from segmamba_tpu_torch.data import (
     MedicalDataset,
@@ -261,8 +290,12 @@ PLAIN_BWD_SHARE = 0.75        # of the card's free memory, per plain slice
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12        # float32 outside the tensor cores (data sheet)
 BF16_TC_FLOP_PER_S = 989e12   # bf16 on the tensor cores, dense (data sheet)
-# phase 2: the calls whose device time is also split by kernel name
-BREAKDOWN_TAGS = ("dir_reverse stage0 bfloat16", "fused_gate stage0 bfloat16")
+SFU_PER_CLOCK_PER_SM = 16     # transcendental results (ex2, lg2, rcp)
+_SFU_RATE = []                # results/s, read once by sfu_rate()
+# phase 2: the calls whose device time is also split by kernel name, each
+# with its name for ``breakdown_call``
+BREAKDOWN_TAGS = {"dir_reverse stage0 bfloat16": "dir_reverse",
+                  "fused_gate stage0 bfloat16": "fused_gate"}
 VARIANTS = {
     "dir_reverse": ("scan_dir", dict(reverse=True, gate=False)),
     "dir_gate_acc": ("scan_dir", dict(gate=True, acc=True)),
@@ -332,6 +365,17 @@ GROUP_COMPOSITIONS = {   # scan launches per MambaV3 call and state group
     "proj": ("proj", False, dict(scan_proj=3)),
 }
 GROUP_SHAPE = (1, 32768, 48, 32)               # batch, L, d_model, nslices
+PROBE_SOURCES = {"noshift": "segmamba_tpu_torch/csrc/scan_lb_fwd.cu",
+                 "nohs": "segmamba_tpu_torch/csrc/scan_lb_fwd.cu",
+                 "flat": "segmamba_tpu_torch/csrc/scan_flat_fwd.cu"}
+PROBE_REPLACES = {"noshift": "benchmarks/bench_scan_lb.py:26",
+                  "nohs": "benchmarks/bench_scan_lb.py:26",
+                  "flat": "benchmarks/bench_scan_flat.py:42"}
+PROBE_NAMES = {"noshift": "K10", "nohs": "K10", "flat": "K11"}
+PROBE_SHAPE = (262144, 96)         # phase 17: L, D of the scripts' mains
+PROBE_FLAT_ROWS = (1, 3)           # bench_scan_flat.py's batches
+PROBE_CASES = (("noshift", 1), ("nohs", 1)) + tuple(
+    ("flat", R) for R in PROBE_FLAT_ROWS)
 
 
 def log(msg):
@@ -394,7 +438,8 @@ def launch_counts():
             "scan_proj_bwd": scan_proj.BWD_LAUNCHES,
             "scan_mxu": scan_mxu.LAUNCHES,
             "scan_mxu_bwd": scan_mxu.BWD_LAUNCHES,
-            "conv3d": conv3d.LAUNCHES, "conv3d_dw": conv3d.DW_LAUNCHES}
+            "conv3d": conv3d.LAUNCHES, "conv3d_dw": conv3d.DW_LAUNCHES,
+            **probe_counts()}
 
 
 def expected_counts(**nonzero):
@@ -407,6 +452,9 @@ def reset_counts():
         mod.LAUNCHES = mod.BWD_LAUNCHES = 0
     scan_dir.SLICE_LAUNCHES = scan_dir.SLICE_BWD_LAUNCHES = 0
     conv3d.LAUNCHES = conv3d.DW_LAUNCHES = 0
+    bench_scan_lb.LAUNCHES = bench_scan_flat.LAUNCHES = 0
+    bench_scan_lb.VARIANT_LAUNCHES.update(
+        dict.fromkeys(bench_scan_lb.VARIANTS, 0))
 
 
 def check_close(name, got, want, rtol, atol):
@@ -441,36 +489,38 @@ def scan_inputs(R, L, D, dtype, seed):
     return dict(seq, A=A, D=rn(D), bias=bias)
 
 
+def variant_calls(vname, a):
+    """Phase 2's kernel and plain calls of variant ``vname`` on ``a``'s
+    operands; each takes ``return_states`` (default False)."""
+    wrapper, flags = VARIANTS[vname]
+    if wrapper == "scan_dir":
+        kw = dict(reverse=flags.get("reverse", False), gate=flags["gate"],
+                  acc=a["acc"] if flags.get("acc") else None)
+        z = a["z"] if flags["gate"] else None
+        args = (a["u"], a["dt"], z, a["A"], a["B"], a["C"], a["D"],
+                a["bias"])
+        kern = lambda s=False: scan_dir.mamba_scan_fused_dir(
+            *args, return_states=s, **kw)
+        plain = lambda s=False: scan_dir.mamba_scan_fused_dir_ref(
+            *args, return_states=s, **kw)
+    else:
+        args = (a["u"], a["dt"], a["z"], a["A"], a["B"], a["C"], a["D"],
+                a["bias"])
+        kern = lambda s=False: scan_fused.mamba_scan_fused(
+            *args, return_states=s)
+        plain = lambda s=False: scan_fused.mamba_scan_fused_ref(
+            *args, return_states=s)
+    return kern, plain
+
+
 def phase_kernels(results):
     """Kernel vs plain at the main path's shapes; fills ``results``."""
-    variants = {
-        "dir_reverse": ("scan_dir", dict(reverse=True, gate=False)),
-        "dir_gate_acc": ("scan_dir", dict(gate=True, acc=True)),
-        "fused_gate": ("scan_fused", {}),
-    }
     for shape_name, (R, L, D) in SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             a = scan_inputs(R, L, D, dtype, seed=L + D)
             rtol, atol = TOL[dtype]
-            for vname, (wrapper, flags) in variants.items():
-                if wrapper == "scan_dir":
-                    kw = dict(reverse=flags.get("reverse", False),
-                              gate=flags["gate"],
-                              acc=a["acc"] if flags.get("acc") else None)
-                    z = a["z"] if flags["gate"] else None
-                    args = (a["u"], a["dt"], z, a["A"], a["B"], a["C"],
-                            a["D"], a["bias"])
-                    kern = lambda s=False: scan_dir.mamba_scan_fused_dir(
-                        *args, return_states=s, **kw)
-                    plain = lambda s=False: scan_dir.mamba_scan_fused_dir_ref(
-                        *args, return_states=s, **kw)
-                else:
-                    args = (a["u"], a["dt"], a["z"], a["A"], a["B"], a["C"],
-                            a["D"], a["bias"])
-                    kern = lambda s=False: scan_fused.mamba_scan_fused(
-                        *args, return_states=s)
-                    plain = lambda s=False: scan_fused.mamba_scan_fused_ref(
-                        *args, return_states=s)
+            for vname, (wrapper, _) in VARIANTS.items():
+                kern, plain = variant_calls(vname, a)
                 out_k, st_k = kern(True)
                 out_p, st_p = plain(True)
                 torch.cuda.synchronize()
@@ -489,7 +539,8 @@ def phase_kernels(results):
                            dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
                            plain_ms=plain_ms)
                 if tag in BREAKDOWN_TAGS:
-                    row["breakdown"] = kernel_breakdown(tag, kern)
+                    row["breakdown"] = breakdown_in_child(
+                        BREAKDOWN_TAGS[tag], tag)
                 results.append(row)
                 del out_k, st_k, out_p, st_p
             del a
@@ -576,31 +627,66 @@ def phase_case():
     return launches
 
 
+def sfu_rate():
+    """Transcendental results per second: 16 per clock per SM (the SFU's
+    ex2 / lg2 / rcp rate on Hopper) x the SM count x the card's max SM
+    clock (``nvidia-smi --query-gpu=clocks.max.sm``); read once."""
+    if not _SFU_RATE:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _SFU_RATE.append(SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6)
+        log(f"SFU rate: {SFU_PER_CLOCK_PER_SM} x {sms} SMs x {mhz:.0f} MHz "
+            f"= {_SFU_RATE[0]:.4e} results/s")
+    return _SFU_RATE[0]
+
+
+def bound_of(nbytes, f32_ops, sfu, tc_ops=0.0):
+    """Least time (ms) of a call and the unit that bounds it: the largest
+    of its bytes over the HBM rate ("bytes"), its float32 operations over
+    the f32 rate ("fp32"), its transcendental results over the SFU rate
+    ("sfu") and its bf16 tensor-core operations over their rate
+    ("tensor"); the units run side by side. The JSON line names "bytes"
+    or "operations" (``bound_kind``)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "fp32": f32_ops / F32_FLOP_PER_S, "sfu": sfu / sfu_rate(),
+             "tensor": tc_ops / BF16_TC_FLOP_PER_S}
+    unit = max(terms, key=terms.get)
+    return terms[unit] * 1e3, unit
+
+
+def bound_kind(unit):
+    return "bytes" if unit == "bytes" else "operations"
+
+
 def scan_bound(direction, variant, R, L, D, dtype):
     """Least time (ms) of one scan call at these shapes, and what bounds
-    it: the larger of the bytes the function must move (each input read
-    once, each output written once) over the HBM rate and its float32
-    operations over the f32 rate (exp counted as one operation). Operations
-    per (step, channel, state): forward 8 (delta A, exp, a x, delta u B and
-    the add, C x and its add); backward 25 (those 8 to recompute x, then
-    g = C dy + g, a g, dp = g x a, dA += dp delta, ddelta += dp A,
-    S += g B, and the dB and dC products and sums). Per (step, channel) 16
-    more (softplus, D-skip, gate and its derivative, sigmoid)."""
+    it (``bound_of``): the bytes the function must move (each input read
+    once, each output written once), its float32 operations and its
+    transcendental results. Float32 operations per (step, channel, state):
+    forward 7 (delta A, a x, delta u B and the add, C x and its add);
+    backward 24 (those 7 to recompute x, then g = C dy + g, a g, dp = g x
+    a, dA += dp delta, ddelta += dp A, S += g B, and the dB and dC
+    products and sums); per (step, channel) 14 more (softplus, D-skip,
+    gate and its derivative, sigmoid, beside their exps). Transcendental
+    results: one exp per (step, channel, state) either way (the backward
+    needs exp(delta A) once per step), plus softplus's and, gated, the
+    gate's exp per (step, channel)."""
     es = 2 if dtype == torch.bfloat16 else 4
     seq, bc = R * L * D, R * L * N
     gate, acc = variant != "dir_reverse", variant == "dir_gate_acc"
     params = (D * N + 2 * D) * 4
     if direction == "fwd":
         nbytes = (2 + gate + acc + 1) * seq * es + 2 * bc * es + params
-        ops = seq * (8 * N + 16)
+        ops = seq * (7 * N + 14)
     else:
         states = R * -(-L // 128) * N * D * 4
         nbytes = ((3 + gate + acc) + (2 + gate + acc)) * seq * es \
             + 4 * bc * es + states + 2 * params
-        ops = seq * (25 * N + 16)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+        ops = seq * (24 * N + 14)
+    return bound_of(nbytes, ops, seq * (N + 1 + gate))
 
 
 def grad_check(tag, got, want, dtype):
@@ -823,7 +909,10 @@ KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
 
 def profiled(fn):
     """Run ``fn`` under torch.profiler; returns (device busy ms, device us
-    by kernel class, the device kernels' events)."""
+    by kernel class, the device kernels' events). The kernels' list is
+    empty when the profiler recorded none: on the H100 a session after
+    earlier ones in the same process sometimes reports no device kernel,
+    so callers write such a time as not measured, never as 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -854,6 +943,9 @@ def kernel_breakdown(tag, fn):
     for e in kernels:
         parts[name(e)] = parts.get(name(e), 0.0) + (
             e.self_device_time_total / 1e3)
+    if not parts:
+        log(f"breakdown {tag}: the profiler recorded no device kernel")
+        return parts
     log(f"breakdown {tag}: device {sum(parts.values()):.4f} ms: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in sorted(parts.items(),
                                               key=lambda kv: -kv[1])))
@@ -865,6 +957,10 @@ def profile_step(state, batch, sec):
     the top kernels, and the idle share against ``sec`` (the step's wall
     time measured without the profiler)."""
     busy, classes, kernels = profiled(lambda: train_step(state, batch))
+    if not kernels:
+        log("profiled step: the profiler recorded no device kernel; device "
+            "busy time and idle share not measured")
+        return dict(busy_ms=None, idle=None)
     log(f"profiled step: device busy {busy:.2f} ms of {sec * 1e3:.2f} ms "
         f"wall per step: idle share {1 - busy / (sec * 1e3):.4f}")
     for name, us in sorted(classes.items(), key=lambda kv: -kv[1]):
@@ -1064,25 +1160,24 @@ def core_inputs(R, L, D, seed):
 
 
 def core_bound(direction, R, L, D):
-    """Least time (ms) of one K6 call and what bounds it: each input read
-    once and each output written once over the HBM rate, against the
-    float32 operations over the f32 rate (exp as one operation). Forward:
-    reads u, delta (R L D), B, C (R L N), A; writes y and the chunk states;
-    8 operations per (step, channel, state) + 1 per (step, channel).
-    Backward: reads u, delta, dy, B, C, A, the states and dlast; writes du,
-    ddelta, dA, dB, dC; 25 + 2 operations, as ``scan_bound``."""
+    """Least time (ms) of one K6 call and what bounds it (``bound_of``):
+    each input read once and each output written once, float32 operations
+    and transcendental results. Forward: reads u, delta (R L D), B, C (R L
+    N), A; writes y and the chunk states; 7 operations per (step, channel,
+    state) + 1 per (step, channel). Backward: reads u, delta, dy, B, C, A,
+    the states and dlast; writes du, ddelta, dA, dB, dC; 24 + 2
+    operations, as ``scan_bound``. One exp per (step, channel, state)
+    either way (delta is final: no softplus, no gate)."""
     seq, bc = R * L * D, R * L * N
     states = R * -(-L // scan_core.DEF_CHUNK) * N * D * 4
     if direction == "fwd":
         nbytes = 3 * seq * 4 + 2 * bc * 4 + D * N * 4 + states
-        ops = seq * (8 * N + 1)
+        ops = seq * (7 * N + 1)
     else:
         nbytes = (5 * seq * 4 + 4 * bc * 4 + 2 * D * N * 4 + states
                   + R * N * D * 4)
-        ops = seq * (25 * N + 2)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+        ops = seq * (24 * N + 2)
+    return bound_of(nbytes, ops, seq * N)
 
 
 def phase_core(results):
@@ -1442,6 +1537,12 @@ def profile_decode(model, ids, steps=8):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
         busy, classes, kernels = profiled(run)
+    if not kernels:
+        log(f"decode profile ({steps} steps): {wall:.3f} ms/token wall; the "
+            "profiler recorded no device kernel, so device busy time, idle "
+            "share and launches per token are not measured")
+        return dict(decode_wall_ms=wall, decode_busy_ms=None,
+                    decode_launches=None)
     busy /= steps
     launches = sum(e.count for e in kernels) / steps
     log(f"decode profile ({steps} steps): {wall:.3f} ms/token wall, device "
@@ -1463,14 +1564,14 @@ def proj_bound(direction, flags, R, L, E, rank, dtype):
     ``scan_bound``: bytes of xc (and z, acc) read once and of the output
     written once (backward: dout and the states read, dxc, dz, dacc and the
     weight gradients written), against its operations at the peak rate of
-    their type. The scan's are float32: per (step, channel, state) 8
-    forward / 25 backward, plus 16 per (step, channel), and the delta
-    product 2 R E per step and row (three times backward: recomputed, and
-    its two adjoints). The x_proj product, 2 E (R + 2N) per step and row
-    (three times backward likewise), is bf16 x bf16 -> f32 when the I/O is
-    bf16, which the tensor cores run at BF16_TC_FLOP_PER_S, else float32.
-    The two units run side by side, so the operations' time is the larger
-    of theirs."""
+    their type (``bound_of``). The scan's are float32: per (step,
+    channel, state) 7 forward / 24 backward, plus 14 per (step, channel),
+    and the delta product 2 R E per step and row (three times backward:
+    recomputed, and its two adjoints); its transcendental results as
+    ``scan_bound``'s (softplus always, the gate with z). The x_proj
+    product, 2 E (R + 2N) per step and row (three times backward
+    likewise), is bf16 x bf16 -> f32 when the I/O is bf16, which the
+    tensor cores run at BF16_TC_FLOP_PER_S, else float32."""
     es = 2 if dtype == torch.bfloat16 else 4
     seq = R * L * E
     z, acc = flags["z"], flags["acc"]
@@ -1481,19 +1582,15 @@ def proj_bound(direction, flags, R, L, E, rank, dtype):
     f32_ops = times * R * L * 2 * rank * E
     if direction == "fwd":
         nbytes = (2 + z + acc) * seq * es + params
-        f32_ops += seq * (8 * N + 16)
+        f32_ops += seq * (7 * N + 14)
     else:
         states = R * -(-L // scan_proj.DEF_CHUNK) * N * E * 4
         n_seq = (2 + z + (z and acc)) + (1 + z + (z and acc))
         nbytes = n_seq * seq * es + states + 2 * params
-        f32_ops += seq * (25 * N + 16)
+        f32_ops += seq * (24 * N + 14)
     if dtype == torch.bfloat16:
-        t_ops = max(f32_ops / F32_FLOP_PER_S, xproj_ops / BF16_TC_FLOP_PER_S)
-    else:
-        t_ops = (f32_ops + xproj_ops) / F32_FLOP_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+        return bound_of(nbytes, f32_ops, seq * (N + 1 + z), xproj_ops)
+    return bound_of(nbytes, f32_ops + xproj_ops, seq * (N + 1 + z))
 
 
 def proj_inputs(R, L, E, rank, dtype, seed):
@@ -2443,6 +2540,224 @@ def phase_state_groups():
         torch.cuda.empty_cache()
 
 
+def probe_bound(kind, R, L, D, dtype):
+    """Least time (ms) of one K10 / K11 call and what bounds it
+    (``bound_of``): u, dt, z read and out written (R L D each), B, C read
+    (R L N), A, D, bias. Float32 operations per (step, channel, state):
+    "noshift" 31 (delta A, delta u B, 7 rounds of a b and its
+    multiply-add, 6 squarings a a, C x and its add), "nohs" 5 (delta A,
+    delta u B, a b, C x and its add), "flat" (K2's function) 7 as
+    ``scan_bound``'s; per (step, channel) 14 as there. Transcendental
+    results: one exp per (step, channel, state), softplus's and the gate's
+    per (step, channel)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    seq, bc = R * L * D, R * L * N
+    nbytes = 4 * seq * es + 2 * bc * es + (D * N + 2 * D) * 4
+    per_state = {"noshift": 31, "nohs": 5, "flat": 7}[kind]
+    return bound_of(nbytes, seq * (per_state * N + 14), seq * (N + 2))
+
+
+def probe_call(kind, a, plain=False):
+    """K10 ("noshift", "nohs") or K11 ("flat") on ``a``'s operands, or its
+    plain version."""
+    args = (a["u"], a["dt"], a["z"], a["A"], a["B"], a["C"], a["D"],
+            a["bias"])
+    if kind == "flat":
+        fn = bench_scan_flat.flat_call_ref if plain else \
+            bench_scan_flat.flat_call
+        return fn(*args)
+    fn = bench_scan_lb.variant_call_ref if plain else \
+        bench_scan_lb.variant_call
+    return fn(*args, kind)
+
+
+def probe_plain(kind, a, width):
+    """The plain version over channel slices of ``width`` in turn (the
+    channels are independent; B and C are shared)."""
+    dim = a["u"].shape[-1]
+    parts = []
+    for d0 in range(0, dim, width):
+        sl = slice(d0, d0 + width)
+        part = dict(a, **{k: a[k][..., sl] for k in ("u", "dt", "z")},
+                    **{k: a[k][sl] for k in ("A", "D", "bias")})
+        parts.append(probe_call(kind, part, plain=True))
+    return torch.cat(parts, -1)
+
+
+def probe_width(kind, R, L, D):
+    """Channels per slice of the plain version: its peak bytes per (row,
+    step, channel), measured on a float32 call of 4096 steps, times the
+    full call's, kept under PLAIN_BWD_SHARE of the free memory."""
+    a = scan_inputs(R, 4096, D, torch.float32, seed=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    probe_call(kind, a, plain=True)
+    torch.cuda.synchronize()
+    per = (torch.cuda.max_memory_allocated() - base) / (R * 4096 * D)
+    del a
+    torch.cuda.empty_cache()
+    budget = PLAIN_BWD_SHARE * torch.cuda.mem_get_info()[0]
+    return math.ceil(D / math.ceil(per * R * L * D / budget)), per
+
+
+def probe_counts():
+    return {"scan_lb": bench_scan_lb.LAUNCHES,
+            "scan_flat": bench_scan_flat.LAUNCHES}
+
+
+def breakdown_call(name):
+    """The call whose device time ``--breakdown NAME`` splits by kernel:
+    phase 2's stage-0 bf16 calls ("dir_reverse", "fused_gate") on phase 2's
+    inputs, or phase 17's R = 1 bf16 calls of K2 ("k2"), K10 ("noshift",
+    "nohs") and K11 ("flat") on phase 17's inputs."""
+    if name in VARIANTS:
+        R, L, D = SHAPES["stage0"]
+        a = scan_inputs(R, L, D, torch.bfloat16, seed=L + D)
+        return variant_calls(name, a)[0]
+    L, D = PROBE_SHAPE
+    a = scan_inputs(1, L, D, torch.bfloat16, seed=L + D + 17 + 1)
+    if name == "k2":
+        return lambda: scan_fused.mamba_scan_fused(
+            a["u"], a["dt"], a["z"], a["A"], a["B"], a["C"], a["D"],
+            a["bias"])
+    return functools.partial(probe_call, name, a)
+
+
+def breakdown_child_main(name):
+    """``--breakdown NAME``: one warm-up call, then the one profiler session
+    of this process around one call; prints {kernel name: device ms} (empty
+    when the profiler recorded no device kernel) as the last line."""
+    fn = breakdown_call(name)
+    fn()
+    torch.cuda.synchronize()
+    print(json.dumps(kernel_breakdown(name, fn)), flush=True)
+
+
+def breakdown_in_child(name, tag, tries=2):
+    """Device time of one call by kernel name, each profile taken in a fresh
+    process of its own (the libraries load from ``_build/`` without a
+    compile) as that process's only profiler session: on the H100 a later
+    session in one process has come back without the card's kernels (in
+    this script's own process at phase 2's second breakdown, and after
+    phase 7's step profile). A profile that comes back empty is taken
+    again in a new process; after ``tries`` empty ones the time is not
+    measured (None). A child that fails raises."""
+    for attempt in range(1, tries + 1):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--breakdown", name],
+            capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"breakdown {tag}: child failed "
+                               f"({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr[-3000:]}")
+        parts = json.loads(lines[-1])
+        if parts:
+            log(f"breakdown {tag}: device {sum(parts.values()):.4f} ms: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(
+                    parts.items(), key=lambda kv: -kv[1]))
+                + (f" (process {attempt})" if attempt > 1 else ""))
+            return parts
+        log(f"breakdown {tag}: process {attempt} recorded no device kernel")
+    log(f"breakdown {tag}: device time not measured")
+    return None
+
+
+def ms_or_none(fmt, x):
+    """``x`` formatted, or "not measured" when it is None."""
+    return "not measured" if x is None else format(x, fmt)
+
+
+def phase_probes(results):
+    """Phase 17: K10 and K11 vs their plain versions at the scripts' full
+    shape, K11 vs K2, one launch per call; times beside K2, the bounds and
+    the plain versions; then both twins' mains at their defaults, the
+    counters read around them. Fills ``results``; returns the mains'
+    launch counts."""
+    L, D = PROBE_SHAPE
+    for (kind, R), dtype in itertools.product(
+            PROBE_CASES, (torch.float32, torch.bfloat16)):
+        a = scan_inputs(R, L, D, dtype, seed=L + D + 17 + R)
+        tag = f"{PROBE_NAMES[kind]} {kind} R={R} {str(dtype)[6:]}"
+        counter = "scan_flat" if kind == "flat" else "scan_lb"
+        before = probe_counts()[counter]
+        out_k = probe_call(kind, a)
+        torch.cuda.synchronize()
+        if probe_counts()[counter] != before + 1:
+            raise AssertionError(f"{tag}: {probe_counts()[counter] - before}"
+                                 " launches for one call")
+        width, per = probe_width(kind, R, L, D)
+        err = check_close(tag, out_k, probe_plain(kind, a, width),
+                          *TOL[dtype])
+        row = dict(kind=kind, R=R, dtype=str(dtype)[6:], max_abs_err=err,
+                   width=width)
+        k2 = lambda: scan_fused.mamba_scan_fused(
+            a["u"], a["dt"], a["z"], a["A"], a["B"], a["C"], a["D"],
+            a["bias"])
+        if kind == "flat":   # K2's function: against K2's kernel too
+            row["err_vs_k2"] = check_close(f"{tag} vs K2", out_k, k2(),
+                                           *TOL[dtype])
+        del out_k
+        if dtype == torch.bfloat16:
+            kern = lambda: probe_call(kind, a)
+            row["ms"] = cuda_ms(kern, 5)
+            row["k2_ms"] = cuda_ms(k2, 5)
+            row["plain_ms"] = cuda_ms(lambda: probe_plain(kind, a, width), 1,
+                                      warmup=0)   # warmed by the check
+            row["bound_ms"], row["bound_by"] = probe_bound(kind, R, L, D,
+                                                           dtype)
+            log(f"kernel {tag}: max_abs_err {err:.3e}"
+                + (f" (vs K2 {row['err_vs_k2']:.3e})" if kind == "flat"
+                   else "")
+                + f", kernel {row['ms']:.4f} ms, K2 {row['k2_ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms (slices of {width} of {D}, "
+                f"{per:.1f} B per row, step and channel at 4096 steps), "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        else:
+            log(f"kernel {tag}: max_abs_err {err:.3e}"
+                + (f" (vs K2 {row['err_vs_k2']:.3e})" if kind == "flat"
+                   else ""))
+        results.append(row)
+        del a
+        torch.cuda.empty_cache()
+    device = {}
+    for name in ("k2", "noshift", "nohs", "flat"):
+        parts = breakdown_in_child(name, f"{name} stage 0 R=1 bf16")
+        device[name] = None if parts is None else sum(parts.values())
+    by = {(r["kind"], r["R"]): r for r in results if r["dtype"] == "bfloat16"}
+    for kind in ("noshift", "nohs", "flat"):
+        by[kind, 1]["device_ms"] = device[kind]
+        by[kind, 1]["k2_device_ms"] = device["k2"]
+    nohs, noshift = by[("nohs", 1)], by[("noshift", 1)]
+    gap = (None if None in (device["k2"], device["nohs"])
+           else device["k2"] - device["nohs"])
+    log(f"K2 - K10(nohs), R=1 bf16: {nohs['k2_ms'] - nohs['ms']:.4f} ms by "
+        f"events ({nohs['k2_ms']:.4f} - {nohs['ms']:.4f}), "
+        f"{ms_or_none('.4f', gap)} ms device "
+        f"({ms_or_none('.4f', device['k2'])} - "
+        f"{ms_or_none('.4f', device['nohs'])}); K10 "
+        f"noshift - nohs {noshift['ms'] - nohs['ms']:.4f} ms; K11 / K2 "
+        + ", ".join(f"R={R} {by['flat', R]['ms'] / by['flat', R]['k2_ms']:.3f}"
+                    for R in PROBE_FLAT_ROWS))
+
+    # the main path: the twins' mains at their defaults
+    reset_counts()
+    bench_scan_lb.main([])
+    bench_scan_flat.main([])
+    counts = launch_counts()
+    per_time = 1 + 3 * 6          # chain_time: a warm-up, 3 reps of k = 6
+    flat = len(PROBE_FLAT_ROWS) * (1 + per_time)
+    want = expected_counts(scan_fused=per_time + flat,
+                           scan_lb=2 * per_time, scan_flat=flat)
+    variants = dict(bench_scan_lb.VARIANT_LAUNCHES)
+    if counts != want or variants != dict.fromkeys(variants, per_time):
+        raise AssertionError(f"twins' mains: launches {counts}, K10 by "
+                             f"variant {variants}")
+    log(f"twins' mains: launches {counts}; K10 by variant {variants}")
+    return dict(counts=counts, variants=variants)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2453,21 +2768,23 @@ def main():
     log(f"card: {card}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
-        f"{kind}, count {torch.cuda.device_count()}")
+        f"{device_kind}, count {torch.cuda.device_count()}")
     # one nvcc per source, all started together (threads wait on them)
     loaders = (scan_dir._lib, scan_dir._bwd_lib, scan_proj._lib,
                scan_proj._bwd_lib, scan_mxu._lib, scan_mxu._bwd_lib,
-               conv3d._lib, conv3d._dw_lib)
+               conv3d._lib, conv3d._dw_lib, bench_scan_lb._lib,
+               bench_scan_flat._lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
     for name in ("gated_scan_fwd", "gated_scan_bwd", "proj_scan_fwd",
                  "proj_scan_bwd", "mxu_scan_fwd", "mxu_scan_bwd",
-                 "conv3d_k3s1_fwd", "conv3d_k3s1_dw"):
+                 "conv3d_k3s1_fwd", "conv3d_k3s1_dw", "scan_lb_fwd",
+                 "scan_flat_fwd"):
         info = _build.BUILD_INFO[name]
-        log(f"built {name} in {info['seconds']:.1f} s (all eight sources "
+        log(f"built {name} in {info['seconds']:.1f} s (all ten sources "
             "in parallel)")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line.lower():
@@ -2557,6 +2874,14 @@ def main():
     t0 = time.perf_counter()
     phase_state_groups()
     log(f"phase 16 (MambaV3 at d_state 4 and 32, every composition): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    probe_results = []
+    probe_main = phase_probes(probe_results)
+    log(f"phase 17 (K10 and K11 vs plain and K2; the twins' mains): "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s; ms per window "
         f"{model_stats['ms_per_window']:.2f}; s/step "
@@ -2700,12 +3025,40 @@ def main():
                                        "fwd_bwd_ms", "library_fwd_bwd_ms")}
                     for r in conv_results],
             launches_by_path={"bench_conv_fwd_bwd": conv_counts[counter]}))
+    for probe in ("noshift", "nohs", "flat"):
+        rows = [r for r in probe_results if r["kind"] == probe]
+        main_row = next(r for r in rows if r["R"] == 1
+                        and r["dtype"] == "bfloat16")
+        launches = (probe_main["variants"][probe] if probe != "flat"
+                    else probe_main["counts"]["scan_flat"])
+        extra = {k: main_row[k] for k in ("k2_ms", "device_ms",
+                                           "k2_device_ms") if k in main_row}
+        if probe == "flat":
+            r3 = next(r for r in rows if r["R"] == 3
+                      and r["dtype"] == "bfloat16")
+            extra["R3"] = {k: r3[k] for k in ("ms", "k2_ms", "plain_ms",
+                                              "bound_ms", "bound_by")}
+        kernels.append(dict(
+            name=f"{PROBE_SOURCES[probe].rsplit('/', 1)[1][:-3]}[{probe}]",
+            route="cuda", source=PROBE_SOURCES[probe],
+            replaces=PROBE_REPLACES[probe], launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=None, variant=probe, **extra,
+            launches_by_path={"twins_mains": launches}))
+    for k in kernels:   # the unit that binds, and its kind for the record
+        k["bound_unit"] = k["bound_by"]
+        k["bound_by"] = bound_kind(k["bound_by"])
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--breakdown"] and len(sys.argv) == 3:
+        breakdown_child_main(sys.argv[2])
+    else:
+        main()

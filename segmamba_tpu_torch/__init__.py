@@ -22,6 +22,10 @@ layout and is held against it by ``tests/test_torch_port_*.py``:
                  determinism, step timing.
 - ``inference`` — ``python -m segmamba_tpu_torch.inference``: model forward
                  or the bench case's sliding-window inference on one card.
+- ``benchmarks`` — twins of the JAX package's two benchmark scripts that
+                 hold TPU kernels: the scan probes K10 (``bench_scan_lb``)
+                 and K11 (``bench_scan_flat``), with their Hopper kernels
+                 (``csrc/scan_lb_fwd.cu``, ``csrc/scan_flat_fwd.cu``).
 
 Layouts: ``ops`` keep the JAX package's time-major ``(R, L, D)`` sequences
 and ``(R, L, N)`` B/C; ``models``, ``infer``, ``train`` and ``data`` use

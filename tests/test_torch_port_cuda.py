@@ -3,7 +3,8 @@
 ``scan_dir.mamba_scan_fused_slice``, K6 through ``scan_core``, K7 through
 ``scan_mxu``, K8 through ``scan_proj``; at d_state 4 and 32 through the
 wrappers' groups of 16 states; the 3x3x3 conv K9 and its weight gradient
-through ``conv3d``).
+through ``conv3d``; the scan probes K10 and K11 through the benchmark
+twins ``benchmarks.bench_scan_lb`` and ``benchmarks.bench_scan_flat``).
 
 Every test here needs an NVIDIA card and carries the ``cuda`` marker; the
 ``cuda`` fixture skips it where ``torch.cuda.is_available()`` is false (it
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from segmamba_tpu_torch.benchmarks import bench_scan_flat, bench_scan_lb
 from segmamba_tpu_torch.models import MambaLMHeadModel, SegMamba
 from segmamba_tpu_torch.models.mamba import MambaV3
 from segmamba_tpu_torch.ops import (
@@ -1050,3 +1052,63 @@ def test_conv3d_kernels_match_plain(cuda, dtype):
             fn(x, w)
         assert conv3d.LAUNCHES - before[0] == 3
     assert pipelined
+
+
+def _probe_args(seed, R, L, D, dtype, device):
+    """(u, dt, z, A, B, C, D, dt_bias) for the K10 / K11 entry points."""
+    u, dt, z, _, B, C, A, Dv, bias = _inputs(seed, R, L, D, dtype, False,
+                                             False, device)
+    return u, dt, z, A, B, C, Dv, bias
+
+
+@pytest.mark.parametrize("variant", bench_scan_lb.VARIANTS)
+@pytest.mark.parametrize("R,L,D", [(2, 1024, 96), (1, 384, 40),
+                                   (1, 16384, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_lb_kernel_matches_plain(cuda, variant, R, L, D, dtype):
+    """K10 with its carry recomputed per chunk against the plain version's
+    serial carry, one launch per call; ragged channel blocks at D = 40."""
+    a = _probe_args(R + L + D, R, L, D, dtype, cuda)
+    before = bench_scan_lb.LAUNCHES
+    got = bench_scan_lb.variant_call(*a, variant)
+    torch.cuda.synchronize()
+    assert bench_scan_lb.LAUNCHES == before + 1
+    _close(got, bench_scan_lb.variant_call_ref(*a, variant), TOL[dtype])
+
+
+@pytest.mark.parametrize("R,L,D", [(2, 1024, 96), (1, 768, 20),
+                                   (3, 512, 64), (1, 65536, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_flat_kernel_matches_plain_and_k2(cuda, R, L, D, dtype):
+    """K11 against its plain version and against K2's kernel on the same
+    inputs, one launch per call, the same bits from two launches (its
+    look-back folds in chunk order); 512 chunks of look-back at L =
+    65,536."""
+    a = _probe_args(R + L + D + 1, R, L, D, dtype, cuda)
+    before = bench_scan_flat.LAUNCHES
+    got = bench_scan_flat.flat_call(*a)
+    torch.cuda.synchronize()
+    assert bench_scan_flat.LAUNCHES == before + 1
+    _close(got, bench_scan_flat.flat_call_ref(*a), TOL[dtype])
+    _close(got, scan_fused.mamba_scan_fused(*a), TOL[dtype])
+    assert torch.equal(got, bench_scan_flat.flat_call(*a))
+
+
+def test_scan_probes_reject_unsupported_operands(cuda):
+    """L not a multiple of 128, another chunk, N != 16 and a meta tensor
+    raise; nothing launches."""
+    a = _probe_args(0, 1, 384, 32, torch.float32, cuda)
+    before = (bench_scan_lb.LAUNCHES, bench_scan_flat.LAUNCHES)
+    ragged = tuple(t[:, :300] if t.dim() == 3 else t for t in a)
+    n8 = a[:3] + (a[3][:, :8], a[4][..., :8], a[5][..., :8]) + a[6:]
+    for call in (lambda *x, **k: bench_scan_lb.variant_call(*x, "nohs", **k),
+                 bench_scan_flat.flat_call):
+        with pytest.raises(ValueError, match="multiple of T"):
+            call(*ragged)
+        with pytest.raises(ValueError, match="T = 128"):
+            call(*a, T=64)
+        with pytest.raises(ValueError, match="N = 16"):
+            call(*n8)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(*(t.to("meta") for t in a))
+    assert (bench_scan_lb.LAUNCHES, bench_scan_flat.LAUNCHES) == before
