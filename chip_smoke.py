@@ -181,8 +181,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward + backward ms, the plain versions' ms and cuDNN's
    (``F.conv3d`` on channels_last_3d views and
    ``torch.nn.grad.conv3d_weight``, ``cudnn.benchmark`` on), CUDA events,
-   median of 5, beside the bounds (``conv_bound``); the forward at 128^3
-   96->48 against the plain version at the bf16 tier.
+   median of 5, beside the bounds (``conv_bound``), each kernel's ratio to
+   cuDNN and share of its bound; the device time of one call of each
+   kernel and of cuDNN's two calls per shape (torch.profiler, one session
+   in a fresh process, the calls cut apart by marker kernels:
+   ``conv_device_in_child``); then the twin of ``benchmarks/bench_conv.py``
+   (``segmamba_tpu_torch.benchmarks.bench_conv``), its ``main`` at its
+   defaults with the counters read around it: 3 (1 + 3 k) forward-kernel
+   and 1 + 3 k dw launches per shape.
 16. ``MambaV3(d_state=4)`` and ``(d_state=32)`` at d_model 48 on 1 x
    32768 tokens (32 slices) under dir2, dir, dir + K5, fused and proj:
    forward and backward through the kernels (ceil(N / 16) launches per
@@ -239,7 +245,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from segmamba_tpu_torch.benchmarks import bench_scan_flat, bench_scan_lb
+from segmamba_tpu_torch.benchmarks import (
+    bench_conv,
+    bench_scan_flat,
+    bench_scan_lb,
+)
 from segmamba_tpu_torch.config import Config, ModelConfig
 from segmamba_tpu_torch.data import (
     MedicalDataset,
@@ -2439,7 +2449,119 @@ def phase_conv(results):
             results.append(conv_times(s, cin, cout))
     finally:
         torch.backends.cudnn.benchmark = bench
-    return counts, errs
+    device = conv_device_in_child()
+    for row in results:
+        dev = (device or {}).get(row["shape"], {})
+        for kind, pre in (("fwd", ""), ("dw", "dw_"), ("library_fwd", ""),
+                          ("library_dw", "dw_")):
+            key = (f"{pre}library_device_ms" if kind.startswith("library")
+                   else f"{pre}device_ms")
+            row[key] = dev.get(kind)
+        log(f"K9 {row['shape']} device time (torch.profiler): fwd "
+            f"{ms_or_none('.4f', row['device_ms'])} ms (cuDNN "
+            f"{ms_or_none('.4f', row['library_device_ms'])}), dw "
+            f"{ms_or_none('.4f', row['dw_device_ms'])} ms (cuDNN "
+            f"{ms_or_none('.4f', row['dw_library_device_ms'])})")
+
+    # the twin of benchmarks/bench_conv.py, its main as a user runs it
+    reset_counts()
+    bench_conv.main([])
+    twin = launch_counts()
+    apps = [1 + 3 * (5 if s <= 64 else 3) for s, _, _ in bench_conv.SHAPES]
+    if twin != expected_counts(conv3d=3 * sum(apps), conv3d_dw=sum(apps)):
+        raise AssertionError(f"bench_conv main: launches {twin}")
+    log(f"bench_conv main: launches {twin}")
+    return dict(counts, twin_conv3d=twin["conv3d"],
+                twin_conv3d_dw=twin["conv3d_dw"]), errs
+
+
+def conv_device_breakdown():
+    """``--breakdown conv``: the device ms of one call of each of
+    ``conv_calls`` at each ``CONV_SHAPES`` shape, all in the one profiler
+    session of this process (a later session in a long process has come
+    back empty). The calls run in turn after a warm-up (cuDNN's benchmark
+    search included), each followed by a marker kernel
+    (``torch.cuda._sleep``); the device kernels, in start order, are cut
+    at the markers and each segment summed. Returns {shape: {call: ms}},
+    or {} when the profiler recorded no device kernel or the segments do
+    not match the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cudnn.benchmark = True
+    calls = []
+    for s, cin, cout in CONV_SHAPES:
+        x, w, dy = conv_inputs((1, s, s, s, cin, cout), torch.bfloat16,
+                               seed=s + cin + 1)
+        calls += [(f"{s}^3 {cin}->{cout}", k, fn)
+                  for k, fn in conv_calls(x, w, dy).items()]
+    for _, _, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _, _, fn in calls:
+            fn()
+            torch.cuda._sleep(2000)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    segments, cur = [], 0.0
+    for e in kernels:
+        if "spin_kernel" in e.name:
+            segments.append(cur / 1e3)
+            cur = 0.0
+        else:
+            cur += e.time_range.elapsed_us()
+    if len(segments) != len(calls):
+        return {}
+    out = {}
+    for (shape, kind, _), ms in zip(calls, segments):
+        out.setdefault(shape, {})[kind] = ms
+    return out
+
+
+def conv_device_in_child(tries=2):
+    """``conv_device_breakdown`` in a fresh process (as
+    ``breakdown_in_child``), taken again when it comes back empty; None
+    (not measured) after ``tries`` empty ones."""
+    for attempt in range(1, tries + 1):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--breakdown",
+             "conv"], capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"breakdown conv: child failed "
+                               f"({proc.returncode}): {proc.stderr[-2000:]}")
+        out = json.loads(lines[-1])
+        if out:
+            return out
+        log(f"breakdown conv: process {attempt} recorded no device kernel "
+            "(or not one segment per call)")
+    log("breakdown conv: device time not measured")
+    return None
+
+
+def conv_library_views(x, w, dy):
+    """cuDNN's operands for a K9 call: x and dy as channels_last_3d views,
+    w as (Cout, Cin, 3, 3, 3) channels_last_3d bf16."""
+    ncdhw = lambda t: t.permute(0, 4, 1, 2, 3)
+    wc = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    return ncdhw(x), wc, ncdhw(dy)
+
+
+def conv_calls(x, w, dy):
+    """The four calls phase 15 times and profiles on one shape's inputs:
+    K9's forward and dw kernels and cuDNN's forward and weight gradient."""
+    xc, wc, dyc = conv_library_views(x, w, dy)
+    return {"fwd": lambda: conv3d._launch(x, w),
+            "dw": lambda: conv3d._launch_dw(x, dy),
+            "library_fwd": lambda: torch.nn.functional.conv3d(
+                xc, wc, padding=1),
+            "library_dw": lambda: torch.nn.grad.conv3d_weight(
+                xc, wc.shape, dyc, padding=1)}
 
 
 def conv_times(s, cin, cout):
@@ -2447,10 +2569,8 @@ def conv_times(s, cin, cout):
     and cuDNN, and the bounds."""
     x, w, dy = conv_inputs((1, s, s, s, cin, cout), torch.bfloat16,
                            seed=s + cin + 1)
-    ncdhw = lambda t: t.permute(0, 4, 1, 2, 3)   # channels_last_3d views
-    wc = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous(
-        memory_format=torch.channels_last_3d)
-    xc, dyc = ncdhw(x), ncdhw(dy)
+    xc, wc, dyc = conv_library_views(x, w, dy)
+    calls = conv_calls(x, w, dy)
     tag = f"K9 {s}^3 {cin}->{cout}"
 
     def fwd_bwd():
@@ -2466,26 +2586,28 @@ def conv_times(s, cin, cout):
     reps = 5
     row = dict(
         shape=f"{s}^3 {cin}->{cout}",
-        ms=cuda_ms(lambda: conv3d._launch(x, w), reps),
-        dw_ms=cuda_ms(lambda: conv3d._launch_dw(x, dy), reps),
+        ms=cuda_ms(calls["fwd"], reps),
+        dw_ms=cuda_ms(calls["dw"], reps),
         fwd_bwd_ms=cuda_ms(fwd_bwd, reps),
-        library_ms=cuda_ms(lambda: torch.nn.functional.conv3d(
-            xc, wc, padding=1), reps),
-        dw_library_ms=cuda_ms(lambda: torch.nn.grad.conv3d_weight(
-            xc, wc.shape, dyc, padding=1), reps),
+        library_ms=cuda_ms(calls["library_fwd"], reps),
+        dw_library_ms=cuda_ms(calls["library_dw"], reps),
         library_fwd_bwd_ms=cuda_ms(lib_fwd_bwd, reps),
         plain_ms=cuda_ms(lambda: conv3d.conv3d_k3s1_ref(x, w), reps),
         dw_plain_ms=cuda_ms(lambda: conv3d.conv3d_k3s1_dw_ref(x, dy), reps))
     row["bound_ms"], row["bound_by"] = conv_bound("fwd", s, cin, cout)
     row["dw_bound_ms"], row["dw_bound_by"] = conv_bound("dw", s, cin, cout)
     log(f"kernel {tag} (bf16): fwd {row['ms']:.4f} ms (cuDNN "
-        f"{row['library_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
-        f"{row['bound_ms']:.4f} {row['bound_by']}); dw {row['dw_ms']:.4f} "
-        f"ms (cuDNN {row['dw_library_ms']:.4f}, plain "
-        f"{row['dw_plain_ms']:.4f}, bound {row['dw_bound_ms']:.4f} "
-        f"{row['dw_bound_by']}); fwd + bwd {row['fwd_bwd_ms']:.4f} ms "
-        f"(cuDNN {row['library_fwd_bwd_ms']:.4f})")
-    del x, w, dy, xc, dyc, wc
+        f"{row['library_ms']:.4f}, ratio {row['ms'] / row['library_ms']:.3f}"
+        f"; plain {row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} "
+        f"{row['bound_by']}, share {row['bound_ms'] / row['ms']:.3f}); dw "
+        f"{row['dw_ms']:.4f} ms (cuDNN {row['dw_library_ms']:.4f}, ratio "
+        f"{row['dw_ms'] / row['dw_library_ms']:.3f}; plain "
+        f"{row['dw_plain_ms']:.4f}; bound {row['dw_bound_ms']:.4f} "
+        f"{row['dw_bound_by']}, share {row['dw_bound_ms'] / row['dw_ms']:.3f}"
+        f"); fwd + bwd {row['fwd_bwd_ms']:.4f} ms (cuDNN "
+        f"{row['library_fwd_bwd_ms']:.4f}, ratio "
+        f"{row['fwd_bwd_ms'] / row['library_fwd_bwd_ms']:.3f})")
+    del x, w, dy, xc, dyc, wc, calls
     torch.cuda.empty_cache()
     return row
 
@@ -2628,6 +2750,9 @@ def breakdown_child_main(name):
     """``--breakdown NAME``: one warm-up call, then the one profiler session
     of this process around one call; prints {kernel name: device ms} (empty
     when the profiler recorded no device kernel) as the last line."""
+    if name == "conv":
+        print(json.dumps(conv_device_breakdown()), flush=True)
+        return
     fn = breakdown_call(name)
     fn()
     torch.cuda.synchronize()
@@ -3020,11 +3145,16 @@ def main():
             bound_by=main_row[f"{pre}bound_by"],
             library_ms=main_row[f"{pre}library_ms"], variant="bf16",
             shape=main_row["shape"],
-            shapes=[{k: r[k] for k in ("shape", f"{pre}ms", f"{pre}plain_ms",
-                                       f"{pre}library_ms", f"{pre}bound_ms",
-                                       "fwd_bwd_ms", "library_fwd_bwd_ms")}
-                    for r in conv_results],
-            launches_by_path={"bench_conv_fwd_bwd": conv_counts[counter]}))
+            device_ms=main_row[f"{pre}device_ms"],
+            library_device_ms=main_row[f"{pre}library_device_ms"],
+            shapes=[{k: r[k] for k in (
+                "shape", f"{pre}ms", f"{pre}device_ms", f"{pre}plain_ms",
+                f"{pre}library_ms", f"{pre}library_device_ms",
+                f"{pre}bound_ms", f"{pre}bound_by", "fwd_bwd_ms",
+                "library_fwd_bwd_ms")} for r in conv_results],
+            launches_by_path={"bench_conv_fwd_bwd": conv_counts[counter],
+                              "bench_conv_main":
+                                  conv_counts[f"twin_{counter}"]}))
     for probe in ("noshift", "nohs", "flat"):
         rows = [r for r in probe_results if r["kind"] == probe]
         main_row = next(r for r in rows if r["R"] == 1

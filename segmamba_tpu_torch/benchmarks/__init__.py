@@ -6,7 +6,11 @@
 - ``bench_scan_flat``: the fused forward scan with its states spread over
   threads (K11, ``benchmarks/bench_scan_flat.py``), its Hopper kernel
   ``csrc/scan_flat_fwd.cu``.
-- ``microbench``: ``chain_time``, the timing helper both use.
+- ``bench_conv``: the 3x3x3 conv K9 (``benchmarks/bench_conv.py``) beside
+  the library conv at the decoder's shapes, its Hopper kernels
+  ``csrc/conv3d_k3s1_fwd.cu`` and ``csrc/conv3d_k3s1_dw.cu`` through
+  ``ops.conv3d``.
+- ``microbench``: ``chain_time``, the timing helper all three use.
 
 Each runs as ``python -m segmamba_tpu_torch.benchmarks.<name>`` (on the card
 by default, ``--device cpu`` for the plain versions at small shapes).

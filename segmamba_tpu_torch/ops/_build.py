@@ -3,7 +3,8 @@
 A source ``csrc/<name>.cu`` with a plain C interface is compiled for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library and loaded
 with ``ctypes``. The library's file name carries a hash of the source and
-the flags, so an edited source builds anew and an unchanged one is reused.
+the flags (and of the shared headers ``csrc/*.cuh``), so an edited source
+builds anew and an unchanged one is reused.
 Nothing is built on import: ``load_library`` runs at a kernel's first launch
 (or when ``chip_smoke.py`` asks for it).
 
@@ -46,6 +47,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):   # shared headers
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 

@@ -116,3 +116,52 @@ def test_cpu_tensors_take_the_plain_versions():
     assert (conv3d.LAUNCHES, conv3d.DW_LAUNCHES) == before
     with pytest.raises(ValueError, match="CUDA"):
         conv3d._launch(tx.detach(), tw.detach())
+
+
+@pytest.mark.parametrize("cin,cout,flip", [(20, 6, False), (4, 48, False),
+                                           (24, 200, True), (8, 3, True)])
+def test_pack_weights_ref_layout(cin, cout, flip):
+    """The plain version of the bf16 kernel's packed weights holds w[kd,
+    kh, kw, ci, co] (cast to bf16) at [n tile][kd][16-channel chunk][tap
+    kh kw][8-channel group][n][8], zeros beyond (cin, cout); with ``flip``
+    it packs ``_flip_w`` of a forward's (3, 3, 3, cout, cin) weights."""
+    rng = np.random.default_rng(cin + cout)
+    shape = (3, 3, 3, cout, cin) if flip else (3, 3, 3, cin, cout)
+    w = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    n, ntn = conv3d._pick_n(cout)
+    nch = -(-cin // 16)
+    wp = conv3d.pack_weights_ref(w, cin, cout, n, flip)
+    assert wp.dtype == torch.bfloat16
+    assert wp.numel() == ntn * 3 * nch * 9 * 2 * n * 8
+    got = wp.reshape(ntn, 3, nch, 3, 3, 2, n, 8).float().numpy()
+    wf = (conv3d._flip_w(w) if flip else w).to(torch.bfloat16).float()
+    want = np.zeros_like(got)
+    for ci in range(cin):
+        for co in range(cout):
+            want[co // n, :, ci // 16, :, :, ci % 16 // 8, co % n, ci % 8] = \
+                wf[:, :, :, ci, co].numpy()
+    np.testing.assert_array_equal(got, want)
+    if flip:   # dx weights: tap (kd, kh, kw) of channel pair (ci, co)
+        assert got[0, 0, 0, 0, 1, 0, 2, 1] == wf[0, 0, 1, 1, 2] == \
+            w[2, 2, 1, 2, 1].to(torch.bfloat16).float()
+
+
+def test_channel_tiles_and_dw_plan():
+    """The bf16 forward's output-channel tile takes the whole Cout up to
+    192 (then the least padding over tiles of 64 or more); dw's
+    input-channel tile divides Cin (or holds it) at
+    ``benchmarks/bench_conv.py``'s shapes, and the plan puts about one wave
+    of blocks on a 132-SM card there, with at least as many units as
+    parts."""
+    assert [conv3d._pick_n(c) for c in (4, 6, 8, 24, 48, 96, 192, 200,
+                                         384)] == [
+        (16, 1), (16, 1), (16, 1), (32, 1), (48, 1), (96, 1), (192, 1),
+        (128, 2), (192, 2)]
+    for s, cin, cout in [(128, 48, 48), (128, 96, 48), (128, 4, 48),
+                         (64, 96, 96), (64, 192, 96), (32, 192, 192)]:
+        nci, nparts, dsplit, units = conv3d._dw_plan((1, s, s, s, cin),
+                                                     cout, 132)
+        blocks = nparts * -(-cin // nci) * -(-cout // 64)
+        assert (cin % nci == 0 or cin < nci) and 1 <= dsplit <= s
+        assert nci in (8, 16, 24) and units >= nparts
+        assert 100 <= blocks <= 132

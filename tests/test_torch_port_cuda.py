@@ -1009,32 +1009,61 @@ def test_mamba_v3_d_state_kernels_match_plain(cuda, d_state, comp):
 CONV_SHAPES = [(2, 5, 7, 9, 4, 6), (1, 6, 10, 12, 48, 48),
                (1, 4, 9, 17, 96, 48), (1, 3, 5, 6, 192, 96),
                (1, 3, 16, 16, 48, 4),
-               (2, 8, 15, 30, 192, 192)]         # B, D, H, W, Cin, Cout
+               (2, 8, 15, 30, 192, 192),
+               (1, 3, 19, 37, 48, 48),     # H, W that no bf16 tile divides
+               (2, 1, 11, 13, 16, 32),     # D = 1 (one depth tap), B = 2
+               (1, 3, 10, 12, 8, 16),      # Cin 8: TMA, half-empty K chunk
+               (1, 2, 9, 10, 24, 48),      # Cin 24: ragged last K chunk
+               (1, 3, 9, 20, 4, 48),       # Cin 4: cp.async halo, one chunk
+               (1, 2, 6, 9, 24, 200)]      # Cout 200: two N tiles of 128
+# B, D, H, W, Cin, Cout
+
+
+def _conv_inputs(shape, dtype, device):
+    B, D, H, W, cin, cout = shape
+    rng = np.random.default_rng(sum(shape))
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.standard_normal(s)).astype(np.float32)).to(device)
+    return (f(B, D, H, W, cin).to(dtype),
+            f(3, 3, 3, cin, cout, sc=(27 * cin) ** -0.5),
+            f(B, D, H, W, cout).to(dtype))
+
+
+def _ring_laps(x, cout):
+    """Whether a block of the forward or of dw runs through its ring of
+    stages (at most 8) more than once: bf16, a forward tile's depth taps x
+    16-channel chunks, or a dw part's units x (planes + 2), above 8;
+    float32 dw, more position tiles than partials."""
+    B, D, H, W, cin = x.shape
+    if x.dtype != torch.bfloat16:
+        nparts, tiles = conv3d._dw_parts(x, cout)
+        return nparts < tiles
+    tile_stages = min(3, D) * -(-cin // 16)
+    _, nparts, dsplit, units = conv3d._dw_plan(
+        x.shape, cout, conv3d._sm_count(x.device))
+    dw_stages = -(-units // nparts) * (-(-D // dsplit) + 2)
+    return tile_stages > 8 or dw_stages > 8
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv3d_kernels_match_plain(cuda, dtype):
     """K9 forward, dx and dw against the plain versions (float32 sums of 27
-    shifted products) at ragged shapes: Cin = 4 (K = 108), H and W that no
-    tile divides, B = 2, Cout = 4 / 6 (masked output tiles); through
-    ``conv3d_k3s1`` and ``conv3d_k3s1_v2`` with their autograd Function:
-    two forward-kernel launches (y, dx) and one dw launch per call. y and
-    dx at the dtype's tier; dw (float32 sums of products exact in float32)
-    at the f32 tier with the absolute part scaled by max(1, max|plain|).
-    The last shape has more position tiles than dw partials, so each dw
-    block runs its two-stage copy pipeline over several tiles."""
-    pipelined = False
+    shifted products) at ragged shapes: Cin = 4 (K = 108; the bf16 halo by
+    cp.async), Cin 8 and 24 (the tensor-map halo with a half-empty or
+    ragged last 16-channel chunk), H and W that no tile divides, D = 1, B
+    = 2, Cout = 4 / 6 (masked output tiles) and 200 (two output-channel
+    tiles); through ``conv3d_k3s1`` and ``conv3d_k3s1_v2`` with their
+    autograd Function: two forward-kernel launches (y, dx) and one dw
+    launch per call. y and dx at the dtype's tier; dw (float32 sums of
+    products exact in float32) at the f32 tier with the absolute part
+    scaled by max(1, max|plain|). Some shape makes a block run through its
+    ring of stages more than once (forward or dw)."""
+    laps = False
     for shape, fn in itertools.product(
             CONV_SHAPES, (conv3d.conv3d_k3s1, conv3d.conv3d_k3s1_v2)):
         B, D, H, W, cin, cout = shape
-        rng = np.random.default_rng(sum(shape))
-        f = lambda *s, sc=1.0: torch.from_numpy(
-            (sc * rng.standard_normal(s)).astype(np.float32)).to(cuda)
-        x = f(B, D, H, W, cin).to(dtype)
-        w = f(3, 3, 3, cin, cout, sc=(27 * cin) ** -0.5)
-        dy = f(B, D, H, W, cout).to(dtype)
-        nparts, tiles = conv3d._dw_parts(x, cout)
-        pipelined |= nparts < tiles
+        x, w, dy = _conv_inputs(shape, dtype, cuda)
+        laps |= _ring_laps(x, cout)
         lx, lw = x.detach().requires_grad_(), w.detach().requires_grad_()
         before = conv3d.LAUNCHES, conv3d.DW_LAUNCHES
         y = fn(lx, lw)
@@ -1051,7 +1080,64 @@ def test_conv3d_kernels_match_plain(cuda, dtype):
         with torch.no_grad():
             fn(x, w)
         assert conv3d.LAUNCHES - before[0] == 3
-    assert pipelined
+    assert laps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_kernels_give_the_same_bits_twice(cuda, dtype):
+    """Two launches of the forward, of dx and of dw on the same inputs give
+    the same bits: the dw partials are added in part order, no atomics."""
+    for shape in [(1, 6, 10, 12, 48, 48), (2, 8, 15, 30, 192, 192),
+                  (1, 3, 9, 20, 4, 48)]:
+        x, w, dy = _conv_inputs(shape, dtype, cuda)
+        for run in (lambda: conv3d._launch(x, w),
+                    lambda: conv3d._launch(dy, w, flip=True),
+                    lambda: conv3d._launch_dw(x, dy)):
+            assert torch.equal(run(), run())
+
+
+def test_conv3d_unaligned_and_strided_views(cuda):
+    """x and dy as views whose data does not start on 16 bytes, and as
+    permuted (non-contiguous) views: the wrappers copy them; the results
+    equal those of the contiguous tensors."""
+    shape = (1, 3, 9, 11, 48, 24)
+    x, w, dy = _conv_inputs(shape, torch.bfloat16, cuda)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    ux = flat[1:].view(x.shape)
+    ux.copy_(x)
+    assert ux.data_ptr() % 16 != 0
+    px = x.permute(0, 2, 1, 3, 4).contiguous().permute(0, 2, 1, 3, 4)
+    assert not px.is_contiguous()
+    want_y, want_dw = conv3d._launch(x, w), conv3d._launch_dw(x, dy)
+    for v in (ux, px):
+        assert torch.equal(conv3d._launch(v, w), want_y)
+        assert torch.equal(conv3d._launch_dw(v, dy), want_dw)
+
+
+@pytest.mark.parametrize("cin,cout,flip", [(48, 48, False), (4, 6, False),
+                                           (24, 200, True), (192, 96, True)])
+def test_conv3d_pack_kernel_matches_plain_layout(cuda, cin, cout, flip):
+    """``conv3d_k3s1_pack`` (the bf16 weights in the stage layout, cast and,
+    for dx, flipped and transposed in one launch) equals
+    ``pack_weights_ref``, from float32 and from bf16 weights."""
+    rng = np.random.default_rng(cin + cout)
+    shape = (3, 3, 3, cout, cin) if flip else (3, 3, 3, cin, cout)
+    w32 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda)
+    n, ntn = conv3d._pick_n(cout)
+    nch = -(-cin // 16)
+    lib = conv3d._lib()
+    for w in (w32, w32.to(torch.bfloat16)):
+        wp = torch.empty(ntn * 3 * nch * 9 * 2 * n * 8, dtype=torch.bfloat16,
+                         device=cuda)
+        err = lib.conv3d_k3s1_pack(
+            w.data_ptr(), int(w.dtype == torch.bfloat16), wp.data_ptr(), cin,
+            cout, nch, n, ntn, int(flip),
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(wp, conv3d.pack_weights_ref(w, cin, cout, n,
+                                                       flip))
 
 
 def _probe_args(seed, R, L, D, dtype, device):
