@@ -47,7 +47,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    few as keep each slice's predicted peak (bytes per element measured at
    stage 3) under 3/4 of the card's free memory: one at stage 3, two at
    stage 0. A CUDA forward with inputs that require grad must have a
-   grad_fn, and its backward must count.
+   grad_fn, and its backward must count. The backward kernel alone is
+   also timed (bf16) at stages 1 (R=2, L=32768, D=192) and 2 (R=2,
+   L=4096, D=384), and the sum per train step logged (2 layers a stage,
+   each one call of every variant); the bf16 stage-0 calls are split by
+   kernel name as phase 2's are (``--breakdown bwd_<variant>``).
 6. Full-width SegMamba, float32, 1x4x64^3: the parameter gradients of the
    kernel path against the plain-scan path. All of them together within
    1e-3 relative L2 (two plain compositions of the same math, dir2 and
@@ -83,8 +87,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (grad_fn present, one backward launch) with a nonzero gradient of the
    last state, all five gradients, the reduced ones (dA, dB, dC: sums over
    steps or channels) with the absolute tolerance scaled by
-   max(1, max|plain|). Times by CUDA events, and the bound. Then K6 at
-   N = 4 and N = 64 (ceil(N / 16) launches of 16 states each way) vs its
+   max(1, max|plain|). Times by CUDA events, and the bound; the prefill
+   backward also split by kernel name (``--breakdown bwd_core``). Then K6
+   at N = 4 and N = 64 (ceil(N / 16) launches of 16 states each way) vs its
    plain version at R=1, L=2048, D=1024, forward and backward.
 10. The Mamba LM serving path at the width of ``state-spaces/mamba-2.8b``
    (its published config.json: d_model 2560, 64 layers, vocab 50277 padded
@@ -130,7 +135,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    + acc, forward + acc + gate), K8 backward at R=1 (its plain backward
    cannot be split by channel: its peak is measured at L=16384 and the
    full length must fit the card first). float32 and bfloat16 at the
-   phase-2/5 tiers; times, plain times and bounds.
+   phase-2/5 tiers; times, plain times and bounds; K5's stage-0 R=2 bf16
+   backward also split by kernel name (``--breakdown bwd_slice``).
 12. The compositions at full width, built by
    ``Config(model=ModelConfig(scan_impl=...)).build_model()`` with the
    same seed-0 weights: "dir2", "dir", "dir" with ``slice_kernel=True``
@@ -294,6 +300,11 @@ BWD_REPLACES = {
 }
 SHAPES = {"stage0": (1, 262144, 96), "stage3": (1, 512, 768)}
 TRAIN_SHAPES = {"stage3": (2, 512, 768), "stage0": (2, 262144, 96)}
+# phase 5: the backward kernel alone (bf16) at the other two stages too
+TIME_SHAPES = {"stage1": (2, 32768, 192), "stage2": (2, 4096, 384)}
+STAGES = ("stage0", "stage1", "stage2", "stage3")
+LAYERS_PER_STAGE = 2          # SegMamba depths 2/2/2/2: per layer one call
+                              # of each variant (dir2: 2 K3 + 1 K4)
 GRADS = ("du", "ddt", "dz", "dacc", "dA", "dB", "dC", "dD", "dbias")
 REDUCED = ("dA", "dB", "dC", "dD", "dbias")
 PLAIN_BWD_SHARE = 0.75        # of the card's free memory, per plain slice
@@ -746,10 +757,35 @@ def plain_bwd_sliced(seq, params, dout, *, gate, reverse, width,
     return tuple(out)
 
 
+def bwd_inputs(R, L, D, dtype):
+    """Phase 5's operands at (R, L, D) and its output gradient."""
+    a = scan_inputs(R, L, D, dtype, seed=L + D + 1)
+    g = torch.Generator(device="cuda").manual_seed(L)
+    return a, torch.randn(R, L, D, generator=g, device="cuda").to(dtype)
+
+
+def bwd_kernel_call(vname, a, dout):
+    """The backward kernel of variant ``vname`` alone on ``a``'s operands:
+    one forward launch for the chunk exit states, then a closure that
+    launches ``scan_dir._launch_bwd`` (not counted)."""
+    flags = VARIANTS[vname][1]
+    gate, reverse = flags.get("gate", True), flags.get("reverse", False)
+    z = a["z"] if gate else None
+    acc = a["acc"] if flags.get("acc") else None
+    args = (a["u"], a["dt"], z, acc, a["A"], a["B"], a["C"], a["D"],
+            a["bias"])
+    kw = dict(reverse=reverse, gate=gate, chunk_size=scan_dir.DEF_CHUNK)
+    _, states = scan_dir._launch(*args, return_states=True, **kw)
+    return lambda: scan_dir._launch_bwd(*args, dout, states, **kw)
+
+
 def phase_backward(results):
-    """Backward kernels vs the plain backward at the train step's shapes;
-    fills ``results``."""
+    """Backward kernels vs the plain backward at the train step's shapes,
+    then the kernel alone (bf16) at stages 1 and 2 and the sum per train
+    step; fills ``results``. Returns (the plain backward's bytes per
+    element at stage 3, {variant: {stage: bf16 kernel ms}})."""
     bytes_per_elem = None
+    stage_ms = {v: {} for v in VARIANTS}
     for shape_name, (R, L, D) in TRAIN_SHAPES.items():
         width = D
         if bytes_per_elem is not None:
@@ -758,9 +794,7 @@ def phase_backward(results):
             slices = math.ceil(bytes_per_elem * R * L * D * N / budget)
             width = math.ceil(D / slices)
         for dtype in (torch.float32, torch.bfloat16):
-            a = scan_inputs(R, L, D, dtype, seed=L + D + 1)
-            g = torch.Generator(device="cuda").manual_seed(L)
-            dout = torch.randn(R, L, D, generator=g, device="cuda").to(dtype)
+            a, dout = bwd_inputs(R, L, D, dtype)
             for vname, (wrapper, flags) in VARIANTS.items():
                 gate = flags.get("gate", True)
                 reverse = flags.get("reverse", False)
@@ -819,19 +853,7 @@ def phase_backward(results):
                 del got, want
 
                 # the kernel alone at the full length
-                _, states = scan_dir._launch(
-                    seq["u"], seq["dt"], seq["z"], seq["acc"], *params[:1],
-                    seq["B"], seq["C"], *params[1:], reverse=reverse,
-                    gate=gate, chunk_size=scan_dir.DEF_CHUNK,
-                    return_states=True)
-
-                def kern():
-                    return scan_dir._launch_bwd(
-                        seq["u"], seq["dt"], seq["z"], seq["acc"], params[0],
-                        seq["B"], seq["C"], params[1], params[2], dout,
-                        states, reverse=reverse, gate=gate,
-                        chunk_size=scan_dir.DEF_CHUNK)
-
+                kern = bwd_kernel_call(vname, a, dout)
                 ms = cuda_ms(kern, 5 if L * D > 1e6 else 10)
                 plain_ms = cuda_ms(plain, 2)
                 bound, bound_by = scan_bound("bwd", vname, R, L, D, dtype)
@@ -839,19 +861,46 @@ def phase_backward(results):
                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms (channel slices "
                     f"of {width} of {D} in turn, peak {peak / 2 ** 30:.2f} "
                     f"GiB), bound {bound:.4f} ms ({bound_by})")
-                results.append(dict(wrapper=wrapper, variant=vname,
-                                    shape=shape_name, dtype=str(dtype)[6:],
-                                    max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms, bound_ms=bound,
-                                    bound_by=bound_by))
-                del states
+                row = dict(wrapper=wrapper, variant=vname, shape=shape_name,
+                           dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=bound_by)
+                if dtype == torch.bfloat16:
+                    stage_ms[vname][shape_name] = ms
+                del kern
                 torch.cuda.empty_cache()
+                if dtype == torch.bfloat16 and shape_name == "stage0":
+                    parts = breakdown_in_child(f"bwd_{vname}", tag)
+                    row["breakdown"] = parts
+                    row["device_ms"] = (None if parts is None
+                                        else sum(parts.values()))
+                results.append(row)
             del a, dout
             torch.cuda.empty_cache()
         if shape_name == "stage3":
             log(f"plain backward: {bytes_per_elem:.1f} bytes of peak memory "
                 "per (row, step, channel, state) at stage 3")
-    return bytes_per_elem
+    for shape_name, (R, L, D) in TIME_SHAPES.items():
+        a, dout = bwd_inputs(R, L, D, torch.bfloat16)
+        for vname in VARIANTS:
+            kern = bwd_kernel_call(vname, a, dout)
+            stage_ms[vname][shape_name] = ms = cuda_ms(kern, 10)
+            bound, bound_by = scan_bound("bwd", vname, R, L, D,
+                                         torch.bfloat16)
+            log(f"kernel bwd {vname} {shape_name} bfloat16 {(R, L, D)}: "
+                f"kernel {ms:.4f} ms (alone), bound {bound:.4f} ms "
+                f"({bound_by})")
+            del kern
+        del a, dout
+        torch.cuda.empty_cache()
+    per_stage = {st: LAYERS_PER_STAGE * sum(stage_ms[v][st] for v in VARIANTS)
+                 for st in STAGES}
+    log("backward scans per train step (bf16, events of lone calls; "
+        f"{LAYERS_PER_STAGE} layers x (" + " + ".join(VARIANTS) + ") per "
+        "stage): " + ", ".join(f"{st} {ms:.4f} ms" for st, ms in
+                               per_stage.items())
+        + f"; sum {sum(per_stage.values()):.4f} ms")
+    return bytes_per_elem, stage_ms
 
 
 def param_grads(model, x, labels):
@@ -902,8 +951,12 @@ KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
     ("scan K7 forward (mxu_scan_fwd)",
      ("mxu_chunk_exit_kernel", "mxu_chunk_carry_kernel",
       "mxu_chunk_output_kernel")),
-    ("scan backward (gated_scan_bwd)",
-     ("bwd_chunk_kernel", "bwd_carry_kernel", "bwd_grad_kernel")),
+    ("scan K8 backward (proj_scan_bwd)",
+     ("proj_bwd_chunk_kernel", "proj_bwd_carry_kernel",
+      "proj_bwd_grad_kernel")),
+    ("scan K8 forward (proj_scan_fwd)",
+     ("proj_exit_kernel", "proj_carry_kernel", "proj_output_kernel")),
+    ("scan backward (gated_scan_bwd)", ("scan_bwd_kernel",)),
     ("scan forward (gated_scan_fwd)", ("scan_fwd_kernel",)),
     ("cuDNN convolution (incl. layout transforms)",
      ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit", "nchwtonhwc",
@@ -1255,11 +1308,28 @@ def phase_core(results):
         log(f"kernel {tag} bwd: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms (peak {peak / 2 ** 30:.2f} GiB), "
             f"bound {bound:.4f} ms ({bound_by})")
-        results.append(dict(direction="bwd", shape=shape_name,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=bound_by))
+        row = dict(direction="bwd", shape=shape_name, max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=bound_by)
         del u, delta, A, B, C, st, dy, dlast
         torch.cuda.empty_cache()
+        if shape_name == "prefill":
+            parts = breakdown_in_child("bwd_core", f"{tag} bwd")
+            row["device_ms"] = None if parts is None else sum(parts.values())
+        results.append(row)
+
+
+def core_bwd_call(R, L, D):
+    """K6's backward kernel alone at (R, L, D) on phase 9's operands: one
+    forward launch for the chunk exit states, then a closure that launches
+    it (not counted)."""
+    T = scan_core.DEF_CHUNK
+    u, delta, A, B, C = core_inputs(R, L, D, seed=L + D + 2)
+    _, st = scan_core._launch(u, delta, A, B, C, T)
+    g = torch.Generator(device=DEVICE).manual_seed(L)
+    dy = torch.randn(R, L, D, generator=g, device=DEVICE)
+    dlast = torch.randn(R, D, N, generator=g, device=DEVICE)
+    return lambda: scan_core._launch_bwd(u, delta, A, B, C, dy, dlast, st, T)
 
 
 def build_lm(dtype, **overrides):
@@ -1708,26 +1778,39 @@ def phase_slice_kernel(results, bytes_per_elem):
         tag = f"K5 bwd {stage} R={R} {str(dtype)[6:]}"
         err = grad_check(tag, got, want, dtype)
         del got, want
-        _, states = scan_dir._launch(
-            a["u"], a["dt"], a["z"], None, a["A"], a["B"], a["C"],
-            a["D"], a["bias"], reverse=False, gate=True,
-            chunk_size=scan_dir.DEF_CHUNK, return_states=True,
-            nslices=S)
-        ms = cuda_ms(lambda: scan_dir._launch_bwd(
-            a["u"], a["dt"], a["z"], None, a["A"], a["B"], a["C"],
-            a["D"], a["bias"], dout, states, reverse=False, gate=True,
-            chunk_size=scan_dir.DEF_CHUNK, nslices=S), 5)
+        kern = slice_bwd_call(R, (L, E, S), dtype, a, dout)
+        ms = cuda_ms(kern, 5)
         plain_ms = cuda_ms(plain_bwd, 2)
         bound, bound_by = scan_bound("bwd", "fused_gate", R, L, E, dtype)
         log(f"kernel {tag}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms (channel slices of {width}), "
             f"bound {bound:.4f} ms ({bound_by})")
-        results.append(dict(direction="bwd", stage=stage, R=R,
-                            dtype=str(dtype)[6:],
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=bound_by))
-        del a, dout, states
+        row = dict(direction="bwd", stage=stage, R=R, dtype=str(dtype)[6:],
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=bound_by)
+        del a, dout, kern
         torch.cuda.empty_cache()
+        if stage == "stage0" and R == 2 and dtype == torch.bfloat16:
+            parts = breakdown_in_child("bwd_slice", tag)
+            row["device_ms"] = None if parts is None else sum(parts.values())
+        results.append(row)
+
+
+def slice_bwd_call(R, shape, dtype, a=None, dout=None):
+    """K5's backward kernel alone at (R, L, E, S) (phase 11's operands
+    unless given): one forward launch for the chunk exit states, then a
+    closure that launches it (not counted)."""
+    L, E, S = shape
+    if a is None:
+        a = scan_inputs(R, L, E, dtype, seed=L + E + 3 + R)
+        g = torch.Generator(device="cuda").manual_seed(L + R)
+        dout = torch.randn(R, L, E, generator=g, device="cuda").to(dtype)
+    args = (a["u"], a["dt"], a["z"], None, a["A"], a["B"], a["C"], a["D"],
+            a["bias"])
+    kw = dict(reverse=False, gate=True, chunk_size=scan_dir.DEF_CHUNK,
+              nslices=S)
+    _, states = scan_dir._launch(*args, return_states=True, **kw)
+    return lambda: scan_dir._launch_bwd(*args, dout, states, **kw)
 
 
 def proj_plain_bwd(a, flags, dout):
@@ -2731,12 +2814,22 @@ def probe_counts():
 def breakdown_call(name):
     """The call whose device time ``--breakdown NAME`` splits by kernel:
     phase 2's stage-0 bf16 calls ("dir_reverse", "fused_gate") on phase 2's
-    inputs, or phase 17's R = 1 bf16 calls of K2 ("k2"), K10 ("noshift",
-    "nohs") and K11 ("flat") on phase 17's inputs."""
+    inputs; phase 5's stage-0 bf16 backward kernel calls ("bwd_" + a
+    variant); phase 11's K5 backward at stage 0, R = 2, bf16
+    ("bwd_slice"); phase 9's K6 backward at the prefill shape
+    ("bwd_core"); or phase 17's R = 1 bf16 calls of K2 ("k2"), K10
+    ("noshift", "nohs") and K11 ("flat") on phase 17's inputs."""
     if name in VARIANTS:
         R, L, D = SHAPES["stage0"]
         a = scan_inputs(R, L, D, torch.bfloat16, seed=L + D)
         return variant_calls(name, a)[0]
+    if name.startswith("bwd_") and name[4:] in VARIANTS:
+        return bwd_kernel_call(name[4:], *bwd_inputs(
+            *TRAIN_SHAPES["stage0"], torch.bfloat16))
+    if name == "bwd_slice":
+        return slice_bwd_call(2, SLICE_SHAPES["stage0"], torch.bfloat16)
+    if name == "bwd_core":
+        return core_bwd_call(*CORE_SHAPES["prefill"])
     L, D = PROBE_SHAPE
     a = scan_inputs(1, L, D, torch.bfloat16, seed=L + D + 17 + 1)
     if name == "k2":
@@ -2931,7 +3024,7 @@ def main():
 
     t0 = time.perf_counter()
     bwd_results = []
-    bytes_per_elem = phase_backward(bwd_results)
+    bytes_per_elem, bwd_stage_ms = phase_backward(bwd_results)
     log(f"phase 5 (backward kernels vs plain): "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3036,6 +3129,14 @@ def main():
                 bound, bound_by = main_row["bound_ms"], main_row["bound_by"]
                 launches = train_launches[f"{wrapper}_bwd"]
                 by_path = {"train_5_steps": launches}
+                extra = dict(
+                    device_ms=main_row.get("device_ms"),
+                    device_ms_by_variant={
+                        r["variant"]: r.get("device_ms") for r in rows
+                        if r["shape"] == "stage0"
+                        and r["dtype"] == "bfloat16"},
+                    stage_ms={v: bwd_stage_ms[v] for v in VARIANTS
+                              if VARIANTS[v][0] == wrapper})
             kernels.append(dict(
                 name=f"gated_scan_{direction}[{wrapper}]", route="cuda",
                 source=SOURCES[direction], replaces=replaces,
@@ -3043,7 +3144,8 @@ def main():
                     r["max_abs_err"] for r in rows),
                 ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                 bound_ms=bound, bound_by=bound_by, library_ms=None,
-                variant=main_row["variant"], launches_by_path=by_path))
+                variant=main_row["variant"], launches_by_path=by_path,
+                **(extra if direction == "bwd" else {})))
     for direction in ("fwd", "bwd"):
         rows = [r for r in core_results if r["direction"] == direction]
         main_row = next(r for r in rows if r["shape"] == "prefill")
@@ -3062,7 +3164,9 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=None, variant="core", launches_by_path=by_path))
+            library_ms=None, variant="core", launches_by_path=by_path,
+            **({"device_ms": main_row.get("device_ms")}
+               if direction == "bwd" else {})))
     for direction in ("fwd", "bwd"):
         rows = [r for r in slice_results if r["direction"] == direction]
         main_row = next(r for r in rows if r["stage"] == "stage0"
@@ -3081,7 +3185,9 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=None, variant="slice", launches_by_path=by_path))
+            library_ms=None, variant="slice", launches_by_path=by_path,
+            **({"device_ms": main_row.get("device_ms")}
+               if direction == "bwd" else {})))
     for direction in ("fwd", "bwd"):
         rows = [r for r in proj_results if r["direction"] == direction]
         main_row = next(r for r in rows if r["variant"] == "forward_acc_gate"

@@ -34,51 +34,130 @@
 //   dA    = sum_s dp delta;   dD = sum_s dy u;  dbias = sum_s ddt
 //   dB_s  = sum_d g delta u;  dC_s = sum_d x dy
 // du, ddt, dz and dacc are written in the storage dtype (float32 or
-// bfloat16); the reductions are float32 per-block partials that the wrapper
-// sums with torch.sum (no atomics, so every run gives the same bits).
+// bfloat16); dA, dD, dbias are float32 partials per chunk and dB, dC per
+// channel block, which the wrapper sums with torch.sum (no atomics, and
+// every sum inside the kernel in a fixed order, so every run gives the
+// same bits).
 //
-// What bounds it on this card: like the forward, an elementwise recurrence
-// with 16 states per (step, channel): exps (the SFU) and the bytes of the
-// sequence operands, not the tensor cores. Two things make it harder than
-// the forward:
-// - The adjoint runs backwards while x runs forwards, and x cannot be walked
-//   backwards by dividing by a (a = exp(delta A) underflows to 0 for A near
-//   -16). Pass 3 recomputes x from checkpoints: a thread runs its chunk
-//   forward from the chunk's entry state and stores x at every SUB-th step
-//   (global scratch, its own addresses); then, sub-chunk by sub-chunk from
-//   the last to the first, it replays SUB steps into shared memory and walks
-//   g backwards through them.
-// - L is long (262,144 steps at stage 0) and the adjoint carry is serial in
-//   reverse scan order. The forward's three-pass answer carries over:
-//   1. bwd_chunk:  one thread per (row, chunk, channel) runs the adjoint
-//                  over its chunk from a zero entry (needs a, C and dy only,
-//                  not x) and writes the chunk's zero-entry adjoint exit and
-//                  its sum of delta (its decay is exp(A * sum delta)).
-//   2. bwd_carry:  one thread per (row, state, channel) combines the chunk
-//                  summaries in reverse scan order, starting from dlast (or
-//                  0), and leaves each chunk's adjoint entry in place.
-//   3. bwd_grad:   one block per (channel block, chunk, row) re-runs its
-//                  chunk as above and forms every gradient. The sums over
-//                  channels (dB, dC) are taken in shared memory per
-//                  sub-chunk, one partial per channel block.
-// With one chunk there is no carry pass, and pass 3 starts from dlast itself.
-// Chunks are the forward's (multiples of T on the original layout). With
-// REVERSE the chunks and the steps in a chunk are walked in the mirrored
-// order on the same layout, so the ragged tail chunk is the first in scan
-// order and masked steps never enter any state or gradient.
+// What bounds it on this card: an elementwise recurrence with 16 states
+// per (step, channel): exps (the SFU, 16 results per clock per SM), the
+// float32 issue slots of ~20 operations per (step, channel, state), and the
+// channel sums of dB and dC (warp shuffles); the bytes (u, dt, z, acc,
+// dout in, du, ddt, dz, dacc out) come after, the tensor cores have no
+// part. Two things make it harder than the forward: x runs forwards while
+// the adjoint runs backwards, and x cannot be walked backwards by dividing
+// by a (a = exp(delta A) underflows to 0 for A near -16).
 //
-// The kernel allocates nothing: the caller passes every output, partial and
-// scratch buffer. At K6's prefill shape (R = 2, L = 2048, D = 5120) the
-// dB/dC partials (nbd, R, L, N) are 40 x 2 x 2048 x 16 floats, 10.5 MB each.
+// The design: ONE kernel per call, a single-pass chunk scan with decoupled
+// look-back in reverse scan order. A block owns a tile: row r, DB channels
+// and one chunk of T steps (the forward's chunks, whose entry states it
+// reads).
+//   - The tile comes from an atomic ticket handed out in REVERSE scan order
+//     (the last scan chunk first): every tile a block waits on holds a
+//     smaller ticket, so its block is already running and the wait ends.
+//     With REVERSE, scan order is the mirrored physical order on the same
+//     layout, as in the forward.
+//   - TPC = 4 threads per channel, 4 states each (the forward takes 2 and
+//     8): the walk holds x for a group of K = 8 steps in registers (K x the
+//     states of a thread) and the checkpoints sit in shared memory for the
+//     whole tile (T / K - 1 x 16 floats a channel, 45 KB for 48 channels
+//     at T = 128; group 0's is the entry state, re-read); with 4 states a
+//     thread, three blocks of 48 channels (192 threads, 74 KB of shared
+//     memory) share an SM. On the H100 three blocks of 192 threads (96
+//     registers) run faster than two with more registers and no spills
+//     (`two_blocks` in tools/scan_bwd_probe.py), which is why the launch
+//     bound asks for three.
+//   - Staging: a group of K steps at a time into a two-slot ring in shared
+//     memory (one barrier a group): B and C, delta (softplus once per token
+//     and channel), u and
+//     dy = dout silu(z) (the gate once), loads of the next group in flight
+//     in registers while the current one is swept, as in gated_scan_fwd.cu.
+//     Sweep F stages also dzf = dout silu'(z) and yw = D u (+ acc), from
+//     which it writes dz (and dacc = dy, at staging); sweep B stages
+//     sigmoid(dt + bias) for ddt in their place. Each sweep stages anew
+//     (from L2, mostly): the whole tile's operands would take the shared
+//     memory of several blocks.
+//   - Sweep F, forward in scan order from the saved entry state (the
+//     forward's exit state of the chunk before, or zero): x rebuilt, its
+//     value at every K-th step kept as a checkpoint in shared memory, and
+//     at once the chunk's adjoint aggregate h = sum_s P_s C_s dy_s with the
+//     inclusive prefix decay P_s = a_0 ... a_s, and sum delta (the chunk's
+//     decay is exp(A sum delta)). h is what the chunk hands the chunk
+//     before it for a zero entry: a_0 g_0 unrolls to h + P_last g_in. The
+//     gate's output y = C.x is at hand too: sweep F writes dz.
+//   - Look-back toward later scan chunks: every thread writes its
+//     aggregate record (its 4 states; the channel's sum delta beside), the
+//     block raises its flag AGG; one warp polls the flags of 32 successors
+//     per load, up to the nearest one with an inclusive record (INCL);
+//     each thread folds down from it: g = exp2(A log2(e) sum delta_m) g +
+//     h_m, FOLD records' loads at once. The last scan chunk's entry is the
+//     seed (dlast for K6, else 0), which also serves a call with one chunk;
+//     every inclusive record is this one fold, in this order, from the
+//     seed, so wherever a walk stops the adjoint entry has the same bits.
+//     The block then writes its inclusive record and raises INCL. Records,
+//     flags and the memory order are gated_scan_fwd.cu's: record stores,
+//     __threadfence, block barrier, thread 0's relaxed flag store; the
+//     polling warp's ld.relaxed.gpu then fence.acq_rel.gpu, a barrier, and
+//     records read with ld.global.cg. A poll that waits more than 4 s traps
+//     (the launch fails) instead of hanging the card.
+//   - Sweep B, group by group from the last, from the adjoint entry: x
+//     replayed from the group's checkpoint into registers (K x 4 values a
+//     thread), then the walk over the group's steps from the last: g, dp,
+//     dA (per thread), du and ddt (the four threads of a channel sum S and
+//     ddelta's partials by a reduce-scatter: two shuffles a step), dD and
+//     dbias. dB_t and dC_t, sums over the block's channels: a warp
+//     reduce-scatter over its 8 channels (the 8 values dB, dC of a thread's
+//     4 states: 4 + 2 + 1 shuffles, after which each of the 32 lanes holds
+//     one of the warp's 32 sums, the scheme of csrc/scan_flat_fwd.cu's
+//     lanes), then across the block's warps in shared memory, in warp
+//     order, after the group's barrier (the exchange double-buffered by
+//     group); one partial per channel block, which the wrapper adds
+//     (adding them in the kernel, by the last block of each chunk to
+//     finish, took longer in PR 10's trials).
+//   - Exps: three sweeps (sweep F, the replay, the walk). Keeping the
+//     replay's decays for the walk takes another K x 4 registers a thread,
+//     so two blocks an SM, not three, which cost more than the third exp
+//     sweep in PR 10's trials.
+// Ragged L and D are masked: a step past L and a channel past D are staged
+// as zeros (an identity step: delta 0, dy 0), enter no state or sum, and
+// write nothing.
+//
+// The kernel allocates nothing: the caller passes every output and partial,
+// the records agg and incl (R, nc, D, TPC, SPT floats each), sdel (R, nc,
+// D floats) and the flags (TICKET_PAD + R ncb nc unsigned ints, zeroed on
+// the launch's stream; the first is the ticket); gated_scan_bwd_scratch
+// sizes them. At K6's prefill shape (R = 2, L = 2048, D = 5120) the dB/dC
+// partials (ncb, R, L, N) are 160 x 2 x 2048 x 16 floats, 42 MB each.
+// Where the time goes: tools/scan_bwd_probe.py prints a block's split
+// (sweep F, the look-back's wait and fold, sweep B) and the cost of the
+// dB/dC reduce-scatter and of the third block an SM (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int NS = 16;   // state size N the kernel is built for
-constexpr int SUB = 8;   // steps per replayed sub-chunk in pass 3
-constexpr int CARRY_THREADS = 256;
+constexpr int NS = 16;            // state size N the kernel is built for
+constexpr int TPC = 4;            // threads per channel
+constexpr int SPT = NS / TPC;     // states per thread
+constexpr int MAX_THREADS = 192;  // threads per block (DB x TPC)
+constexpr int MIN_THREADS = 128;
+constexpr int K = 8;              // steps of a group: staging, checkpoint,
+                                  // replay
+constexpr int NA = 5;             // per-channel arrays a slot holds (at most)
+constexpr int BC_PER = K * NS / MIN_THREADS;   // B / C entries a thread stages
+constexpr int RPT = K / TPC;      // rows of a channel a thread stages
+constexpr int FOLD = 8;           // look-back: records loaded at once
+constexpr int TICKET_PAD = 32;    // flags[0] is the ticket; flags from [32]
+constexpr unsigned FLAG_AGG = 1, FLAG_INCL = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr unsigned long long WAIT_LIMIT_NS = 4000000000ull;
+
+// Slot arrays (each K x DB floats, after B and C): sweep F's and sweep B's.
+constexpr int A_DEL = 0, A_U = 1, A_DY = 2;
+constexpr int A_DZF = 3, A_YW = 4;   // sweep F
+constexpr int A_SIG = 3;             // sweep B
 
 struct Params {
   const void* u;
@@ -97,16 +176,17 @@ struct Params {
   void* ddt;
   void* dz;
   void* dacc;
-  float* dA_p;           // (R, nc, NS, D)
+  float* dA_p;           // (R, nc, D, NS)
   float* dD_p;           // (R, nc, D)
   float* dbias_p;        // (R, nc, D)
-  float* dB_p;           // (nbd, R, L, NS)
-  float* dC_p;           // (nbd, R, L, NS)
-  float* gbuf;           // (R, nc, NS, D) scratch (nc > 1)
-  float* sdelta;         // (R, nc, D) scratch (nc > 1)
-  float* ckpt;           // (R, nc, nsub, NS, D) scratch
+  float* dB_p;           // (ncb, R, L, NS): the channel blocks' dB
+  float* dC_p;           // (ncb, R, L, NS)
+  float* agg;            // (R, nc, D, TPC, SPT) scratch: aggregates
+  float* incl;           // (R, nc, D, TPC, SPT) scratch: inclusive carries
+  float* sdel;           // (R, nc, D) scratch: sums of delta
+  unsigned* flags;       // TICKET_PAD + (R, ncb, nc), zeroed
   long long R, L, D;
-  int T, nc, nsub;
+  int T, nc, DB, ncb;    // steps per chunk, chunks, channels per block, blocks
   unsigned S, P;         // SLICE: slices and positions (L = S P)
   long long su_r, su_l, sdt_r, sdt_l, sz_r, sz_l, sacc_r, sacc_l;
   long long sB_r, sB_l, sC_r, sC_l;
@@ -127,18 +207,62 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float softplus_f(float x) {
-  return fmaxf(x, 0.f) + log1pf(__expf(-fabsf(x)));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.f / (1.f + __expf(-x));
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// delta from dt + bias: softplus of it, or (K6) as it is.
-template <bool SOFTPLUS>
-__device__ __forceinline__ float delta_of(float x) {
-  return SOFTPLUS ? softplus_f(x) : x;
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// fence.acq_rel.gpu after relaxed flag loads: an acquire.
+__device__ __forceinline__ void fence_acquire() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A block's flag: every thread fences its record stores, the block meets,
+// and thread 0 stores the flag (the fences make it a release).
+__device__ __forceinline__ void publish(unsigned* flag, unsigned v) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) st_relaxed(flag, v);
+}
+
+// softplus(x) as gated_scan_fwd.cu computes it (so x is rebuilt from the
+// same delta), and sigmoid(x) = softplus'(x), from one exp.
+__device__ __forceinline__ float softplus_sig(float x, float& sig) {
+  const float e = __expf(-fabsf(x));
+  const float r = 1.f / (1.f + e);
+  sig = x >= 0.f ? r : e * r;
+  const float series = e * (1.f - e * (0.5f - e * (0.33333334f - 0.25f * e)));
+  return fmaxf(x, 0.f) + (e < 0.015625f ? series : __logf(1.f + e));
+}
+
+// The carry across a chunk: its decay exp(A sum delta) applied to the
+// adjoint entry, plus its aggregate. The look-back and a chunk's own
+// inclusive record use this one function, so every fold rounds alike.
+__device__ __forceinline__ float fold(float g, float a2, float sd, float h) {
+  return __fmaf_rn(ex2(a2 * sd), g, h);
+}
+
+__device__ __forceinline__ void unpack(const float4& v, float (&a)[SPT]) {
+  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
 }
 
 // Original row of scan-order step tt: itself, or with SLICE the step's place
@@ -150,378 +274,507 @@ __device__ __forceinline__ long long row_of(const Params& p, long long tt) {
   return (long long)(t % p.S) * p.P + t / p.S;
 }
 
-// Stage scan-order steps [t0, t0 + len) of B and/or C of row r into shared
-// memory.
-template <typename S, bool WITH_B, bool WITH_C, bool SLICE>
-__device__ __forceinline__ void stage_bc(const Params& p, long long r,
-                                         long long t0, int len, float* sB,
-                                         float* sC) {
+// Physical row of scan step i (clamped into the chunk) of the chunk that
+// starts at t0 and has len steps.
+template <bool REVERSE, bool SLICE>
+__device__ __forceinline__ long long phys(const Params& p, long long t0,
+                                          int len, int i) {
+  const int ic = min(i, len - 1);
+  return row_of<SLICE>(p, t0 + (REVERSE ? len - 1 - ic : ic));
+}
+
+// One group's operands in flight in registers, as loaded: B and C entries
+// tid, tid + nthr of its K x NS, and dt, u, dout, z, acc of channel
+// tid % DB at the group's steps tid / DB, + TPC, ... No load is guarded by
+// a branch (indices are clamped) and none is converted before the last is
+// issued, so the loads overlap.
+template <typename S>
+struct Staged {
+  S b[BC_PER], c[BC_PER], dt[RPT], u[RPT], go[RPT], z[RPT], ac[RPT];
+};
+
+// Issue the loads of group j (scan steps j K .. j K + K - 1) of the chunk
+// at t0; sweep F (FWD) also loads acc.
+template <typename S, bool FWD, bool REVERSE, bool GATE, bool HAS_ACC,
+          bool SLICE>
+__device__ __forceinline__ void load_group(const Params& p, long long r,
+                                           long long d0, long long t0,
+                                           int len, int j, Staged<S>& q) {
+  const int tid = threadIdx.x, nthr = blockDim.x, DB = p.DB;
   const S* B = static_cast<const S*>(p.B) + r * p.sB_r;
   const S* C = static_cast<const S*>(p.C) + r * p.sC_r;
-  for (int i = threadIdx.x; i < len * NS; i += blockDim.x) {
-    const long long t = row_of<SLICE>(p, t0 + i / NS);
-    const int n = i % NS;
-    if (WITH_B) sB[i] = to_f(B[t * p.sB_l + n]);
-    if (WITH_C) sC[i] = to_f(C[t * p.sC_l + n]);
-  }
-  __syncthreads();
-}
-
-// dy = dout * silu(z) with the gate, dout without it.
-template <typename S, bool GATE>
-__device__ __forceinline__ float dy_at(const S* dout, const S* z,
-                                       long long tt, long long sz_l,
-                                       long long D) {
-  const float g = to_f(dout[tt * D]);
-  if (!GATE) return g;
-  const float zz = to_f(z[tt * sz_l]);
-  return g * zz * sigmoid_f(zz);
-}
-
-// Pass 1: zero-entry adjoint over each chunk, in reverse scan order.
-template <typename S, bool REVERSE, bool GATE, bool SOFTPLUS, bool SLICE>
-__global__ void bwd_chunk_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* sC = smem;
-  const long long r = blockIdx.z;
-  const int c = blockIdx.y;
-  const long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long t0 = (long long)c * p.T;
-  const int len = (int)min((long long)p.T, p.L - t0);
-  stage_bc<S, false, true, SLICE>(p, r, t0, len, nullptr, sC);
-  if (d >= p.D) return;
-
-  float A[NS], g[NS];
-  const float* Ar = p.A + r * p.sA_r + d * NS;
 #pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    A[n] = Ar[n];
-    g[n] = 0.f;
+  for (int e = 0; e < BC_PER; ++e) {
+    const int i = min(tid + e * nthr, K * NS - 1);
+    const long long tt = phys<REVERSE, SLICE>(p, t0, len, j * K + i / NS);
+    q.b[e] = B[tt * p.sB_l + i % NS];
+    q.c[e] = C[tt * p.sC_l + i % NS];
   }
-  const float bias = p.bias[r * p.sbias_r + d];
+  const long long d = min(d0 + tid % DB, p.D - 1);
+  const S* u = static_cast<const S*>(p.u) + r * p.su_r + d;
   const S* dt = static_cast<const S*>(p.dt) + r * p.sdt_r + d;
-  const S* z = GATE ? static_cast<const S*>(p.z) + r * p.sz_r + d : nullptr;
-  const S* dout = static_cast<const S*>(p.dout) + r * p.L * p.D + d;
-  float sd = 0.f;
-  for (int i = len - 1; i >= 0; --i) {  // scan order, last step first
-    const int t = REVERSE ? len - 1 - i : i;
-    const long long tt = row_of<SLICE>(p, t0 + t);
-    const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
-    const float dy = dy_at<S, GATE>(dout, z, tt, p.sz_l, p.D);
-    sd += delta;
-    const float* cc = sC + t * NS;
+  const S* z = static_cast<const S*>(p.z) + r * p.sz_r + d;
+  const S* acc = static_cast<const S*>(p.acc) + r * p.sacc_r + d;
+  const S* go = static_cast<const S*>(p.dout) + r * p.L * p.D + d;
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-      g[n] = __expf(delta * A[n]) * (cc[n] * dy + g[n]);
-  }
-  float* gb = p.gbuf + ((r * p.nc + c) * NS) * p.D + d;
-#pragma unroll
-  for (int n = 0; n < NS; ++n) gb[n * p.D] = g[n];
-  p.sdelta[(r * p.nc + c) * p.D + d] = sd;
-}
-
-// Pass 2: adjoint carry over the chunk summaries, last scan chunk first,
-// from the seed dlast (or 0); leaves each chunk's adjoint entry
-// (a_{s+1} g_{s+1} at its last step).
-template <bool REVERSE>
-__global__ void bwd_carry_kernel(Params p) {
-  const long long r = blockIdx.y;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= NS * p.D) return;
-  const int n = (int)(idx / p.D);
-  const long long d = idx % p.D;
-  const float a = p.A[r * p.sA_r + d * NS + n];
-  float carry = p.dlast != nullptr ? p.dlast[(r * NS + n) * p.D + d] : 0.f;
-  for (int i = 0; i < p.nc; ++i) {
-    const long long c = REVERSE ? i : p.nc - 1 - i;
-    const long long hi = ((r * p.nc + c) * NS + n) * p.D + d;
-    const float h = p.gbuf[hi];
-    const float sd = p.sdelta[(r * p.nc + c) * p.D + d];
-    p.gbuf[hi] = carry;
-    carry = __expf(a * sd) * carry + h;
+  for (int e = 0; e < RPT; ++e) {
+    const long long tt =
+        phys<REVERSE, SLICE>(p, t0, len, j * K + tid / DB + e * TPC);
+    q.dt[e] = dt[tt * p.sdt_l];
+    q.u[e] = u[tt * p.su_l];
+    q.go[e] = go[tt * p.D];
+    if (GATE) q.z[e] = z[tt * p.sz_l];
+    if (FWD && GATE && HAS_ACC) q.ac[e] = acc[tt * p.sacc_l];
   }
 }
 
-// Pass 3: recompute x from checkpoints, walk g backwards, form gradients.
-// Shared memory: B and C of the chunk (2 T NS), then per sub-chunk
-// xs (SUB NS ld: x after the replay, g after the walk), dys, dtrs and us
-// (SUB ld each: dy, dt + bias, u; u becomes delta u in the walk), with the
-// channel fastest and ld = blockDim.x + 1 so that the per-step sums over
-// channels do not hit one bank.
+// Write a loaded group into a slot: B, C and the per-channel arrays (sweep
+// F: delta, u, dy, dzf, yw; sweep B: delta, u, dy, sigmoid). Steps past the
+// chunk and channels past D stage zeros. Sweep F's staging also writes
+// dacc = dy.
+template <typename S, bool FWD, bool REVERSE, bool GATE, bool HAS_ACC,
+          bool SOFTPLUS, bool SLICE>
+__device__ __forceinline__ void store_group(const Params& p, long long r,
+                                            long long d0, long long t0,
+                                            int len, int j, float bias,
+                                            float Dv, const Staged<S>& q,
+                                            float* slot) {
+  const int tid = threadIdx.x, nthr = blockDim.x, DB = p.DB;
+  float* sB = slot;
+  float* sC = sB + K * NS;
+  float* arr = sC + K * NS;
+#pragma unroll
+  for (int e = 0; e < BC_PER; ++e) {
+    const int i = tid + e * nthr;
+    if (i < K * NS) {
+      const bool ok = j * K + i / NS < len;
+      sB[i] = ok ? to_f(q.b[e]) : 0.f;
+      sC[i] = ok ? to_f(q.c[e]) : 0.f;
+    }
+  }
+  const int k = tid % DB;
+  const bool live = d0 + k < p.D;
+  S* dacc = static_cast<S*>(p.dacc) + r * p.L * p.D + d0 + k;
+#pragma unroll
+  for (int e = 0; e < RPT; ++e) {
+    const int row = tid / DB + e * TPC;   // step of the group
+    const bool ok = live && j * K + row < len;
+    const float x = to_f(q.dt[e]) + bias;
+    float sig = 1.f;
+    const float delta = SOFTPLUS ? softplus_sig(x, sig) : x;
+    const float uu = to_f(q.u[e]);
+    const float g = to_f(q.go[e]);
+    float dy = g, dzf = 0.f;
+    if (GATE) {
+      const float zf = to_f(q.z[e]);
+      const float sz = 1.f / (1.f + __expf(-zf));
+      dy = g * zf * sz;
+      dzf = g * sz * (1.f + zf * (1.f - sz));
+    }
+    float* a = arr + row * DB + k;
+    a[A_DEL * K * DB] = ok ? delta : 0.f;
+    a[A_U * K * DB] = ok ? uu : 0.f;
+    a[A_DY * K * DB] = ok ? dy : 0.f;
+    if (FWD && GATE) {
+      float yw = Dv * uu;
+      if (HAS_ACC) yw += to_f(q.ac[e]);
+      a[A_DZF * K * DB] = ok ? dzf : 0.f;
+      a[A_YW * K * DB] = ok ? yw : 0.f;
+      if (HAS_ACC && ok)
+        dacc[phys<REVERSE, SLICE>(p, t0, len, j * K + row) * p.D] =
+            from_f<S>(dy);
+    }
+    if (!FWD && SOFTPLUS) a[A_SIG * K * DB] = ok ? sig : 0.f;
+  }
+}
+
 template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
           bool SLICE>
-__global__ void bwd_grad_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int ld = nt + 1;
-  float* sB = smem;
-  float* sC = sB + p.T * NS;
-  float* xs = sC + p.T * NS;
-  float* dys = xs + SUB * NS * ld;
-  float* dtrs = dys + SUB * ld;
-  float* us = dtrs + SUB * ld;
+__global__ void __launch_bounds__(MAX_THREADS, 3) scan_bwd_kernel(Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int T = p.T, DB = p.DB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int ngmax = (T + K - 1) / K;
+  const int slot_len = K * (2 * NS + NA * DB);
+  unsigned* sMisc = reinterpret_cast<unsigned*>(smem);   // ticket, walk
+  float* sCk = smem + 4;                     // (ngmax - 1, DB, NS)
+  float* sSlot = sCk + (ngmax - 1) * DB * NS;   // two slots
+  float* sX = sSlot + 2 * slot_len;          // two (nw, K, 32) exchanges
 
-  const long long r = blockIdx.z;
-  const int c = blockIdx.y;
-  const long long d = (long long)blockIdx.x * nt + tid;
-  const long long t0 = (long long)c * p.T;
-  const int len = (int)min((long long)p.T, p.L - t0);
-  const int vc = REVERSE ? p.nc - 1 - c : c;  // scan-order chunk index
-  stage_bc<S, true, true, SLICE>(p, r, t0, len, sB, sC);
-  const bool on = d < p.D;
+  if (tid == 0) sMisc[0] = atomicAdd(p.flags, 1u);
+  __syncthreads();
+  const unsigned ticket = sMisc[0];
+  const unsigned per_chunk = (unsigned)(p.R * p.ncb);
+  const int w = p.nc - 1 - (int)(ticket / per_chunk);   // scan-order chunk
+  const long long r = (ticket % per_chunk) / p.ncb;
+  const int cb = (int)((ticket % per_chunk) % p.ncb);
+  const long long d0 = (long long)cb * DB;
+  const long long t0 = (long long)(REVERSE ? p.nc - 1 - w : w) * T;
+  const int len = (int)min((long long)T, p.L - t0);
+  const int ng = (len + K - 1) / K;
+  const int ch = tid / TPC;        // channel of this thread in the block
+  const int qs = tid % TPC;        // its quarter of the states
+  const long long d = d0 + ch;
+  const bool active = d < p.D;
+  const long long dc = active ? d : p.D - 1;
 
-  float A[NS];
-  float bias = 0.f, Dv = 0.f;
-  if (on) {
-    const float* Ar = p.A + r * p.sA_r + d * NS;
+  float a2[SPT];   // A log2(e)
 #pragma unroll
-    for (int n = 0; n < NS; ++n) A[n] = Ar[n];
-    bias = p.bias[r * p.sbias_r + d];
-    Dv = p.Dv[r * p.sDv_r + d];
+  for (int n = 0; n < SPT; ++n)
+    a2[n] = p.A[r * p.sA_r + dc * NS + qs * SPT + n] * LOG2E;
+  const float Dv = p.Dv[r * p.sDv_r + dc];
+  // the staging channel's bias and D
+  const long long ds = min(d0 + tid % DB, p.D - 1);
+  const float bias_s = p.bias[r * p.sbias_r + ds];
+  const float Dv_s = p.Dv[r * p.sDv_r + ds];
+
+  // Sweep F: x from the entry state, its checkpoints, the aggregate h and
+  // sum delta; dz.
+  float x[SPT], P[SPT], h[SPT], sd = 0.f;
+#pragma unroll
+  for (int n = 0; n < SPT; ++n) {
+    x[n] = 0.f;
+    P[n] = 1.f;
+    h[n] = 0.f;
+  }
+  if (w > 0 && active) {
+    const float* st =
+        p.states + ((r * p.nc + w - 1) * NS + qs * SPT) * p.D + d;
+#pragma unroll
+    for (int n = 0; n < SPT; ++n) x[n] = st[n * p.D];
+  }
+
+  S* dz = static_cast<S*>(p.dz) + r * p.L * p.D + dc;
+  Staged<S> q;
+  load_group<S, true, REVERSE, GATE, HAS_ACC, SLICE>(p, r, d0, t0, len, 0, q);
+  store_group<S, true, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>(
+      p, r, d0, t0, len, 0, bias_s, Dv_s, q, sSlot);
+  __syncthreads();
+  for (int j = 0; j < ng; ++j) {
+    const bool more = j + 1 < ng;
+    if (more)
+      load_group<S, true, REVERSE, GATE, HAS_ACC, SLICE>(p, r, d0, t0, len,
+                                                          j + 1, q);
+    if (j > 0)
+      *reinterpret_cast<float4*>(sCk + ((j - 1) * DB + ch) * NS +
+                                 qs * SPT) = make_float4(x[0], x[1], x[2],
+                                                         x[3]);
+    const float* slot = sSlot + (j & 1) * slot_len;
+    const float* sB = slot;
+    const float* sC = sB + K * NS;
+    const float* arr = sC + K * NS;
+    float yp[K];   // this thread's part of C.x, per step
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float* a = arr + k * DB + ch;
+      const float delta = a[A_DEL * K * DB];
+      const float dy = a[A_DY * K * DB];
+      const float du = delta * a[A_U * K * DB];
+      float b[SPT], c[SPT];
+      unpack(*reinterpret_cast<const float4*>(sB + k * NS + qs * SPT), b);
+      unpack(*reinterpret_cast<const float4*>(sC + k * NS + qs * SPT), c);
+      sd += delta;
+      yp[k] = 0.f;
+#pragma unroll
+      for (int n = 0; n < SPT; ++n) {
+        const float an = ex2(delta * a2[n]);
+        x[n] = __fmaf_rn(an, x[n], du * b[n]);
+        P[n] *= an;
+        h[n] = __fmaf_rn(P[n], c[n] * dy, h[n]);
+        yp[k] = __fmaf_rn(c[n], x[n], yp[k]);
+      }
+    }
+    if (GATE) {
+      // C.x over the channel's 4 threads, the group's steps at once: a
+      // reduce-scatter on lane bits 0 and 1 leaves each thread the sums
+      // of steps 4 (bit 0) + 2 (bit 1) + e, e = 0, 1; dz = dzf (C.x + yw)
+      const bool b0 = qs & 1, b1 = qs & 2;
+      float y4[K / 2], y2[K / 4];
+#pragma unroll
+      for (int e = 0; e < K / 2; ++e)
+        y4[e] = (b0 ? yp[e + K / 2] : yp[e]) +
+                __shfl_xor_sync(0xffffffffu, b0 ? yp[e] : yp[e + K / 2], 1);
+#pragma unroll
+      for (int e = 0; e < K / 4; ++e)
+        y2[e] = (b1 ? y4[e + K / 4] : y4[e]) +
+                __shfl_xor_sync(0xffffffffu, b1 ? y4[e] : y4[e + K / 4], 2);
+#pragma unroll
+      for (int e = 0; e < K / 4; ++e) {
+        const int k = (b0 ? K / 2 : 0) + (b1 ? K / 4 : 0) + e;
+        const int i = j * K + k;
+        const float* a = arr + k * DB + ch;
+        if (active && i < len)
+          dz[phys<REVERSE, SLICE>(p, t0, len, i) * p.D] =
+              from_f<S>(a[A_DZF * K * DB] * (y2[e] + a[A_YW * K * DB]));
+      }
+    }
+    if (more)   // group j + 1's slot: nobody reads it yet
+      store_group<S, true, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>(
+          p, r, d0, t0, len, j + 1, bias_s, Dv_s, q,
+          sSlot + ((j + 1) & 1) * slot_len);
+    __syncthreads();
+  }
+
+  // Look-back: the adjoint entry g of chunk w (the carry a g into its last
+  // step). Records are per thread; the flag is the block's.
+  float g[SPT];
+  const long long rec = (r * p.nc * p.D + dc) * TPC + qs;   // chunk 0's
+  const long long rec_m = p.D * TPC;                         // per chunk
+  float* sdel = p.sdel + r * p.nc * p.D + dc;                // chunk 0's
+  unsigned* flags =   // (row, channel block)'s flag of chunk 0
+      p.flags + TICKET_PAD + (r * p.ncb + cb) * p.nc;
+  if (w == p.nc - 1) {   // the seed
+#pragma unroll
+    for (int n = 0; n < SPT; ++n)
+      g[n] = p.dlast != nullptr && active
+                 ? p.dlast[(r * NS + qs * SPT + n) * p.D + d]
+                 : 0.f;
   } else {
-#pragma unroll
-    for (int n = 0; n < NS; ++n) A[n] = 0.f;
-  }
-  const long long dd = on ? d : 0;
-  const S* u = static_cast<const S*>(p.u) + r * p.su_r + dd;
-  const S* dt = static_cast<const S*>(p.dt) + r * p.sdt_r + dd;
-  const S* z = GATE ? static_cast<const S*>(p.z) + r * p.sz_r + dd : nullptr;
-  const S* acc =
-      HAS_ACC ? static_cast<const S*>(p.acc) + r * p.sacc_r + dd : nullptr;
-  const S* dout = static_cast<const S*>(p.dout) + r * p.L * p.D + dd;
-  S* du = static_cast<S*>(p.du) + r * p.L * p.D + dd;
-  S* ddt = static_cast<S*>(p.ddt) + r * p.L * p.D + dd;
-  S* dz = GATE ? static_cast<S*>(p.dz) + r * p.L * p.D + dd : nullptr;
-  S* dacc = (GATE && HAS_ACC) ? static_cast<S*>(p.dacc) + r * p.L * p.D + dd
-                              : nullptr;
-  float* ck = p.ckpt + ((r * p.nc + c) * p.nsub) * NS * p.D + dd;
-
-  // forward over the chunk from its entry state, checkpointing x before
-  // every SUB-th step (scan order)
-  if (on) {
-    float x[NS];
-    if (vc > 0) {
-      const float* st = p.states + ((r * p.nc + vc - 1) * NS) * p.D + d;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) x[n] = st[n * p.D];
-    } else {
-#pragma unroll
-      for (int n = 0; n < NS; ++n) x[n] = 0.f;
+    if (active) {
+      *reinterpret_cast<float4*>(p.agg + (rec + w * rec_m) * SPT) =
+          make_float4(h[0], h[1], h[2], h[3]);
+      if (qs == 0) sdel[w * p.D] = sd;
     }
-    for (int i = 0; i < len; ++i) {
-      if (i % SUB == 0) {
-        float* ckj = ck + (long long)(i / SUB) * NS * p.D;
-#pragma unroll
-        for (int n = 0; n < NS; ++n) ckj[n * p.D] = x[n];
+    publish(flags + w, FLAG_AGG);
+    // warp 0 walks up to the nearest inclusive record; every chunk between
+    // it and w has its aggregate out
+    if (warp == 0) {
+      int bot = w + 1;
+      unsigned long long t_wait = 0;
+      for (;;) {
+        const int m = bot + lane;
+        const unsigned f = m < p.nc ? ld_relaxed(flags + m) : 0u;
+        const unsigned not_agg = __ballot_sync(0xffffffffu, f != FLAG_AGG);
+        if (not_agg == 0) {   // 32 aggregates: further on
+          bot += 32;
+          continue;
+        }
+        const int kk = __ffs(not_agg) - 1;   // the nearest one that is not
+        if (__shfl_sync(0xffffffffu, f, kk) == FLAG_INCL) {
+          bot += kk;
+          break;
+        }
+        bot += kk;            // wait at the one not out yet
+        const unsigned long long now = global_ns();
+        if (t_wait == 0) t_wait = now;
+        else if (now - t_wait > WAIT_LIMIT_NS) __trap();
+        __nanosleep(32);
       }
-      const int t = REVERSE ? len - 1 - i : i;
-      const long long tt = row_of<SLICE>(p, t0 + t);
-      const float delta = delta_of<SOFTPLUS>(to_f(dt[tt * p.sdt_l]) + bias);
-      const float dlu = delta * to_f(u[tt * p.su_l]);
-      const float* b = sB + t * NS;
+      fence_acquire();
+      if (lane == 0) sMisc[1] = (unsigned)bot;
+    }
+    __syncthreads();
+    const int jj = (int)sMisc[1];
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
-        x[n] = __expf(delta * A[n]) * x[n] + dlu * b[n];
+    for (int n = 0; n < SPT; ++n) g[n] = 0.f;
+    if (active) {
+      unpack(__ldcg(reinterpret_cast<const float4*>(
+                 p.incl + (rec + jj * rec_m) * SPT)), g);
+      for (int m = jj - 1; m > w; m -= FOLD) {   // FOLD records at once
+        float4 am[FOLD];
+        float sdm[FOLD];
+#pragma unroll
+        for (int e = 0; e < FOLD; ++e) {   // past w + 1: loaded, not folded
+          const int me = max(m - e, w + 1);
+          am[e] = __ldcg(reinterpret_cast<const float4*>(
+              p.agg + (rec + me * rec_m) * SPT));
+          sdm[e] = __ldcg(sdel + me * p.D);
+        }
+#pragma unroll
+        for (int e = 0; e < FOLD; ++e)
+          if (m - e > w) {
+            float hm[SPT];
+            unpack(am[e], hm);
+#pragma unroll
+            for (int n = 0; n < SPT; ++n)
+              g[n] = fold(g[n], a2[n], sdm[e], hm[n]);
+          }
+      }
     }
   }
+  if (w > 0) {   // publish the inclusive carry of w
+    if (active) {
+      float gi[SPT];
+#pragma unroll
+      for (int n = 0; n < SPT; ++n) gi[n] = fold(g[n], a2[n], sd, h[n]);
+      *reinterpret_cast<float4*>(p.incl + (rec + w * rec_m) * SPT) =
+          make_float4(gi[0], gi[1], gi[2], gi[3]);
+    }
+    publish(flags + w, FLAG_INCL);
+  }
 
-  float g[NS], dA[NS];
+  // Sweep B: group by group from the last, replay x, walk g, the gradients.
+  float dA[SPT];
 #pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    g[n] = 0.f;
-    dA[n] = 0.f;
-  }
-  // adjoint entry: left by bwd_carry, or with one chunk the seed itself
-  const float* gb = p.nc > 1 ? p.gbuf + ((r * p.nc + c) * NS) * p.D + d
-                    : p.dlast != nullptr ? p.dlast + r * NS * p.D + d
-                                         : nullptr;
-  if (on && gb != nullptr) {
-#pragma unroll
-    for (int n = 0; n < NS; ++n) g[n] = gb[n * p.D];
-  }
+  for (int n = 0; n < SPT; ++n) dA[n] = 0.f;
   float dDs = 0.f, dbs = 0.f;
-  const long long bd = blockIdx.x;
-  float* dBp = p.dB_p + (bd * p.R + r) * p.L * NS;
-  float* dCp = p.dC_p + (bd * p.R + r) * p.L * NS;
-
-  for (int j = (len + SUB - 1) / SUB - 1; j >= 0; --j) {
-    const int i0 = j * SUB;
-    const int klen = min(SUB, len - i0);
-    const float* ckj = ck + (long long)j * NS * p.D;
-    // replay the sub-chunk: x, dy, dz and dacc per step
-    if (on) {
-      float x[NS];
+  S* du_o = static_cast<S*>(p.du) + r * p.L * p.D + dc;
+  S* ddt_o = static_cast<S*>(p.ddt) + r * p.L * p.D + dc;
+  float* dBp = p.dB_p + ((long long)cb * p.R + r) * p.L * NS;
+  float* dCp = p.dC_p + ((long long)cb * p.R + r) * p.L * NS;
+  load_group<S, false, REVERSE, GATE, HAS_ACC, SLICE>(p, r, d0, t0, len,
+                                                       ng - 1, q);
+  store_group<S, false, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>(
+      p, r, d0, t0, len, ng - 1, bias_s, Dv_s, q,
+      sSlot + ((ng - 1) & 1) * slot_len);
+  __syncthreads();
+  for (int j = ng - 1; j >= 0; --j) {
+    if (j > 0)
+      load_group<S, false, REVERSE, GATE, HAS_ACC, SLICE>(p, r, d0, t0, len,
+                                                           j - 1, q);
+    const float* slot = sSlot + (j & 1) * slot_len;
+    const float* sB = slot;
+    const float* sC = sB + K * NS;
+    const float* arr = sC + K * NS;
+    float xc[SPT], xs[K][SPT];
+    if (j > 0) {
+      unpack(*reinterpret_cast<const float4*>(sCk + ((j - 1) * DB + ch) *
+                                              NS + qs * SPT), xc);
+    } else {   // group 0's checkpoint is the entry state
 #pragma unroll
-      for (int n = 0; n < NS; ++n) x[n] = ckj[n * p.D];
-      for (int k = 0; k < klen; ++k) {
-        const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
-        const long long tt = row_of<SLICE>(p, t0 + t);
-        const float dtraw = to_f(dt[tt * p.sdt_l]) + bias;
-        const float delta = delta_of<SOFTPLUS>(dtraw);
-        const float uu = to_f(u[tt * p.su_l]);
-        const float dlu = delta * uu;
-        const float* b = sB + t * NS;
-        const float* cc = sC + t * NS;
-        float y = 0.f;
+      for (int n = 0; n < SPT; ++n)
+        xc[n] = w > 0 && active ? p.states[((r * p.nc + w - 1) * NS +
+                                            qs * SPT + n) * p.D + d]
+                                : 0.f;
+    }
+    // replay the group from its checkpoint
 #pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          x[n] = __expf(delta * A[n]) * x[n] + dlu * b[n];
-          y += cc[n] * x[n];
-          xs[(k * NS + n) * ld + tid] = x[n];
-        }
-        const float g_out = to_f(dout[tt * p.D]);
-        float dy = g_out;
-        if (GATE) {
-          float ytot = y + Dv * uu;
-          if (HAS_ACC) ytot += to_f(acc[tt * p.sacc_l]);
-          const float zz = to_f(z[tt * p.sz_l]);
-          const float sig = sigmoid_f(zz);
-          const float silu = zz * sig;
-          dz[tt * p.D] = from_f<S>(g_out * ytot * (sig + silu * (1.f - sig)));
-          dy = g_out * silu;
-          if (HAS_ACC) dacc[tt * p.D] = from_f<S>(dy);
-        }
-        dys[k * ld + tid] = dy;
-        dtrs[k * ld + tid] = dtraw;
-        us[k * ld + tid] = uu;
-      }
-    } else {
-      for (int k = 0; k < klen; ++k) {
+    for (int k = 0; k < K; ++k) {
+      const float* a = arr + k * DB + ch;
+      const float delta = a[A_DEL * K * DB];
+      const float du = delta * a[A_U * K * DB];
+      float b[SPT];
+      unpack(*reinterpret_cast<const float4*>(sB + k * NS + qs * SPT), b);
 #pragma unroll
-        for (int n = 0; n < NS; ++n) xs[(k * NS + n) * ld + tid] = 0.f;
-        dys[k * ld + tid] = 0.f;
-        dtrs[k * ld + tid] = 0.f;
-        us[k * ld + tid] = 0.f;
+      for (int n = 0; n < SPT; ++n) {
+        const float an = ex2(delta * a2[n]);
+        xs[k][n] = __fmaf_rn(an, k > 0 ? xs[k - 1][n] : xc[n], du * b[n]);
       }
     }
-    __syncthreads();
-    // dC[t, n] = sum over the block's channels of x dy
-    for (int idx = tid; idx < klen * NS; idx += nt) {
-      const int k = idx / NS, n = idx % NS;
-      const float* xr = xs + (k * NS + n) * ld;
-      const float* dr = dys + k * ld;
-      float s = 0.f;
-      for (int q = 0; q < nt; ++q) s += xr[q] * dr[q];
-      const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
-      dCp[row_of<SLICE>(p, t0 + t) * NS + n] = s;
-    }
-    __syncthreads();
-    // adjoint walk, last step of the sub-chunk first
-    if (on) {
-      for (int k = klen - 1; k >= 0; --k) {
-        const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
-        const long long tt = row_of<SLICE>(p, t0 + t);
-        const float dtraw = dtrs[k * ld + tid];
-        const float delta = delta_of<SOFTPLUS>(dtraw);
-        const float uu = us[k * ld + tid];
-        const float dy = dys[k * ld + tid];
-        const float* b = sB + t * NS;
-        const float* cc = sC + t * NS;
-        float Ssum = 0.f, ddl = 0.f;
+    float* xch = sX + ((j & 1) * nw + warp) * K * 32;
+    // the walk, last step first
 #pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          const float gn = cc[n] * dy + g[n];
-          const float xprev =
-              k > 0 ? xs[((k - 1) * NS + n) * ld + tid] : ckj[n * p.D];
-          const float a = __expf(delta * A[n]);
-          const float dp = gn * xprev * a;
-          dA[n] += dp * delta;
-          ddl += dp * A[n];
-          Ssum += gn * b[n];
-          g[n] = a * gn;
-          xs[(k * NS + n) * ld + tid] = gn;
+    for (int k = K - 1; k >= 0; --k) {
+      const float* a = arr + k * DB + ch;
+      const float delta = a[A_DEL * K * DB];
+      const float uu = a[A_U * K * DB];
+      const float dy = a[A_DY * K * DB];
+      const float du = delta * uu;
+      float b[SPT], c[SPT], vB[SPT], vC[SPT];
+      unpack(*reinterpret_cast<const float4*>(sB + k * NS + qs * SPT), b);
+      unpack(*reinterpret_cast<const float4*>(sC + k * NS + qs * SPT), c);
+      float Sp = 0.f, ddp = 0.f;
+#pragma unroll
+      for (int n = 0; n < SPT; ++n) {
+        const float an = ex2(delta * a2[n]);
+        const float gn = __fmaf_rn(c[n], dy, g[n]);
+        const float dp = gn * (an * (k > 0 ? xs[k - 1][n] : xc[n]));
+        dA[n] = __fmaf_rn(dp, delta, dA[n]);
+        ddp = __fmaf_rn(dp, a2[n], ddp);
+        Sp = __fmaf_rn(gn, b[n], Sp);
+        g[n] = an * gn;
+        vB[n] = gn * du;
+        vC[n] = xs[k][n] * dy;
+      }
+      ddp = __fmaf_rn(Sp, uu, ddp * LN2);
+      // S (quarters 0, 2) and ddelta (1, 3) over the channel's 4 threads
+      const bool odd = qs & 1;
+      float sum = (odd ? ddp : Sp) +
+                  __shfl_xor_sync(0xffffffffu, odd ? Sp : ddp, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int i = j * K + k;
+      if (active && i < len && qs < 2) {
+        const long long tt = phys<REVERSE, SLICE>(p, t0, len, i) * p.D;
+        if (qs == 0) {
+          du_o[tt] = from_f<S>(__fmaf_rn(sum, delta, dy * Dv));
+          dDs = __fmaf_rn(dy, uu, dDs);
+        } else {
+          const float ddt_v = SOFTPLUS ? sum * a[A_SIG * K * DB] : sum;
+          ddt_o[tt] = from_f<S>(ddt_v);
+          dbs += ddt_v;
         }
-        const float ddelta = ddl + Ssum * uu;
-        const float ddt_v = SOFTPLUS ? ddelta * sigmoid_f(dtraw) : ddelta;
-        du[tt * p.D] = from_f<S>(Ssum * delta + dy * Dv);
-        ddt[tt * p.D] = from_f<S>(ddt_v);
-        dDs += dy * uu;
-        dbs += ddt_v;
-        us[k * ld + tid] = delta * uu;
+      }
+      // dB, dC over the warp's 8 channels: reduce-scatter on lane bits
+      // 4, 3, 2; lane keeps dB (bit 4 clear) or dC, then half the states
+      const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+      float s4[SPT];
+#pragma unroll
+      for (int n = 0; n < SPT; ++n)
+        s4[n] = (h16 ? vC[n] : vB[n]) +
+                __shfl_xor_sync(0xffffffffu, h16 ? vB[n] : vC[n], 16);
+      float s2[2];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        s2[n] = (h8 ? s4[n + 2] : s4[n]) +
+                __shfl_xor_sync(0xffffffffu, h8 ? s4[n] : s4[n + 2], 8);
+      xch[k * 32 + lane] = (h4 ? s2[1] : s2[0]) +
+                           __shfl_xor_sync(0xffffffffu, h4 ? s2[0] : s2[1], 4);
+    }
+    if (j > 0)   // group j - 1's slot: nobody reads it yet
+      store_group<S, false, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>(
+          p, r, d0, t0, len, j - 1, bias_s, Dv_s, q,
+          sSlot + ((j - 1) & 1) * slot_len);
+    __syncthreads();
+    // the block's dB, dC of the group's steps: the warps' sums in order
+    const float* xj = sX + (j & 1) * nw * K * 32;
+    for (int e = tid; e < K * 32; e += blockDim.x) {
+      const int k = e >> 5, l = e & 31;
+      const int i = j * K + k;
+      if (i < len) {
+        float s = 0.f;
+        for (int v = 0; v < nw; ++v) s += xj[v * K * 32 + e];
+        // lane l of a warp kept dB (bit 4 clear) or dC of state
+        // (l mod 4) SPT + 2 (bit 3) + (bit 2)
+        const int n = (l & 3) * SPT + ((l >> 3) & 1) * 2 + ((l >> 2) & 1);
+        ((l & 16) ? dCp : dBp)[phys<REVERSE, SLICE>(p, t0, len, i) * NS +
+                               n] = s;
       }
     }
-    __syncthreads();
-    // dB[t, n] = sum over the block's channels of g delta u
-    for (int idx = tid; idx < klen * NS; idx += nt) {
-      const int k = idx / NS, n = idx % NS;
-      const float* gr = xs + (k * NS + n) * ld;
-      const float* ur = us + k * ld;
-      float s = 0.f;
-      for (int q = 0; q < nt; ++q) s += gr[q] * ur[q];
-      const int t = REVERSE ? len - 1 - (i0 + k) : i0 + k;
-      dBp[row_of<SLICE>(p, t0 + t) * NS + n] = s;
-    }
-    __syncthreads();
   }
 
-  if (on) {
-    float* dAp = p.dA_p + ((r * p.nc + c) * NS) * p.D + d;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) dAp[n * p.D] = dA[n];
-    p.dD_p[(r * p.nc + c) * p.D + d] = dDs;
-    p.dbias_p[(r * p.nc + c) * p.D + d] = dbs;
+  if (active) {
+    *reinterpret_cast<float4*>(p.dA_p + ((r * p.nc + w) * p.D + d) * NS +
+                               qs * SPT) =
+        make_float4(dA[0], dA[1], dA[2], dA[3]);
+    if (qs == 0) p.dD_p[(r * p.nc + w) * p.D + d] = dDs;
+    if (qs == 1) p.dbias_p[(r * p.nc + w) * p.D + d] = dbs;
   }
 }
 
-size_t grad_smem(int T, int threads) {
-  const size_t ld = (size_t)threads + 1;
-  return (2 * (size_t)T * NS + SUB * NS * ld + 3 * SUB * ld) * sizeof(float);
+template <typename S>
+size_t smem_bytes(int T, int DB) {
+  const size_t ngmax = (T + K - 1) / K, nw = DB * TPC / 32;
+  return 16 + ((ngmax - 1) * DB * NS + 2 * (size_t)K * (2 * NS + NA * DB) +
+               2 * nw * K * 32) * sizeof(float);
 }
 
 template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
-          bool SLICE = false>
-cudaError_t launch_grad(const Params& p, dim3 grid, int threads,
-                        cudaStream_t stream) {
-  const size_t smem = grad_smem(p.T, threads);
+          bool SLICE>
+cudaError_t launch_one(const Params& p, cudaStream_t stream) {
+  auto kernel = scan_bwd_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>;
+  const size_t smem = smem_bytes<S>(p.T, p.DB);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  bwd_grad_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>
-      <<<grid, threads, smem, stream>>>(p);
+  const unsigned blocks = (unsigned)(p.R * p.ncb * p.nc);
+  kernel<<<blocks, p.DB * TPC, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE = false>
-cudaError_t launch(const Params& p, bool gate, bool has_acc, int threads,
-                   cudaStream_t stream) {
-  const dim3 grid((unsigned)((p.D + threads - 1) / threads), (unsigned)p.nc,
-                  (unsigned)p.R);
-  cudaError_t err;
-  if (p.nc > 1) {
-    const size_t smem = (size_t)p.T * NS * sizeof(float);
-    if constexpr (!SOFTPLUS)  // K6: ungated
-      bwd_chunk_kernel<S, REVERSE, false, false, false>
-          <<<grid, threads, smem, stream>>>(p);
-    else if (gate)
-      bwd_chunk_kernel<S, REVERSE, true, true, SLICE>
-          <<<grid, threads, smem, stream>>>(p);
-    else
-      bwd_chunk_kernel<S, REVERSE, false, true, SLICE>
-          <<<grid, threads, smem, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const dim3 g2((unsigned)((NS * p.D + CARRY_THREADS - 1) / CARRY_THREADS),
-                  (unsigned)p.R);
-    bwd_carry_kernel<REVERSE><<<g2, CARRY_THREADS, 0, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if constexpr (!SOFTPLUS) {  // K6: ungated, no acc
-    return launch_grad<S, REVERSE, false, false, false>(p, grid, threads,
-                                                        stream);
-  } else {
-    if (gate && has_acc)
-      return launch_grad<S, REVERSE, true, true, true, SLICE>(p, grid,
-                                                              threads,
-                                                              stream);
-    if (gate)  // K5's own flags with SLICE
-      return launch_grad<S, REVERSE, true, false, true, SLICE>(p, grid,
-                                                               threads,
-                                                               stream);
-    return launch_grad<S, REVERSE, false, false, true, SLICE>(p, grid,
-                                                              threads,
-                                                              stream);
-  }
+// acc enters the backward only through the gate (dz's ytot): an ungated
+// link with acc runs the ungated instance, the wrapper sets its dacc.
+template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE>
+cudaError_t launch_flags(const Params& p, bool gate, bool has_acc,
+                         cudaStream_t stream) {
+  if constexpr (!SOFTPLUS)   // K6: ungated, no acc
+    return launch_one<S, REVERSE, false, false, false, false>(p, stream);
+  if (gate && has_acc)
+    return launch_one<S, REVERSE, true, true, true, SLICE>(p, stream);
+  if (gate)   // K5's own flags with SLICE
+    return launch_one<S, REVERSE, true, false, true, SLICE>(p, stream);
+  return launch_one<S, REVERSE, false, false, true, SLICE>(p, stream);
 }
 
 }  // namespace
@@ -530,48 +783,54 @@ extern "C" {
 
 // strides: u_r, u_l, dt_r, dt_l, z_r, z_l, acc_r, acc_l, B_r, B_l, C_r, C_l,
 //          A_r, Dv_r, bias_r (elements; host array of 15), as gated_scan_fwd.
-// ckpt holds ceil(T / gated_scan_bwd_sub_len()) sub-chunk checkpoints per
-// chunk: (R, nc, nsub, N, D) float32. dlast (R, N, D) float32 or null seeds
-// the adjoint of the last state in scan order. softplus = 0 is K6's mode:
-// float32, no reverse, no gate, no acc. nslices > 0 is K5's mode (SLICE,
-// nslices | L): forward, gate and acc as for K1; dB / dC partials at
-// original rows.
-// Returns a cudaError_t value (0 = launched).
+// dlast (R, N, D) float32 or null seeds the adjoint of the last state in
+// scan order. softplus = 0 is K6's mode: float32, no reverse, no gate, no
+// acc. nslices > 0 is K5's mode (SLICE, nslices | L): forward, gate and
+// acc as for K1. channels: channels per block (DB: 32, 40 or 48). du,
+// ddt, dz, dacc (R, L, D) contiguous in the storage dtype; float32
+// partials dA_p (R, nc, D, N), dD_p and dbias_p (R, nc, D) per chunk, dB_p
+// and dC_p (ceil(D / channels), R, L, N) per channel block; agg, incl,
+// sdel and flags (zeroed) as gated_scan_bwd_scratch sizes them; states
+// required when L > T. Returns a cudaError_t value (0 = launched).
 int gated_scan_bwd(const void* u, const void* dt, const void* z,
                    const void* acc, const void* B, const void* C,
                    const void* dout, const float* A, const float* Dv,
                    const float* bias, const float* states,
                    const float* dlast, void* du, void* ddt, void* dz,
                    void* dacc, float* dA_p, float* dD_p, float* dbias_p,
-                   float* dB_p, float* dC_p, float* gbuf, float* sdelta,
-                   float* ckpt, int is_bf16, int reverse, int gate,
-                   int has_acc, int softplus, long long nslices, long long R,
-                   long long L, long long D, int N, int T, int threads,
-                   const long long* strides, void* stream) {
-  if (N != NS || T < 1 || T > 256 || threads < 32 || threads > 1024 ||
-      threads % 32 != 0 || R < 1 || L < 1 || D < 1 || R > 65535 ||
-      L > 0x7fffffffLL)
+                   float* dB_p, float* dC_p, float* agg, float* incl,
+                   float* sdel, unsigned* flags, int is_bf16, int reverse,
+                   int gate, int has_acc, int softplus, long long nslices,
+                   long long R, long long L, long long D, int N, int T,
+                   int channels, const long long* strides, void* stream) {
+  if (N != NS || T < 1 || T > 256 || channels % 8 != 0 ||
+      channels * TPC < MIN_THREADS || channels * TPC > MAX_THREADS ||
+      R < 1 || L < 1 || D < 1 || L > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (!softplus && (is_bf16 || reverse || gate || has_acc || nslices))
     return (int)cudaErrorInvalidValue;
   if (nslices && (nslices < 1 || L % nslices || reverse))
     return (int)cudaErrorInvalidValue;
   const long long nc = (L + T - 1) / T;
-  if (nc > 65535) return (int)cudaErrorInvalidValue;
-  if (grad_smem(T, threads) > 232448) return (int)cudaErrorInvalidValue;
-  if ((nc > 1 && (states == nullptr || gbuf == nullptr ||
-                  sdelta == nullptr)) ||
-      ckpt == nullptr || (gate && (z == nullptr || dz == nullptr)) ||
+  const long long ncb = (D + channels - 1) / channels;
+  if (R * ncb * nc > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if ((nc > 1 && states == nullptr) || agg == nullptr || incl == nullptr ||
+      sdel == nullptr || flags == nullptr || dA_p == nullptr ||
+      dD_p == nullptr || dbias_p == nullptr || dB_p == nullptr ||
+      dC_p == nullptr || (gate && (z == nullptr || dz == nullptr)) ||
       (gate && has_acc && (acc == nullptr || dacc == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const size_t smem = is_bf16 ? smem_bytes<__nv_bfloat16>(T, channels)
+                              : smem_bytes<float>(T, channels);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   Params p;
   p.u = u; p.dt = dt; p.z = z; p.acc = acc; p.B = B; p.C = C; p.dout = dout;
   p.A = A; p.Dv = Dv; p.bias = bias; p.states = states; p.dlast = dlast;
   p.du = du; p.ddt = ddt; p.dz = dz; p.dacc = dacc;
   p.dA_p = dA_p; p.dD_p = dD_p; p.dbias_p = dbias_p; p.dB_p = dB_p;
-  p.dC_p = dC_p; p.gbuf = gbuf; p.sdelta = sdelta; p.ckpt = ckpt;
+  p.dC_p = dC_p; p.agg = agg; p.incl = incl; p.sdel = sdel; p.flags = flags;
   p.R = R; p.L = L; p.D = D; p.T = T; p.nc = (int)nc;
-  p.nsub = (T + SUB - 1) / SUB;
+  p.DB = channels; p.ncb = (int)ncb;
   p.S = nslices ? (unsigned)nslices : 1u;
   p.P = (unsigned)(L / p.S);
   p.su_r = strides[0]; p.su_l = strides[1];
@@ -583,24 +842,31 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
   p.sA_r = strides[12]; p.sDv_r = strides[13]; p.sbias_r = strides[14];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool g = gate != 0, a = has_acc != 0;
+  using bf = __nv_bfloat16;
   cudaError_t err;
   if (!softplus)
-    err = launch<float, false, false>(p, false, false, threads, st);
+    err = launch_flags<float, false, false, false>(p, false, false, st);
   else if (nslices)
-    err = is_bf16 ? launch<__nv_bfloat16, false, true, true>(p, g, a,
-                                                             threads, st)
-                  : launch<float, false, true, true>(p, g, a, threads, st);
+    err = is_bf16 ? launch_flags<bf, false, true, true>(p, g, a, st)
+                  : launch_flags<float, false, true, true>(p, g, a, st);
   else if (is_bf16)
-    err = reverse ? launch<__nv_bfloat16, true, true>(p, g, a, threads, st)
-                  : launch<__nv_bfloat16, false, true>(p, g, a, threads, st);
+    err = reverse ? launch_flags<bf, true, true, false>(p, g, a, st)
+                  : launch_flags<bf, false, true, false>(p, g, a, st);
   else
-    err = reverse ? launch<float, true, true>(p, g, a, threads, st)
-                  : launch<float, false, true>(p, g, a, threads, st);
+    err = reverse ? launch_flags<float, true, true, false>(p, g, a, st)
+                  : launch_flags<float, false, true, false>(p, g, a, st);
   return (int)err;
 }
 
-// Steps per sub-chunk checkpoint; the caller sizes ckpt from it.
-int gated_scan_bwd_sub_len(void) { return SUB; }
+// Scratch sizes in elements for channels per block DB: agg and incl
+// (floats each), sdel (floats), flags (unsigned ints, to be zeroed).
+void gated_scan_bwd_scratch(long long R, long long L, long long D, int T,
+                            int channels, long long* sizes) {
+  const long long nc = (L + T - 1) / T;
+  sizes[0] = R * nc * D * NS;
+  sizes[1] = R * nc * D;
+  sizes[2] = TICKET_PAD + R * ((D + channels - 1) / channels) * nc;
+}
 
 const char* gated_scan_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

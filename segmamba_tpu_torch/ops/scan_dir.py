@@ -238,12 +238,23 @@ def _plain_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, *, reverse, gate,
 
 
 def _block_threads(dim):
-    """Threads per block (one channel each): the largest of 128/96/64/32
-    that divides ``dim``, else a masked block of up to 128."""
+    """Threads per block of K7's kernels (one channel each): the largest of
+    128/96/64/32 that divides ``dim``, else a masked block of up to 128."""
     for t in (128, 96, 64, 32):
         if dim % t == 0:
             return t
     return min(128, -(-dim // 32) * 32)
+
+
+def _bwd_block_channels(dim):
+    """Channels per block of the backward kernel (four threads each): the
+    largest of 48/40/32 that divides ``dim``, else a masked block of 48.
+    Three blocks of 48 (their checkpoints, staging ring and dB/dC exchange
+    in shared memory, 74 KB each at chunk 128) share an SM."""
+    for c in (48, 40, 32):
+        if dim % c == 0:
+            return c
+    return 48
 
 
 def _block_channels(dim):
@@ -397,9 +408,10 @@ def _run_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, *, reverse,
 def _run_bwd_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, dout,
                     states, *, reverse, gate, chunk_size, softplus=True,
                     dlast=None, nslices=0):
-    """Validate the operands, allocate every gradient, partial and scratch
-    buffer on u's device, call the library's ``gated_scan_bwd`` on
-    ``stream`` and reduce the partials. Returns (du, ddt, dz, dacc, dA, dB,
+    """Validate the operands, allocate every gradient and one scratch buffer
+    (look-back records, per-chunk partials and the flags, zeroed) on u's
+    device, call the library's ``gated_scan_bwd`` on ``stream`` (one
+    kernel) and reduce the partials. Returns (du, ddt, dz, dacc, dA, dB,
     dC, dD, dbias) in the shapes and dtypes of (u, dt, z, acc, A, B, C, D,
     dt_bias); dz / dacc are None without z / acc. ``dlast`` (R, N, dim)
     float32, or None for zero, is the gradient of the last state in scan
@@ -421,34 +433,42 @@ def _run_bwd_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, dout,
         raise ValueError(f"dlast: {tuple(dlast.shape)} {dlast.dtype} on "
                          f"{dlast.device}, expected contiguous float32 "
                          f"{(R, N, dim)} on {u.device}")
-    threads = _block_threads(dim)
-    nbd = -(-dim // threads)
-    f32 = dict(dtype=torch.float32, device=u.device)
+    channels = _bwd_block_channels(dim)
     seq = dict(dtype=u.dtype, device=u.device)
     du = torch.empty((R, L, dim), **seq)
     ddt = torch.empty((R, L, dim), **seq)
     dz = torch.empty((R, L, dim), **seq) if gate else None
     dacc_k = (torch.empty((R, L, dim), **seq)
               if gate and acc is not None else None)
-    dA_p = torch.empty((R, nc, N, dim), **f32)
-    dD_p = torch.empty((R, nc, dim), **f32)
-    dbias_p = torch.empty((R, nc, dim), **f32)
-    dB_p = torch.empty((nbd, R, L, N), **f32)
-    dC_p = torch.empty((nbd, R, L, N), **f32)
-    gbuf = torch.empty((R, nc, N, dim), **f32) if nc > 1 else None
-    sdelta = torch.empty((R, nc, dim), **f32) if nc > 1 else None
-    ckpt = torch.empty((R, nc, -(-T // lib.gated_scan_bwd_sub_len()), N,
-                        dim), **f32)
+    # one scratch buffer: aggregate and inclusive records (n_st floats
+    # each) and the partials dA (R, nc, dim, N), whose rows the kernel
+    # writes as 16-byte vectors; the channel blocks' dB and dC (nbd, R, L,
+    # N); sums of delta (n_sd); the partials dD and dbias (R, nc, dim); the
+    # flags (n_fl ints, the first the ticket), zeroed here
+    sizes = (ctypes.c_longlong * 3)()
+    lib.gated_scan_bwd_scratch(R, L, dim, T, channels, sizes)
+    n_st, n_sd, n_fl = sizes
+    nbd = -(-dim // channels)
+    n_dA, n_bc, n_ch = R * nc * dim * N, nbd * R * L * N, R * nc * dim
+    o_bc = 2 * n_st + n_dA
+    o_sd = o_bc + 2 * n_bc
+    scratch = torch.empty(o_sd + n_sd + 2 * n_ch + n_fl,
+                          dtype=torch.float32, device=u.device)
+    scratch[-n_fl:].zero_()
+    dA_p = scratch[2 * n_st:o_bc].view(R, nc, dim, N)
+    dB_p, dC_p = scratch[o_bc:o_sd].view(2, nbd, R, L, N)
+    dD_p, dbias_p = scratch[o_sd + n_sd:-n_fl].view(2, R, nc, dim)
+    at = lambda o: scratch.data_ptr() + 4 * o
 
     err = lib.gated_scan_bwd(
         _ptr(u), _ptr(dt), _ptr(z) if gate else None, _ptr(acc), _ptr(B),
         _ptr(C), _ptr(dout), _ptr(Af), _ptr(Df), _ptr(bf), _ptr(states),
         _ptr(dlast), _ptr(du), _ptr(ddt), _ptr(dz), _ptr(dacc_k),
         _ptr(dA_p), _ptr(dD_p), _ptr(dbias_p), _ptr(dB_p), _ptr(dC_p),
-        _ptr(gbuf), _ptr(sdelta), _ptr(ckpt), int(u.dtype == torch.bfloat16),
-        int(reverse), int(gate), int(acc is not None), int(softplus),
-        int(nslices), R, L, dim, N, T, threads,
-        (ctypes.c_longlong * 15)(*strides), stream)
+        at(0), at(n_st), at(o_sd), at(o_sd + n_sd + 2 * n_ch),
+        int(u.dtype == torch.bfloat16), int(reverse), int(gate),
+        int(acc is not None), int(softplus), int(nslices), R, L, dim, N, T,
+        channels, (ctypes.c_longlong * 15)(*strides), stream)
     if err != 0:
         msg = lib.gated_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"gated_scan_bwd launch failed: {msg} ({err})")
@@ -461,12 +481,11 @@ def _run_bwd_kernel(lib, stream, u, dt, z, acc, A, B, C, D, dt_bias, dout,
             g = g.sum(0)
         return g.to(like.dtype)
 
-    dA = reduce_param(dA_p.transpose(-1, -2), A)
     dacc = dacc_k if dacc_k is not None else (
         dout.to(acc.dtype) if acc is not None else None)
-    return (du, ddt, dz, dacc, dA, dB_p.sum(0).to(B.dtype),
-            dC_p.sum(0).to(C.dtype), reduce_param(dD_p, D),
-            reduce_param(dbias_p, dt_bias))
+    return (du, ddt, dz, dacc, reduce_param(dA_p, A),
+            dB_p.sum(0).to(B.dtype), dC_p.sum(0).to(C.dtype),
+            reduce_param(dD_p, D), reduce_param(dbias_p, dt_bias))
 
 
 _LIB = None
@@ -503,11 +522,12 @@ def _bwd_lib():
         lib = _build.load_library(_BWD_LIB_NAME)
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.gated_scan_bwd.argtypes = (
-            [vp] * 24 + [i] * 5 + [ll] * 4 + [i] * 3
+            [vp] * 25 + [i] * 5 + [ll] * 4 + [i] * 3
             + [ctypes.POINTER(ll), vp])
         lib.gated_scan_bwd.restype = i
-        lib.gated_scan_bwd_sub_len.argtypes = []
-        lib.gated_scan_bwd_sub_len.restype = i
+        lib.gated_scan_bwd_scratch.argtypes = [ll, ll, ll, i, i,
+                                               ctypes.POINTER(ll)]
+        lib.gated_scan_bwd_scratch.restype = None
         lib.gated_scan_bwd_error_string.argtypes = [i]
         lib.gated_scan_bwd_error_string.restype = ctypes.c_char_p
         _BWD_LIB = lib

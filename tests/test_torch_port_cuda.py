@@ -361,6 +361,181 @@ def test_single_pass_states_feed_the_backward(cuda):
         _grad_close(name, leaf.grad, w, F32)
 
 
+# The single-pass backward (one kernel per call and group of 16 states):
+# long walks, ragged L and D, per-row parameters at R = 3. Small decays
+# (|A| ~ 0.02, delta ~ 0.05) carry the adjoint over many chunks, so every
+# chunk's entry depends on the look-back's fold.
+SINGLE_PASS_BWD_CASES = [   # R, L, D, per_row, reverse, gate, acc
+    (1, 300 * 128 + 17, 48, False, True, True, True),   # 301 chunks
+    (1, 300 * 128 + 17, 48, False, False, False, False),
+    (2, 1000, 52, True, False, True, True),              # D % 48 != 0
+    (2, 1000, 100, False, True, False, False),
+    (2, 777, 200, True, True, True, False),
+    (3, 640, 96, True, False, True, True),               # R = 3
+    (3, 640, 96, False, True, False, False),
+]
+
+
+def _slow_decay(A, bias):
+    return 0.02 * A, bias - 3.0
+
+
+@pytest.mark.parametrize("R,L,D,per_row,reverse,gate,has_acc",
+                         SINGLE_PASS_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_pass_backward_matches_plain(cuda, R, L, D, per_row, reverse,
+                                            gate, has_acc, dtype):
+    """Every gradient of the single-pass backward against the plain one,
+    through the autograd Function, one backward launch a call."""
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(
+        30 + L + D, R, L, D, dtype, per_row, True, cuda)
+    A, bias = _slow_decay(A, bias)
+    dout = torch.randn(R, L, D, device=cuda).to(dtype)
+    zz, a = (z if gate else None), (acc if has_acc else None)
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in (u, dt, zz, a, A, B, C, Dv, bias)]
+    lu, ldt, lz, la, lA, lB, lC, lD, lb = leaves
+    before = scan_dir.BWD_LAUNCHES
+    scan_dir.mamba_scan_fused_dir(lu, ldt, lz, lA, lB, lC, lD, lb, acc=la,
+                                  gate=gate, reverse=reverse).backward(dout)
+    assert scan_dir.BWD_LAUNCHES == before + 1
+    want = scan_dir.mamba_scan_fused_dir_bwd_ref(
+        u, dt, zz, A, B, C, Dv, bias, dout, acc=a, gate=gate,
+        reverse=reverse)
+    for name, leaf, w in zip(GRADS, leaves, want):
+        if leaf is not None:
+            _grad_close(f"{name} {(R, L, D)}", leaf.grad, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("nslices,L", [(2, 2 * 1500), (3, 3 * 700)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_pass_slice_backward_matches_plain(cuda, nslices, L, dtype):
+    """K5's backward (SLICE) at S = 2 and 3 against the plain one."""
+    R, D = 2, 96
+    u, dt, z, _, B, C, A, Dv, bias = _inputs(40 + nslices, R, L, D, dtype,
+                                             False, True, cuda)
+    A, bias = _slow_decay(A, bias)
+    dout = torch.randn(R, L, D, device=cuda).to(dtype)
+    leaves = [t.detach().requires_grad_()
+              for t in (u, dt, z, A, B, C, Dv, bias)]
+    before = scan_dir.SLICE_BWD_LAUNCHES
+    scan_dir.mamba_scan_fused_slice(*leaves, nslices=nslices).backward(dout)
+    assert scan_dir.SLICE_BWD_LAUNCHES == before + 1
+    want = scan_dir.mamba_scan_fused_slice_bwd_ref(
+        u, dt, z, A, B, C, Dv, bias, dout, nslices=nslices)
+    names = [n for n in GRADS if n != "dacc"]
+    for name, leaf, w in zip(names, leaves,
+                             [w for n, w in zip(GRADS, want) if n != "dacc"]):
+        _grad_close(f"{name} S={nslices}", leaf.grad, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("L", [100, 40 * 128 + 3])
+def test_single_pass_core_backward_seeds_dlast(cuda, L):
+    """K6's backward seeded by the gradient of the last state, with one
+    chunk (the seed is the only entry) and many (it enters the fold)."""
+    R, D, T = 2, 80, 128
+    u, delta, A, B, C = _core_inputs(50, R, L, D, cuda)
+    A = 0.05 * A
+    dy = torch.randn(R, L, D, device=cuda)
+    dlast = torch.randn(R, D, N, device=cuda)
+    leaves = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
+    yk, last = scan_core._ScanCore.apply(T, *leaves)
+    torch.autograd.backward((yk, last), (dy, dlast))
+    want = scan_core.selective_scan_core_bwd_ref(u, delta, A, B, C, dy,
+                                                 dlast, T)
+    for name, leaf, w in zip(("du", "ddelta", "dA", "dB", "dC"), leaves,
+                             want):
+        _grad_close(f"{name} L={L}", leaf.grad, w, F32)
+
+
+def test_single_pass_backward_n32_groups(cuda):
+    """N = 32 through the wrapper's two groups (the second group's adjoint
+    seeded by the chain's dacc) over 40 chunks."""
+    R, L, D, N_ = 2, 40 * 128 + 9, 96, 32
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(
+        60, R, L, D, torch.float32, False, True, cuda, N=N_)
+    A, bias = _slow_decay(A, bias)
+    dout = torch.randn(R, L, D, device=cuda)
+    leaves = [t.detach().requires_grad_()
+              for t in (u, dt, z, acc, A, B, C, Dv, bias)]
+    lu, ldt, lz, la, lA, lB, lC, lD, lb = leaves
+    before = scan_dir.BWD_LAUNCHES
+    scan_dir.mamba_scan_fused_dir(lu, ldt, lz, lA, lB, lC, lD, lb, acc=la,
+                                  reverse=True).backward(dout)
+    assert scan_dir.BWD_LAUNCHES == before + 2
+    want = scan_dir.mamba_scan_fused_dir_bwd_ref(
+        u, dt, z, A, B, C, Dv, bias, dout, acc=acc, reverse=True)
+    for name, leaf, w in zip(GRADS, leaves, want):
+        _grad_close(f"{name} N=32", leaf.grad, w, F32)
+
+
+def test_single_pass_backward_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits for every
+    gradient (K3 both flag sets, K4, K5, K6): wherever a tile's look-back
+    stops, it folds the same records in the same order from the seed."""
+    R, L, D = 2, 65536, 96
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(
+        70, R, L, D, torch.bfloat16, False, True, cuda)
+    A, bias = _slow_decay(A, bias)
+    dout = torch.randn(R, L, D, device=cuda).to(torch.bfloat16)
+    T = scan_dir.DEF_CHUNK
+    calls = {}
+    for name, kw in (("K3 reverse", dict(reverse=True, gate=False)),
+                     ("K3 gate acc", dict(gate=True, acc=acc)),
+                     ("K4", dict(gate=True)), ("K5", dict(nslices=64))):
+        kw = dict(kw)
+        ac, gate = kw.pop("acc", None), kw.pop("gate", True)
+        zz = z if gate else None
+        fwd = dict(reverse=kw.get("reverse", False), gate=gate,
+                   chunk_size=T, nslices=kw.get("nslices", 0))
+        _, st = scan_dir._launch(u, dt, zz, ac, A, B, C, Dv, bias,
+                                 return_states=True, **fwd)
+        calls[name] = (lambda zz=zz, ac=ac, st=st, fwd=fwd:
+                       scan_dir._launch_bwd(u, dt, zz, ac, A, B, C, Dv,
+                                            bias, dout, st, **fwd))
+    uf, deltaf = u.float(), torch.nn.functional.softplus(dt.float() - 3.0)
+    _, st6 = scan_core._launch(uf, deltaf, A, B.float(), C.float(), T)
+    dlast = torch.randn(R, D, N, device=cuda)
+    calls["K6"] = lambda: scan_core._launch_bwd(
+        uf, deltaf, A, B.float(), C.float(), dout.float(), dlast, st6, T)
+    for name, call in calls.items():
+        first = call()
+        again = call()
+        assert all(torch.equal(a, b) for a, b in zip(first, again)
+                   if a is not None), name
+
+
+def test_backward_scan_is_one_kernel(cuda):
+    """One backward call runs one scan kernel on the card, beside the zero
+    fill of its flags and the wrapper's sums of the partials: no chunk or
+    carry pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    u, dt, z, acc, B, C, A, Dv, bias = _inputs(
+        71, 1, 8192, 96, torch.bfloat16, False, True, cuda)
+    dout = torch.randn(1, 8192, 96, device=cuda).to(torch.bfloat16)
+    _, st = scan_dir._launch(u, dt, z, acc, A, B, C, Dv, bias, reverse=True,
+                             gate=True, chunk_size=scan_dir.DEF_CHUNK,
+                             return_states=True)
+    call = lambda: scan_dir._launch_bwd(
+        u, dt, z, acc, A, B, C, Dv, bias, dout, st, reverse=True, gate=True,
+        chunk_size=scan_dir.DEF_CHUNK)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    scans = [e for e in events if "scan_bwd_kernel" in e.key]
+    others = [e.key for e in events if "scan_bwd_kernel" not in e.key]
+    assert len(scans) == 1 and scans[0].count == 1, [e.key for e in events]
+    assert not any("bwd" in k or "scan" in k for k in others), others
+
+
 def _param_grads(model, x, labels):
     model.zero_grad(set_to_none=True)
     logits = model(x)
