@@ -8,13 +8,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), a CUDA card
    required, the forward scan kernel built from ``segmamba_tpu_torch/csrc``.
-1b. The backward scan kernel (``gated_scan_bwd.cu``), the
-   projection-fused kernels (``proj_scan_fwd.cu``, ``proj_scan_bwd.cu``),
-   the ratio-form scan K7 (``mxu_scan_fwd.cu``, ``mxu_scan_bwd.cu``), the
-   3x3x3 conv K9 (``conv3d_k3s1_fwd.cu``, ``conv3d_k3s1_dw.cu``) and the
-   scan probes K10 (``scan_lb_fwd.cu``) and K11 (``scan_flat_fwd.cu``),
-   built in parallel with the forward one (one nvcc each, from ten
-   threads): build times, ptxas registers/spills.
+1b. The backward scan kernel (``gated_scan_bwd.cu``; with the forward
+   one they also hold the ratio-form scan K7, ``mxu_fwd_kernel`` and
+   ``mxu_bwd_kernel``), the projection-fused kernels (``proj_scan_fwd.cu``,
+   ``proj_scan_bwd.cu``), the 3x3x3 conv K9 (``conv3d_k3s1_fwd.cu``,
+   ``conv3d_k3s1_dw.cu``) and the scan probes K10 (``scan_lb_fwd.cu``) and
+   K11 (``scan_flat_fwd.cu``), built in parallel with the forward one (one
+   nvcc each, from eight threads): build times, ptxas registers/spills.
 2. Kernel vs plain PyTorch at the main path's shapes (stage 0: R=1,
    L=262144, D=96; stage 3: R=1, L=512, D=768; N=16) for the three flag
    sets the path launches (dir reverse ungated, dir gate + acc, fused gate
@@ -153,7 +153,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    turn: s/step (median of 4 after a warm-up), peak memory, losses
    finite and falling over 5 steps, exact forward and backward launches
    per step; the forward and backward ms of a stage-0 and a stage-1
-   Mamba layer run alone.
+   Mamba layer run alone; then the device time of a stage-0 layer's
+   forward + backward by kernel name under "mxu" and "dir2"
+   (``--breakdown mxu_layer`` / ``dir2_layer``): K7's kernels against the
+   per-direction glue (flips, float32 casts, D-skip and gate).
 14. K7 (``scan_mxu``) vs its plain version at the LM prefill's shape
    (R=2, L=2048, D=5120), a ragged one (R=1, L=2000) and SegMamba's stage
    0 (R=1 and 2, L=262144, D=96), N=16, on four kinds of input: deltas in
@@ -171,7 +174,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    uses on the rest. The ratio-form share
    of each input (``scan_mxu.tally``), K7's times beside K6's on the same
    inputs (CUDA events), the plain times and K6's bound (``core_bound``:
-   K7 computes K6's function on K6's operands).
+   K7 computes K6's function on K6's operands); the device time of one K7
+   call each way on the "model" input at stage 0 R=2 and at the prefill
+   shape (``--breakdown mxu_fwd``, ``mxu_bwd``, ``mxu_fwd_prefill``,
+   ``mxu_bwd_prefill``).
 
 15. K9 (``segmamba_tpu_torch.ops.conv3d``, the channels-last 3x3x3 SAME
    conv and its weight gradient): forward, dx and dw through
@@ -350,8 +356,6 @@ LM_CONFIG = dict(vocab_size=50277, d_model=2560, n_layer=64, rms_norm=True,
                  pad_vocab_size_multiple=8)   # state-spaces/mamba-2.8b
 LM_CHECK = (2, 512)                # batch, prompt: float32 kernel vs plain
 LM_SERVE = (1, 2048, 128)          # batch, prompt, new tokens: bf16 serving
-MXU_SOURCES = {"fwd": "segmamba_tpu_torch/csrc/mxu_scan_fwd.cu",
-               "bwd": "segmamba_tpu_torch/csrc/mxu_scan_bwd.cu"}
 MXU_REPLACES = {"fwd": "segmamba_tpu/ops/scan_pallas_mxu.py:131",
                 "bwd": "segmamba_tpu/ops/scan_pallas_mxu.py:165"}
 MXU_SHAPES = {"prefill": (2, 2048, 5120), "ragged": (1, 2000, 5120),
@@ -946,11 +950,8 @@ def phase_grads():
 
 
 KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
-    ("scan K7 backward (mxu_scan_bwd)",
-     ("mxu_bwd_chunk_kernel", "mxu_bwd_carry_kernel", "mxu_bwd_grad_kernel")),
-    ("scan K7 forward (mxu_scan_fwd)",
-     ("mxu_chunk_exit_kernel", "mxu_chunk_carry_kernel",
-      "mxu_chunk_output_kernel")),
+    ("scan K7 backward (gated_scan_bwd RATIO)", ("mxu_bwd_kernel",)),
+    ("scan K7 forward (gated_scan_fwd RATIO)", ("mxu_fwd_kernel",)),
     ("scan K8 backward (proj_scan_bwd)",
      ("proj_bwd_chunk_kernel", "proj_bwd_carry_kernel",
       "proj_bwd_grad_kernel")),
@@ -1000,8 +1001,8 @@ def kernel_breakdown(tag, fn):
     """Device time of one call of ``fn`` by kernel name (torch.profiler),
     logged on one line; returns {kernel name: device ms}."""
     _, _, kernels = profiled(fn)
-    name = lambda e: (re.search(r"(\w+)<", e.key) or re.search(
-        r"(\w+)", e.key)).group(1)
+    name = lambda e: (re.search(r"::(\w+)[<(]", e.key) or re.search(
+        r"(\w+)<", e.key) or re.search(r"(\w+)", e.key)).group(1)
     parts = {}
     for e in kernels:
         parts[name(e)] = parts.get(name(e), 0.0) + (
@@ -2113,6 +2114,7 @@ def phase_composition_train():
         del model, state
         gc.collect()
         torch.cuda.empty_cache()
+    stats["mxu"]["layer_split"] = layer_split()
     return stats
 
 
@@ -2356,6 +2358,14 @@ def phase_mxu(results):
                     ddelta=dict(K7=ddelta, K6=ddelta6) if f64 else None))
             del u, delta, A, B, C, st, dy, dlast
             torch.cuda.empty_cache()
+    for direction in ("fwd", "bwd"):   # device time, each a fresh process
+        for suffix, shape in (("", "stage0_r2"), ("_prefill", "prefill")):
+            parts = breakdown_in_child(f"mxu_{direction}{suffix}",
+                                       f"K7 {direction} {shape} model")
+            row = next(r for r in results if r["direction"] == direction
+                       and r["shape"] == shape and r["kind"] == "model")
+            row["device_ms"] = (None if parts is None
+                                else sum(parts.values()))
 
 
 def ddelta_report(tag, got, want, plain32):
@@ -2817,8 +2827,16 @@ def breakdown_call(name):
     inputs; phase 5's stage-0 bf16 backward kernel calls ("bwd_" + a
     variant); phase 11's K5 backward at stage 0, R = 2, bf16
     ("bwd_slice"); phase 9's K6 backward at the prefill shape
-    ("bwd_core"); or phase 17's R = 1 bf16 calls of K2 ("k2"), K10
-    ("noshift", "nohs") and K11 ("flat") on phase 17's inputs."""
+    ("bwd_core"); phase 14's K7 calls ("mxu_fwd", "mxu_bwd", and at the
+    prefill shape "mxu_fwd_prefill", "mxu_bwd_prefill"; "k6_..." K6 on the
+    same inputs: ``mxu_breakdown_call``); phase 13's stage-0 layer
+    ("mxu_layer", "dir2_layer": ``layer_call``); or phase 17's R = 1 bf16
+    calls of K2 ("k2"), K10 ("noshift", "nohs") and K11 ("flat") on phase
+    17's inputs."""
+    if name in ("mxu_layer", "dir2_layer"):
+        return layer_call(name[:-len("_layer")])
+    if name.startswith(("mxu_", "k6_")):
+        return mxu_breakdown_call(name)
     if name in VARIANTS:
         R, L, D = SHAPES["stage0"]
         a = scan_inputs(R, L, D, torch.bfloat16, seed=L + D)
@@ -2837,6 +2855,85 @@ def breakdown_call(name):
             a["u"], a["dt"], a["z"], a["A"], a["B"], a["C"], a["D"],
             a["bias"])
     return functools.partial(probe_call, name, a)
+
+
+def mxu_breakdown_call(name):
+    """``--breakdown {mxu|k6}_{fwd|bwd}[_prefill]``: one K7 call (K6's with
+    "k6") of phase 14 on its "model" input, at stage 0 R = 2 or with
+    "_prefill" at the LM prefill shape; the backward from the forward's
+    chunk states, with phase 14's dy and dlast."""
+    kern, direction, *shape = name.split("_")
+    R, L, D = MXU_SHAPES["prefill" if shape == ["prefill"] else "stage0_r2"]
+    T, S = scan_mxu._geometry(L)
+    u, delta, A, B, C = mxu_inputs(R, L, D, "model", seed=L + D + R)
+    if kern == "mxu":
+        fwd = lambda: scan_mxu._launch(u, delta, A, B, C, T, S, True)
+    else:
+        fwd = lambda: scan_core._launch(u, delta, A, B, C,
+                                        scan_core.DEF_CHUNK)
+    if direction == "fwd":
+        return fwd
+    g = torch.Generator(device=DEVICE).manual_seed(L + 1)
+    dy = torch.randn(R, L, D, generator=g, device=DEVICE)
+    dlast = torch.randn(R, D, N, generator=g, device=DEVICE)
+    st = fwd()[1]
+    if kern == "mxu":
+        return lambda: scan_mxu._launch_bwd(u, delta, A, B, C, dy, dlast, st,
+                                            T, S, True)
+    return lambda: scan_core._launch_bwd(u, delta, A, B, C, dy, dlast, st,
+                                         scan_core.DEF_CHUNK)
+
+
+def layer_call(comp):
+    """``--breakdown mxu_layer`` / ``dir2_layer``: phase 13's stage-0 Mamba
+    layer (``vit.stages.0.0`` of the bf16 train-step model under
+    composition ``comp``), forward and backward on the input it sees in the
+    recipe batch's forward."""
+    image = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 4, *ROI)).astype(np.float32)).cuda()
+    model = build_composition(comp, torch.bfloat16, remat="convs")
+    mod = dict(model.named_modules())["vit.stages.0.0"]
+    seen = []
+    hook = mod.register_forward_pre_hook(
+        lambda m, args: seen.extend(t.detach() for t in args))
+    with torch.no_grad():
+        model(image)
+    hook.remove()
+    args = [t.clone().requires_grad_() for t in seen]
+    del image
+
+    def run():
+        out = _call(mod, False, *args)
+        out.backward(torch.ones_like(out))
+    return run
+
+
+def layer_split():
+    """Phase 13's stage-0 layer (forward + backward) by kernel name under
+    "mxu" and "dir2", each profile in a fresh process: K7's two kernels
+    against the rest of the mxu layer (the per-direction glue), dir2's
+    scan kernels against the rest of its layer. Returns {comp: {"total",
+    "scan", "rest"} device ms} (None where not measured)."""
+    out = {}
+    for comp, scan in (("mxu", ("mxu_fwd_kernel", "mxu_bwd_kernel")),
+                       ("dir2", ("scan_fwd_kernel", "scan_bwd_kernel"))):
+        parts = breakdown_in_child(f"{comp}_layer",
+                                   f"stage-0 layer fwd + bwd {comp}")
+        if parts is None:
+            out[comp] = None
+            continue
+        total = sum(parts.values())
+        sc = sum(v for k, v in parts.items() if k in scan)
+        out[comp] = dict(total=total, scan=sc, rest=total - sc)
+    if None not in out.values():
+        m, d = out["mxu"], out["dir2"]
+        log(f"stage-0 layer fwd + bwd, device: mxu {m['total']:.4f} ms = "
+            f"K7 {m['scan']:.4f} + the rest {m['rest']:.4f}; dir2 "
+            f"{d['total']:.4f} ms = scans {d['scan']:.4f} + the rest "
+            f"{d['rest']:.4f}; mxu's extra {m['total'] - d['total']:.4f} ms "
+            f"= scans {m['scan'] - d['scan']:.4f} + the per-direction glue "
+            f"{m['rest'] - d['rest']:.4f}")
+    return out
 
 
 def breakdown_child_main(name):
@@ -2990,19 +3087,17 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{device_kind}, count {torch.cuda.device_count()}")
     # one nvcc per source, all started together (threads wait on them)
-    loaders = (scan_dir._lib, scan_dir._bwd_lib, scan_proj._lib,
-               scan_proj._bwd_lib, scan_mxu._lib, scan_mxu._bwd_lib,
-               conv3d._lib, conv3d._dw_lib, bench_scan_lb._lib,
-               bench_scan_flat._lib)
+    loaders = (scan_mxu._lib, scan_mxu._bwd_lib, scan_proj._lib,
+               scan_proj._bwd_lib, conv3d._lib, conv3d._dw_lib,
+               bench_scan_lb._lib, bench_scan_flat._lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
     for name in ("gated_scan_fwd", "gated_scan_bwd", "proj_scan_fwd",
-                 "proj_scan_bwd", "mxu_scan_fwd", "mxu_scan_bwd",
-                 "conv3d_k3s1_fwd", "conv3d_k3s1_dw", "scan_lb_fwd",
-                 "scan_flat_fwd"):
+                 "proj_scan_bwd", "conv3d_k3s1_fwd", "conv3d_k3s1_dw",
+                 "scan_lb_fwd", "scan_flat_fwd"):
         info = _build.BUILD_INFO[name]
-        log(f"built {name} in {info['seconds']:.1f} s (all ten sources "
+        log(f"built {name} in {info['seconds']:.1f} s (all eight sources "
             "in parallel)")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line.lower():
@@ -3211,6 +3306,8 @@ def main():
         rows = [r for r in mxu_results if r["direction"] == direction]
         main_row = next(r for r in rows if r["shape"] == "prefill"
                         and r["kind"] == "model")
+        stage0 = next(r for r in rows if r["shape"] == "stage0_r2"
+                      and r["kind"] == "model")
         if direction == "fwd":
             by_path = {
                 "lm_prefill_f32": lm_stats["mxu_prefill_counts"]["scan_mxu"],
@@ -3229,14 +3326,19 @@ def main():
             launches = by_path["lm_prefill_grad"]
         kernels.append(dict(
             name=f"mxu_scan_{direction}[scan_mxu]", route="cuda",
-            source=MXU_SOURCES[direction], replaces=MXU_REPLACES[direction],
+            source=SOURCES[direction], replaces=MXU_REPLACES[direction],
             launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=None, variant="ratio_form_guarded",
             k6_ms=main_row["k6_ms"], ratio_share=main_row["share"],
-            launches_by_path=by_path))
+            device_ms=main_row["device_ms"],
+            stage0_r2={k: stage0[k] for k in (
+                "ms", "device_ms", "k6_ms", "plain_ms", "bound_ms")},
+            launches_by_path=by_path,
+            **({"layer_split": comp_train["mxu"]["layer_split"]}
+               if direction == "bwd" else {})))
     main_row = conv_results[0]     # 128^3 48 -> 48, the decoder's conv
     for direction, pre, counter in (("fwd", "", "conv3d"),
                                     ("dw", "dw_", "conv3d_dw")):

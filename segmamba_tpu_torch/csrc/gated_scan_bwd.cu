@@ -1,6 +1,6 @@
 // Gated selective scan, backward, for Hopper (sm_90a).
 //
-// Replaces three Pallas TPU kernels of the JAX package with one template:
+// Replaces five Pallas TPU kernels of the JAX package with one template:
 //   K3  segmamba_tpu/ops/scan_pallas_dir.py:119   _dir_bwd_kernel
 //       (flags REVERSE, GATE, HAS_ACC; driven by _dir_bwd_call :270 and the
 //       custom VJP of _make_dir_core :350)
@@ -16,6 +16,9 @@
 //       zero; _bwd_call :281, _make_core :333): the ungated core's adjoint,
 //       seeded by dlast, the gradient of the returned last state. du and
 //       ddt are then du and ddelta; the wrapper keeps du, ddelta, dA, dB, dC.
+//   K7  segmamba_tpu/ops/scan_pallas_mxu.py:165   _bwd_kernel (pallas_call
+//       :284; _bwd_call_mxu :275, _make_core :335): K6's adjoint in K7's
+//       ratio form (RATIO, below), as its own kernel mxu_bwd_kernel.
 // It is the adjoint of csrc/gated_scan_fwd.cu and reads that kernel's chunk
 // exit states (R, nc, N, D), float32, in scan order.
 //
@@ -131,6 +134,38 @@
 // Where the time goes: tools/scan_bwd_probe.py prints a block's split
 // (sweep F, the look-back's wait and fold, sweep B) and the cost of the
 // dB/dC reduce-scatter and of the third block an SM (PERF.md §6).
+//
+// RATIO (K7; K6's flags and operands, the adjoint of gated_scan_fwd.cu's
+// RATIO): the same tiles, staging, look-back, reductions and outputs, with
+// x and the adjoint in K7's arithmetic, per unit (row, channel, state,
+// sub-block of `sub` steps) under the forward's guard. The guard: before
+// sweep F the block takes, per (sub-block, channel), the serial sum of
+// |delta| in step order from device memory into shared memory (the
+// forward's sub_block_bits sums the same values in the same order, so the
+// kernels reach the same decision bit for bit); a unit takes the ratio
+// form when |A| times it is below MAX_BLOCK_DROP (all units with guarded =
+// 0), otherwise the step form. With cum the sub-block's running sum of
+// delta, l = A cum, P = exp(l), Pinv = exp(-max(l, -MAX_BLOCK_DROP - 10)):
+//   - Sweep F runs the forward's ratio form from the entry state: the
+//     running value v = c + sum b Pinv (c = P_end v at a sub-block's end;
+//     the step form's v is x), checkpointed with cum every K steps in
+//     shared memory; and the adjoint aggregate h = sum_s P_s C_s dy_s with
+//     the chunk's prefix decay P_s = (the earlier sub-blocks' P_end) x the
+//     step's P, which the ratio form has at hand (the step form's running
+//     product of decays as in K6): two exps a (step, state).
+//   - Sweep B replays K steps from the checkpoint (v, and x at a
+//     sub-block's end: one exp a (step, state)) and walks the adjoint
+//     backwards, a ratio unit as JAX's upper-triangular sums (:204-225):
+//     gr = P_end g_in at the sub-block's end, gr += P_t dx_t,
+//     g_t = Pinv_t gr, and at its start the carry a g with a = P (cum is
+//     delta there); a step unit as K6's g = dx + a g. Both forms have
+//     dp = g_t (x_{t-1} a_t) = g_t (P_t v_{t-1}) (or a_t x_{t-1}), so the
+//     walk takes two exps a (step, state) (P or a, and Pinv).
+// Five exps a (step, state) in all against K6's three. Sweep F runs a
+// group of K steps whose units (of this thread) all take one form without
+// the per-unit selects (Form); sweep B does not: its three copies spilled
+// to local memory and ran 1.13x slower on the H100 (PERF.md §6).
+// dD and dbias are not formed (the wrapper applies D and bias outside).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,6 +188,8 @@ constexpr unsigned FLAG_AGG = 1, FLAG_INCL = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned long long WAIT_LIMIT_NS = 4000000000ull;
+constexpr int MIN_BLOCKS = 3;     // the launch bound: blocks an SM
+constexpr int NA_RATIO = 3;       // RATIO's slot arrays: delta, u, dy
 
 // Slot arrays (each K x DB floats, after B and C): sweep F's and sweep B's.
 constexpr int A_DEL = 0, A_U = 1, A_DY = 2;
@@ -191,6 +228,8 @@ struct Params {
   long long su_r, su_l, sdt_r, sdt_l, sz_r, sz_l, sacc_r, sacc_l;
   long long sB_r, sB_l, sC_r, sC_l;
   long long sA_r, sDv_r, sbias_r;
+  int sub, guarded, n_valid;    // RATIO: sub-block, guard, real states
+  unsigned long long* tally;    // RATIO: (ratio units, step units) or null
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -212,6 +251,8 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+#include "ratio_guard.cuh"   // RATIO's guard and step, shared with the fwd
 
 __device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
   unsigned v;
@@ -263,6 +304,23 @@ __device__ __forceinline__ float fold(float g, float a2, float sd, float h) {
 
 __device__ __forceinline__ void unpack(const float4& v, float (&a)[SPT]) {
   a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+}
+
+// RATIO: the form of this thread's units over scan steps [i0, i0 + K) of
+// a chunk of len steps (past len: identity steps, the step form), from
+// the guard sums of the sub-blocks they touch.
+__device__ __forceinline__ int group_form(const float* sDabs, int DB, int ch,
+                                          int i0, int len, int sub,
+                                          const float (&aa)[SPT],
+                                          int guarded) {
+  const int i1 = min(i0 + K, len);
+  unsigned all = i1 < i0 + K ? 0u : (1u << SPT) - 1u, any = 0u;
+  for (int sb = i0 / sub; sb * sub < i1; ++sb) {
+    const unsigned m = ratio_bits(sDabs[sb * DB + ch], aa, guarded);
+    all &= m;
+    any |= m;
+  }
+  return all == (1u << SPT) - 1u ? ALL_RATIO : any == 0u ? ALL_STEP : MIXED;
 }
 
 // Original row of scan-order step tt: itself, or with SLICE the step's place
@@ -389,19 +447,21 @@ __device__ __forceinline__ void store_group(const Params& p, long long r,
 }
 
 template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
-          bool SLICE>
-__global__ void __launch_bounds__(MAX_THREADS, 3) scan_bwd_kernel(Params p) {
+          bool SLICE, bool RATIO>
+__device__ __forceinline__ void scan_bwd_body(const Params& p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = p.T, DB = p.DB;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
   const int ngmax = (T + K - 1) / K;
-  const int slot_len = K * (2 * NS + NA * DB);
+  const int slot_len = K * (2 * NS + (RATIO ? NA_RATIO : NA) * DB);
   unsigned* sMisc = reinterpret_cast<unsigned*>(smem);   // ticket, walk
   float* sCk = smem + 4;                     // (ngmax - 1, DB, NS)
   float* sSlot = sCk + (ngmax - 1) * DB * NS;   // two slots
   float* sX = sSlot + 2 * slot_len;          // two (nw, K, 32) exchanges
+  float* sCum = sX + 2 * nw * K * 32;        // RATIO: (ngmax - 1, DB) cum
+  float* sDabs = sCum + (ngmax - 1) * DB;    // RATIO: (T / sub, DB)
 
   if (tid == 0) sMisc[0] = atomicAdd(p.flags, 1u);
   __syncthreads();
@@ -420,24 +480,51 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) scan_bwd_kernel(Params p) {
   const bool active = d < p.D;
   const long long dc = active ? d : p.D - 1;
 
-  float a2[SPT];   // A log2(e)
+  float a2[SPT], aa[SPT];   // A log2(e); |A| (RATIO's guard)
 #pragma unroll
-  for (int n = 0; n < SPT; ++n)
-    a2[n] = p.A[r * p.sA_r + dc * NS + qs * SPT + n] * LOG2E;
-  const float Dv = p.Dv[r * p.sDv_r + dc];
+  for (int n = 0; n < SPT; ++n) {
+    const float an = p.A[r * p.sA_r + dc * NS + qs * SPT + n];
+    a2[n] = an * LOG2E;
+    aa[n] = fabsf(an);
+  }
+  const float Dv = RATIO ? 0.f : p.Dv[r * p.sDv_r + dc];
   // the staging channel's bias and D
   const long long ds = min(d0 + tid % DB, p.D - 1);
-  const float bias_s = p.bias[r * p.sbias_r + ds];
-  const float Dv_s = p.Dv[r * p.sDv_r + ds];
+  const float bias_s = RATIO ? 0.f : p.bias[r * p.sbias_r + ds];
+  const float Dv_s = RATIO ? 0.f : p.Dv[r * p.sDv_r + ds];
+  // RATIO: the units' guard sums, per (sub-block, channel), and the states
+  // the tally counts
+  unsigned valid = 0, units[2] = {0u, 0u};
+  if constexpr (RATIO) {
+    const float* dtr = static_cast<const float*>(p.dt) + r * p.sdt_r;
+    const int nsb = (len + p.sub - 1) / p.sub;
+    for (int e = tid; e < nsb * DB; e += blockDim.x) {
+      const int sb = e / DB, k = e % DB;
+      const float* dtk = dtr + min(d0 + k, p.D - 1) + t0 * p.sdt_l;
+      float dabs = 0.f;   // serial, in step order
+      for (int t = sb * p.sub; t < min(sb * p.sub + p.sub, len); ++t)
+        dabs += fabsf(dtk[t * p.sdt_l]);
+      sDabs[e] = dabs;
+    }
+#pragma unroll
+    for (int n = 0; n < SPT; ++n)
+      if (active && qs * SPT + n < p.n_valid) valid |= 1u << n;
+  }
 
   // Sweep F: x from the entry state, its checkpoints, the aggregate h and
   // sum delta; dz.
   float x[SPT], P[SPT], h[SPT], sd = 0.f;
+  // RATIO: x is the running value v; Pk the chunk's decay before the
+  // sub-block; cum, the mask m, and the step's place in its sub-block
+  float Pk[SPT], cum = 0.f;
+  unsigned m = 0;
+  int pos = 0, sb = 0;
 #pragma unroll
   for (int n = 0; n < SPT; ++n) {
     x[n] = 0.f;
     P[n] = 1.f;
     h[n] = 0.f;
+    Pk[n] = 1.f;
   }
   if (w > 0 && active) {
     const float* st =
@@ -457,33 +544,90 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) scan_bwd_kernel(Params p) {
     if (more)
       load_group<S, true, REVERSE, GATE, HAS_ACC, SLICE>(p, r, d0, t0, len,
                                                           j + 1, q);
-    if (j > 0)
+    if (j > 0) {
       *reinterpret_cast<float4*>(sCk + ((j - 1) * DB + ch) * NS +
                                  qs * SPT) = make_float4(x[0], x[1], x[2],
                                                          x[3]);
+      if (RATIO && qs == 0) sCum[(j - 1) * DB + ch] = cum;
+    }
     const float* slot = sSlot + (j & 1) * slot_len;
     const float* sB = slot;
     const float* sC = sB + K * NS;
     const float* arr = sC + K * NS;
     float yp[K];   // this thread's part of C.x, per step
+    if constexpr (RATIO) {
+      auto steps = [&](auto form) __attribute__((always_inline)) {
+        constexpr int F = decltype(form)::value;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float* a = arr + k * DB + ch;
-      const float delta = a[A_DEL * K * DB];
-      const float dy = a[A_DY * K * DB];
-      const float du = delta * a[A_U * K * DB];
-      float b[SPT], c[SPT];
-      unpack(*reinterpret_cast<const float4*>(sB + k * NS + qs * SPT), b);
-      unpack(*reinterpret_cast<const float4*>(sC + k * NS + qs * SPT), c);
-      sd += delta;
-      yp[k] = 0.f;
+        for (int k = 0; k < K; ++k) {
+          const float* a = arr + k * DB + ch;
+          const float delta = a[A_DEL * K * DB];
+          const float dy = a[A_DY * K * DB];
+          const float du = delta * a[A_U * K * DB];
+          float b[SPT], c[SPT];
+          unpack(*reinterpret_cast<const float4*>(sB + k * NS + qs * SPT),
+                 b);
+          unpack(*reinterpret_cast<const float4*>(sC + k * NS + qs * SPT),
+                 c);
+          sd += delta;
+          const int i = j * K + k;
+          if (i < len && pos == 0) {   // a sub-block starts
+            m = ratio_bits(sDabs[sb * DB + ch], aa, p.guarded);
+            units[0] += __popc(m & valid);
+            units[1] += __popc(~m & valid);
+            cum = 0.f;
+          }
+          cum += delta;
+          const bool end = i < len && (pos == p.sub - 1 || i == len - 1);
+          const unsigned mi = i < len ? m : 0u;   // past L: identity steps
 #pragma unroll
-      for (int n = 0; n < SPT; ++n) {
-        const float an = ex2(delta * a2[n]);
-        x[n] = __fmaf_rn(an, x[n], du * b[n]);
-        P[n] *= an;
-        h[n] = __fmaf_rn(P[n], c[n] * dy, h[n]);
-        yp[k] = __fmaf_rn(c[n], x[n], yp[k]);
+          for (int n = 0; n < SPT; ++n) {
+            const bool rn = is_ratio<F>(mi, n);
+            const float l2 = a2[n] * cum;
+            const float e = ratio_advance(rn, l2, a2[n], delta, du * b[n],
+                                          x[n]);
+            const float ep = rn ? ex2(l2) : e;   // P, or the step's decay
+            P[n] = rn ? Pk[n] * ep : P[n] * ep;
+            h[n] = __fmaf_rn(P[n], c[n] * dy, h[n]);
+            if (end) {
+              if (rn) x[n] *= ep;   // the carry, P_end v
+              Pk[n] = P[n];
+            }
+          }
+          if (i < len && ++pos == p.sub) {
+            pos = 0;
+            ++sb;
+          }
+        }
+      };
+      const int gf = group_form(sDabs, DB, ch, j * K, len, p.sub, aa,
+                                p.guarded);
+      if (gf == ALL_RATIO)
+        steps(Form<ALL_RATIO>{});
+      else if (gf == ALL_STEP)
+        steps(Form<ALL_STEP>{});
+      else
+        steps(Form<MIXED>{});
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float* a = arr + k * DB + ch;
+        const float delta = a[A_DEL * K * DB];
+        const float dy = a[A_DY * K * DB];
+        const float du = delta * a[A_U * K * DB];
+        float b[SPT], c[SPT];
+        unpack(*reinterpret_cast<const float4*>(sB + k * NS + qs * SPT), b);
+        unpack(*reinterpret_cast<const float4*>(sC + k * NS + qs * SPT), c);
+        sd += delta;
+        yp[k] = 0.f;
+#pragma unroll
+        for (int n = 0; n < SPT; ++n) {
+          const float an = ex2(delta * a2[n]);
+          x[n] = __fmaf_rn(an, x[n], du * b[n]);
+          P[n] *= an;
+          h[n] = __fmaf_rn(P[n], c[n] * dy, h[n]);
+          yp[k] = __fmaf_rn(c[n], x[n], yp[k]);
+        }
       }
     }
     if (GATE) {
@@ -628,10 +772,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) scan_bwd_kernel(Params p) {
     const float* sB = slot;
     const float* sC = sB + K * NS;
     const float* arr = sC + K * NS;
-    float xc[SPT], xs[K][SPT];
+    float xc[SPT], rc = 0.f;   // the checkpoint (RATIO: and its cum)
     if (j > 0) {
       unpack(*reinterpret_cast<const float4*>(sCk + ((j - 1) * DB + ch) *
                                               NS + qs * SPT), xc);
+      if (RATIO) rc = sCum[(j - 1) * DB + ch];
     } else {   // group 0's checkpoint is the entry state
 #pragma unroll
       for (int n = 0; n < SPT; ++n)
@@ -639,7 +784,19 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) scan_bwd_kernel(Params p) {
                                             qs * SPT + n) * p.D + d]
                                 : 0.f;
     }
-    // replay the group from its checkpoint
+    float xs[K][SPT];
+    // RATIO: each step's cum, and its guard bits | start 16 | end 32
+    float cums[K];
+    unsigned fl[K];
+    // replay the group from its checkpoint (RATIO: xs holds v, and x at a
+    // sub-block's end)
+    int rpos = 0, rsb = 0;
+    unsigned rm = 0;
+    if (RATIO) {
+      rpos = j * K % p.sub;
+      rsb = j * K / p.sub;
+      rm = ratio_bits(sDabs[rsb * DB + ch], aa, p.guarded);
+    }
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const float* a = arr + k * DB + ch;
@@ -647,6 +804,33 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) scan_bwd_kernel(Params p) {
       const float du = delta * a[A_U * K * DB];
       float b[SPT];
       unpack(*reinterpret_cast<const float4*>(sB + k * NS + qs * SPT), b);
+      if constexpr (RATIO) {
+        const int i = j * K + k;
+        const bool start = i < len && rpos == 0;
+        if (start) {
+          rm = ratio_bits(sDabs[rsb * DB + ch], aa, p.guarded);
+          rc = 0.f;
+        }
+        rc += delta;
+        cums[k] = rc;
+        const bool end = i < len && (rpos == p.sub - 1 || i == len - 1);
+        const unsigned mi = i < len ? rm : 0u;   // past L: identity steps
+        fl[k] = mi | (start ? 16u : 0u) | (end ? 32u : 0u);
+#pragma unroll
+        for (int n = 0; n < SPT; ++n) {
+          const bool rn = mi >> n & 1u;
+          const float l2 = a2[n] * rc;
+          float v = k > 0 ? xs[k - 1][n] : xc[n];
+          ratio_advance(rn, l2, a2[n], delta, du * b[n], v);
+          if (end && rn) v *= ex2(l2);   // x = P_end v
+          xs[k][n] = v;
+        }
+        if (i < len && ++rpos == p.sub) {
+          rpos = 0;
+          ++rsb;
+        }
+        continue;
+      }
 #pragma unroll
       for (int n = 0; n < SPT; ++n) {
         const float an = ex2(delta * a2[n]);
@@ -668,15 +852,33 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) scan_bwd_kernel(Params p) {
       float Sp = 0.f, ddp = 0.f;
 #pragma unroll
       for (int n = 0; n < SPT; ++n) {
-        const float an = ex2(delta * a2[n]);
-        const float gn = __fmaf_rn(c[n], dy, g[n]);
-        const float dp = gn * (an * (k > 0 ? xs[k - 1][n] : xc[n]));
+        const float prev = k > 0 ? xs[k - 1][n] : xc[n];
+        float gn, dp, xt;
+        if constexpr (RATIO) {
+          const bool rn = fl[k] >> n & 1u;
+          const bool at_start = fl[k] & 16u, at_end = fl[k] & 32u;
+          const float l2 = a2[n] * cums[k];
+          const float e1 = ex2(rn ? l2 : delta * a2[n]);   // P, or a
+          const float e2 = ex2(-fmaxf(l2, PINV_FLOOR2));    // Pinv
+          // ratio: gr = P_end g_in at the end, + P dx; g = Pinv gr
+          const float grs = rn && at_end ? e1 * g[n] : g[n];
+          const float gsum = __fmaf_rn(rn ? e1 : 1.f, c[n] * dy, grs);
+          gn = rn ? e2 * gsum : gsum;
+          dp = gn * (e1 * prev);   // x_{t-1} a_t = P_t v_{t-1}
+          xt = rn && !at_end ? e1 * xs[k][n] : xs[k][n];
+          g[n] = rn && !at_start ? gsum : e1 * gn;
+        } else {
+          const float an = ex2(delta * a2[n]);
+          gn = __fmaf_rn(c[n], dy, g[n]);
+          dp = gn * (an * prev);
+          xt = xs[k][n];
+          g[n] = an * gn;
+        }
         dA[n] = __fmaf_rn(dp, delta, dA[n]);
         ddp = __fmaf_rn(dp, a2[n], ddp);
         Sp = __fmaf_rn(gn, b[n], Sp);
-        g[n] = an * gn;
         vB[n] = gn * du;
-        vC[n] = xs[k][n] * dy;
+        vC[n] = xt * dy;
       }
       ddp = __fmaf_rn(Sp, uu, ddp * LN2);
       // S (quarters 0, 2) and ddelta (1, 3) over the channel's 4 threads
@@ -738,29 +940,53 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) scan_bwd_kernel(Params p) {
     *reinterpret_cast<float4*>(p.dA_p + ((r * p.nc + w) * p.D + d) * NS +
                                qs * SPT) =
         make_float4(dA[0], dA[1], dA[2], dA[3]);
-    if (qs == 0) p.dD_p[(r * p.nc + w) * p.D + d] = dDs;
-    if (qs == 1) p.dbias_p[(r * p.nc + w) * p.D + d] = dbs;
+    if (!RATIO && qs == 0) p.dD_p[(r * p.nc + w) * p.D + d] = dDs;
+    if (!RATIO && qs == 1) p.dbias_p[(r * p.nc + w) * p.D + d] = dbs;
   }
-}
-
-template <typename S>
-size_t smem_bytes(int T, int DB) {
-  const size_t ngmax = (T + K - 1) / K, nw = DB * TPC / 32;
-  return 16 + ((ngmax - 1) * DB * NS + 2 * (size_t)K * (2 * NS + NA * DB) +
-               2 * nw * K * 32) * sizeof(float);
+  if (RATIO && p.tally != nullptr) tally_add(p.tally, units);
 }
 
 template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
           bool SLICE>
-cudaError_t launch_one(const Params& p, cudaStream_t stream) {
-  auto kernel = scan_bwd_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>;
-  const size_t smem = smem_bytes<S>(p.T, p.DB);
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+    scan_bwd_kernel(Params p) {
+  scan_bwd_body<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, false>(p);
+}
+
+// K7: K6's instance (float32, forward, ungated, no acc, delta as given) in
+// the ratio form.
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+    mxu_bwd_kernel(Params p) {
+  scan_bwd_body<float, false, false, false, false, false, true>(p);
+}
+
+// Shared memory of a block; RATIO (sub-block `sub`) has three slot arrays,
+// the checkpoints' cum and the guard sums.
+size_t smem_bytes(int T, int DB, bool ratio, int sub) {
+  const size_t ngmax = (T + K - 1) / K, nw = DB * TPC / 32;
+  size_t floats = (ngmax - 1) * DB * NS +
+                  2 * (size_t)K * (2 * NS + (ratio ? NA_RATIO : NA) * DB) +
+                  2 * nw * K * 32;
+  if (ratio) floats += (ngmax - 1) * DB + (size_t)(T / sub) * DB;
+  return 16 + floats * sizeof(float);
+}
+
+cudaError_t launch_kernel(void (*kernel)(Params), const Params& p,
+                          size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)(p.R * p.ncb * p.nc);
   kernel<<<blocks, p.DB * TPC, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
+          bool SLICE>
+cudaError_t launch_one(const Params& p, cudaStream_t stream) {
+  return launch_kernel(
+      scan_bwd_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>, p,
+      smem_bytes(p.T, p.DB, false, 1), stream);
 }
 
 // acc enters the backward only through the gate (dz's ytot): an ungated
@@ -820,10 +1046,9 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
       dC_p == nullptr || (gate && (z == nullptr || dz == nullptr)) ||
       (gate && has_acc && (acc == nullptr || dacc == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = is_bf16 ? smem_bytes<__nv_bfloat16>(T, channels)
-                              : smem_bytes<float>(T, channels);
+  const size_t smem = smem_bytes(T, channels, false, 1);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  Params p;
+  Params p{};
   p.u = u; p.dt = dt; p.z = z; p.acc = acc; p.B = B; p.C = C; p.dout = dout;
   p.A = A; p.Dv = Dv; p.bias = bias; p.states = states; p.dlast = dlast;
   p.du = du; p.ddt = ddt; p.dz = dz; p.dacc = dacc;
@@ -856,6 +1081,57 @@ int gated_scan_bwd(const void* u, const void* dt, const void* z,
     err = reverse ? launch_flags<float, true, true, false>(p, g, a, st)
                   : launch_flags<float, false, true, false>(p, g, a, st);
   return (int)err;
+}
+
+// K7 (RATIO): the adjoint of mxu_scan_fwd. float32 u, delta, B, C with
+// strides u_r, u_l, delta_r, delta_l, B_r, B_l, C_r, C_l, A_r (elements;
+// host array of 9); A (R|1, D, 16); dy (R, L, D) contiguous; states (R,
+// nc, 16, D) the forward's chunk exit states (required when L > T); dlast
+// (R, 16, D) or null seeds the adjoint of the last state. du, ddelta (R, L,
+// D) contiguous; float32 partials dA_p (R, nc, D, 16) per chunk, dB_p and
+// dC_p (ceil(D / channels), R, L, 16) per channel block; agg, incl, sdel
+// and flags (zeroed) as gated_scan_bwd_scratch sizes them. sub, guarded,
+// tally and n_valid as mxu_scan_fwd. Returns a cudaError_t value.
+int mxu_scan_bwd(const float* u, const float* dt, const float* A,
+                 const float* B, const float* C, const float* dy,
+                 const float* states, const float* dlast, float* du,
+                 float* ddt, float* dA_p, float* dB_p, float* dC_p,
+                 float* agg, float* incl, float* sdel, unsigned* flags,
+                 unsigned long long* tally, long long R, long long L,
+                 long long D, int T, int sub, int guarded, int n_valid,
+                 int channels, const long long* strides, void* stream) {
+  if (T < 1 || T > 256 || sub < 1 || T % sub != 0 || channels % 8 != 0 ||
+      channels * TPC < MIN_THREADS || channels * TPC > MAX_THREADS ||
+      R < 1 || L < 1 || D < 1 || L > 0x7fffffffLL || n_valid < 1 ||
+      n_valid > NS)
+    return (int)cudaErrorInvalidValue;
+  const long long nc = (L + T - 1) / T;
+  const long long ncb = (D + channels - 1) / channels;
+  if (R * ncb * nc > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if ((nc > 1 && states == nullptr) || agg == nullptr || incl == nullptr ||
+      sdel == nullptr || flags == nullptr || dA_p == nullptr ||
+      dB_p == nullptr || dC_p == nullptr || du == nullptr || ddt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(T, channels, true, sub);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.u = u; p.dt = dt; p.B = B; p.C = C; p.dout = dy;
+  p.A = A; p.states = states; p.dlast = dlast;
+  p.du = du; p.ddt = ddt; p.dA_p = dA_p; p.dB_p = dB_p; p.dC_p = dC_p;
+  p.agg = agg; p.incl = incl; p.sdel = sdel; p.flags = flags;
+  p.tally = tally;
+  p.R = R; p.L = L; p.D = D; p.T = T; p.nc = (int)nc;
+  p.DB = channels; p.ncb = (int)ncb;
+  p.S = 1u;
+  p.P = (unsigned)L;
+  p.sub = sub; p.guarded = guarded != 0; p.n_valid = n_valid;
+  p.su_r = strides[0]; p.su_l = strides[1];
+  p.sdt_r = strides[2]; p.sdt_l = strides[3];
+  p.sB_r = strides[4]; p.sB_l = strides[5];
+  p.sC_r = strides[6]; p.sC_l = strides[7];
+  p.sA_r = strides[8];
+  return (int)launch_kernel(mxu_bwd_kernel, p, smem,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // Scratch sizes in elements for channels per block DB: agg and incl

@@ -1,6 +1,6 @@
 // Gated selective scan, forward, for Hopper (sm_90a).
 //
-// Replaces three Pallas TPU kernels of the JAX package with one template:
+// Replaces five Pallas TPU kernels of the JAX package with one template:
 //   K1  segmamba_tpu/ops/scan_pallas_dir.py:60   _dir_fwd_kernel
 //       (flags REVERSE, GATE, HAS_ACC; entry mamba_scan_fused_dir :382)
 //   K2  segmamba_tpu/ops/scan_pallas_fused.py:42 _fwd_kernel
@@ -16,6 +16,10 @@
 //       bias and softplus before the kernel and D-skip and the silu(z) gate
 //       after it, in float32, as the JAX entry does; the last state is the
 //       last chunk's exit state.
+//   K7  segmamba_tpu/ops/scan_pallas_mxu.py:131  _fwd_kernel (pallas_call
+//       :251, helpers _block_scan :107, _masks :82; entry selective_scan_mxu
+//       :379): K6's function in K7's ratio form (RATIO, below), as its own
+//       kernel mxu_fwd_kernel so that profiles keep it apart.
 //
 // Per row r, channel d, state n (N = 16) and step t, in float32:
 //   delta = softplus(dt + bias)                  (logaddexp(x, 0) form;
@@ -103,6 +107,40 @@
 // last real step and no masked step enters any state. (The JAX K6 pads L
 // with delta = 0, identity steps, so its last state is exact too.)
 //
+// RATIO (K7; K6's flags and operands): the same tiles, staging, records and
+// look-back, with the states advanced in K7's arithmetic. In sub-blocks of
+// `sub` steps (sub | T), per unit (row, channel, state, sub-block):
+//   cum = in-sub-block running sum of delta,  l = A cum,
+//   P = exp(l),  Pinv = exp(-max(l, -MAX_BLOCK_DROP - 10))
+//   v_t = c + sum_{s <= t} delta_s u_s B_s Pinv_s,  x_t = P_t v_t,
+//   c <- P_end v_end                       (the carry into the next one)
+// under the guard: drop = |A| sum |delta| over the sub-block, one serial
+// sum in step order, below MAX_BLOCK_DROP the ratio form, otherwise the
+// step recurrence (K6's). The backward kernel (gated_scan_bwd.cu, RATIO)
+// takes the same serial sum of the same values, so both reach the same
+// decision bit for bit; guarded = 0 is JAX's unguarded kernel (the ratio
+// form everywhere, the Pinv clamp only a NaN guard). The staging sub-chunk
+// (TS = 32) holds whole sub-blocks when sub | TS (JAX's S = 16), so a
+// sub-block's |delta| sum is taken once a sweep, from shared memory; any
+// other sub stages the whole chunk before sweep 1. Sweep 1 runs the chunk
+// from zero in that form (one exp a (step, state): Pinv, or the step's
+// decay), its exit the aggregate; the carry across chunks is K6's fold,
+// exp(A sum delta) x + agg, since a chunk's decay is the product of its
+// sub-blocks' P_end. Sweep 2 runs the ratio form again from the entry
+// state, y_t = C_t . x_t: two exps a (step, state) (Pinv and P). (JAX's
+// split x = x_blk + P carry at chunk level, scan_pallas_mxu.py:113-123 -
+// sweep 1 writing the zero-entry output, sweep 2 adding sum_n C_t[n]
+// exp(A[n] cum_t) x_entry[n] with one exp - has the same exps in all and
+// ran 1.36x slower on the H100: its second sweep re-reads y.) A thread's
+// sub-block whose units all take one form runs a path without the
+// per-unit selects (Form). tally (two uint64: units through the ratio
+// form, through the step form, real states only) is added to once per warp
+// after sweep 1, or null. What bounds RATIO: three exps a (step, state)
+// against K6's two, and about twice K6's float32 operations (the clamp, l,
+// x = P v); the tensor cores cannot carry it (JAX's triangular products
+// would take 3xTF32 for float32 parity, ~6.5 float32-add equivalents an
+// output against 1 for the running sum).
+//
 // The kernel allocates nothing: the caller passes the output, the optional
 // exit-state output (R, nc, N, D), the scratch records agg and incl (R,
 // nc, D, TPC, SPT floats each) and sdel (R, nc, D floats), and the flags
@@ -148,6 +186,8 @@ struct Params {
   long long su_r, su_l, sdt_r, sdt_l, sz_r, sz_l, sacc_r, sacc_l;
   long long sB_r, sB_l, sC_r, sC_l;
   long long sA_r, sDv_r, sbias_r;
+  int sub, guarded, n_valid;    // RATIO: sub-block, guard, real states
+  unsigned long long* tally;    // RATIO: (ratio units, step units) or null
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -169,6 +209,8 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+#include "ratio_guard.cuh"   // RATIO's guard and step, shared with the bwd
 
 __device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
   unsigned v;
@@ -501,9 +543,100 @@ __device__ __forceinline__ void sweep_sub_out(
   }
 }
 
+// RATIO: the guard bits of sub-block [tb, te) of the staged chunk for this
+// thread's states: the serial sum of |delta| in step order (the backward's
+// pre-pass takes the same sum of the same values).
+__device__ __forceinline__ unsigned sub_block_bits(const float* sDel, int DB,
+                                                   int dl, int tb, int te,
+                                                   const float (&aa)[SPT],
+                                                   int guarded) {
+  float dabs = 0.f;
+  for (int t = tb; t < te; ++t) dabs += fabsf(sDel[t * DB + dl]);
+  return ratio_bits(dabs, aa, guarded);
+}
+
+// RATIO, one step of unit n in form FORM (guard bits m): v advances;
+// returns its state x_t when WITH_X (P v, or v), else 0.
+template <bool WITH_X, int FORM>
+__device__ __forceinline__ float ratio_step(unsigned m, int n, float a2,
+                                            float cum, float delta,
+                                            float bu, float& v) {
+  const bool r = is_ratio<FORM>(m, n);
+  const float l2 = a2 * cum;
+  ratio_advance(r, l2, a2, delta, bu, v);
+  if (!WITH_X) return 0.f;
+  return r ? ex2(l2) * v : v;
+}
+
+// RATIO sweep over the sub-blocks of scan steps [i0, i1) (sub-block
+// aligned, i1 <= len): v (the carry, x at sub-block ends) and sum delta sd
+// advance; the units are counted by form (real states: `valid`). With
+// WITH_OUT (sweep 2), y_t = C_t . x_t over the channel's two threads, one
+// shuffle a step, written by the thread of the step's parity to out (the
+// chunk's first row).
+template <bool WITH_OUT>
+__device__ __forceinline__ void sweep_ratio(
+    const Params& p, int i0, int i1, int len, int DB, int dl, int g,
+    unsigned pair, const float* sB, const float* sC, const float* sDel,
+    const float* sU, const float (&a2)[SPT], const float (&aa)[SPT],
+    unsigned valid, float (&v)[SPT], float& sd, unsigned (&units)[2],
+    float* out) {
+  for (int tb = i0; tb < i1; tb += p.sub) {
+    const int te = min(tb + p.sub, len);
+    const unsigned m = sub_block_bits(sDel, DB, dl, tb, te, aa, p.guarded);
+    units[0] += __popc(m & valid);
+    units[1] += __popc(~m & valid);
+    float cum = 0.f;
+    auto steps = [&](auto form) __attribute__((always_inline)) {
+      constexpr int F = decltype(form)::value;
+      for (int t = tb; t < te; ++t) {
+        const float delta = sDel[t * DB + dl];
+        const float du = delta * sU[t * DB + dl];
+        cum += delta;
+        sd += delta;
+        float b[SPT], c[SPT];
+        const float4* b4 =
+            reinterpret_cast<const float4*>(sB + t * NS + g * SPT);
+        unpack(b4[0], b4[1], b);
+        float ya = 0.f, yb = 0.f;   // two chains of C . x
+        if (WITH_OUT) {
+          const float4* c4 =
+              reinterpret_cast<const float4*>(sC + t * NS + g * SPT);
+          unpack(c4[0], c4[1], c);
+        }
+#pragma unroll
+        for (int n = 0; n < SPT; n += 2) {
+          const float x0 = ratio_step<WITH_OUT, F>(m, n, a2[n], cum, delta,
+                                                   du * b[n], v[n]);
+          const float x1 = ratio_step<WITH_OUT, F>(
+              m, n + 1, a2[n + 1], cum, delta, du * b[n + 1], v[n + 1]);
+          if (WITH_OUT) {
+            ya = __fmaf_rn(c[n], x0, ya);
+            yb = __fmaf_rn(c[n + 1], x1, yb);
+          }
+        }
+        if (WITH_OUT) {
+          const float yt = ya + yb;
+          const float y = yt + __shfl_xor_sync(pair, yt, 1);
+          if ((t & 1) == g) out[(long long)t * p.D] = y;
+        }
+      }
+    };
+    if (m == (1u << SPT) - 1u)
+      steps(Form<ALL_RATIO>{});
+    else if (m == 0u)
+      steps(Form<ALL_STEP>{});
+    else
+      steps(Form<MIXED>{});
+#pragma unroll
+    for (int n = 0; n < SPT; ++n)   // the carry out of the sub-block: P_end v
+      if (m >> n & 1u) v[n] *= ex2(a2[n] * cum);
+  }
+}
+
 template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
-          bool SLICE>
-__global__ void __launch_bounds__(MAX_THREADS, 2) scan_fwd_kernel(Params p) {
+          bool SLICE, bool RATIO>
+__device__ __forceinline__ void scan_fwd_body(const Params& p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = p.T, DB = p.DB;
@@ -534,34 +667,60 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) scan_fwd_kernel(Params p) {
   int lo, hi;
   sub_rows<REVERSE>(0, len, lo, hi);
   load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, true, q);
-  float a2[SPT];
+  float a2[SPT], aa[SPT];   // A log2(e); |A| (RATIO's guard)
   const float* Ar = p.A + r * p.sA_r + dc * NS + g * SPT;
 #pragma unroll
-  for (int n = 0; n < SPT; ++n) a2[n] = Ar[n] * LOG2E;
+  for (int n = 0; n < SPT; ++n) {
+    a2[n] = Ar[n] * LOG2E;
+    aa[n] = fabsf(Ar[n]);
+  }
   // the staging channel's bias
-  const float bias = p.bias[r * p.sbias_r + min(d0 + tid % DB, p.D - 1)];
+  const float bias =
+      RATIO ? 0.f : p.bias[r * p.sbias_r + min(d0 + tid % DB, p.D - 1)];
   store_sub<S, SOFTPLUS>(p, bias, d0, lo, hi, q, sB, sC, sDel, sU);
+  // RATIO with sub-blocks that straddle sub-chunks: the whole chunk first
+  const bool whole = RATIO && TS % p.sub != 0;
+  for (int s = 1; whole && s < nsub; ++s) {
+    sub_rows<REVERSE>(s, len, lo, hi);
+    load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, false, q);
+    store_sub<S, SOFTPLUS>(p, bias, d0, lo, hi, q, sB, sC, sDel, sU);
+  }
   __syncthreads();
+  const unsigned pair = 3u << (tid & 30);   // the channel's two threads
+  float* yr = RATIO ? static_cast<float*>(p.out) + (r * p.L + t0) * p.D + dc
+                    : nullptr;              // RATIO: the chunk's outputs
+  unsigned valid = 0, units[2] = {0u, 0u};  // RATIO: real states, tally
+#pragma unroll
+  for (int n = 0; n < SPT; ++n)
+    if (g * SPT + n < p.n_valid) valid |= 1u << n;
 
   // Sweep 1: the chunk from a zero state, each sub-chunk's loads in flight
   // while the one before it is swept.
   float h[SPT], sd = 0.f;
 #pragma unroll
   for (int n = 0; n < SPT; ++n) h[n] = 0.f;
-  for (int s = 0; s < nsub; ++s) {
-    const bool more = s + 1 < nsub;
+  const int nsw = whole ? 1 : nsub;
+  for (int s = 0; s < nsw; ++s) {
+    const bool more = s + 1 < nsw;
     if (more) {
       sub_rows<REVERSE>(s + 1, len, lo, hi);
       load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, true, q);
     }
-    if (active)
-      sweep_agg<S, REVERSE>(s * TS, min(len, (s + 1) * TS), len, DB, dl, g,
-                            sB, sDel, sU, a2, h, sd);
+    if (active) {
+      const int i1 = whole ? len : min(len, (s + 1) * TS);
+      if constexpr (RATIO)
+        sweep_ratio<false>(p, s * TS, i1, len, DB, dl, g, pair, sB, sC,
+                           sDel, sU, a2, aa, valid, h, sd, units, yr);
+      else
+        sweep_agg<S, REVERSE>(s * TS, i1, len, DB, dl, g, sB, sDel, sU, a2,
+                              h, sd);
+    }
     if (more) {   // rows of sub-chunk s + 1: nobody reads them yet
       store_sub<S, SOFTPLUS>(p, bias, d0, lo, hi, q, sB, sC, sDel, sU);
       __syncthreads();
     }
   }
+  if (RATIO && p.tally != nullptr) tally_add(p.tally, units);
   // Look-back: the entry state x of chunk w. Records are per thread; the
   // flag is the block's, set by thread 0 after every thread's records are
   // out (each thread fences its stores, then the block barrier), and one
@@ -653,20 +812,38 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) scan_fwd_kernel(Params p) {
   if (!active) return;   // no barrier follows
 
   // Sweep 2 from the entry state, with the outputs, and the exit state.
-  const unsigned pair = 3u << (tid & 30);
-  const float Dv = p.Dv[r * p.sDv_r + dc];
-  const S* z = static_cast<const S*>(p.z) + r * p.sz_r + dc;
-  const S* acc = static_cast<const S*>(p.acc) + r * p.sacc_r + dc;
-  S* out = static_cast<S*>(p.out) + r * p.L * p.D + dc;
-  for (int s = 0; s < nsub; ++s)
-    sweep_sub_out<S, REVERSE, GATE, HAS_ACC, SLICE>(
-        p, s, min(len, (s + 1) * TS), len, t0, DB, dl, g, pair, sB, sC, sDel,
-        sU, a2, x, Dv, z, acc, out);
+  if constexpr (RATIO) {
+    float sd2 = 0.f;
+    unsigned counted[2] = {0u, 0u};   // counted in sweep 1
+    sweep_ratio<true>(p, 0, len, len, DB, dl, g, pair, sB, sC, sDel, sU, a2,
+                      aa, valid, x, sd2, counted, yr);
+  } else {
+    const float Dv = p.Dv[r * p.sDv_r + dc];
+    const S* z = static_cast<const S*>(p.z) + r * p.sz_r + dc;
+    const S* acc = static_cast<const S*>(p.acc) + r * p.sacc_r + dc;
+    S* out = static_cast<S*>(p.out) + r * p.L * p.D + dc;
+    for (int s = 0; s < nsub; ++s)
+      sweep_sub_out<S, REVERSE, GATE, HAS_ACC, SLICE>(
+          p, s, min(len, (s + 1) * TS), len, t0, DB, dl, g, pair, sB, sC,
+          sDel, sU, a2, x, Dv, z, acc, out);
+  }
   if (p.states != nullptr) {
     float* st = p.states + ((r * p.nc + w) * NS + g * SPT) * p.D + d;
 #pragma unroll
     for (int n = 0; n < SPT; ++n) st[n * p.D] = x[n];
   }
+}
+
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
+          bool SLICE>
+__global__ void __launch_bounds__(MAX_THREADS, 2) scan_fwd_kernel(Params p) {
+  scan_fwd_body<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, false>(p);
+}
+
+// K7: K6's instance (float32, forward, ungated, no acc, delta as given) in
+// the ratio form.
+__global__ void __launch_bounds__(MAX_THREADS, 2) mxu_fwd_kernel(Params p) {
+  scan_fwd_body<float, false, false, false, false, false, true>(p);
 }
 
 template <typename S>
@@ -675,10 +852,9 @@ size_t smem_bytes(const Params& p) {
          (size_t)p.T * p.DB * sizeof(S);
 }
 
-template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
-          bool SLICE>
-cudaError_t launch_one(const Params& p, cudaStream_t stream) {
-  auto kernel = scan_fwd_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>;
+template <typename S>
+cudaError_t launch_kernel(void (*kernel)(Params), const Params& p,
+                          cudaStream_t stream) {
   const size_t smem = smem_bytes<S>(p);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -686,6 +862,13 @@ cudaError_t launch_one(const Params& p, cudaStream_t stream) {
   const unsigned blocks = (unsigned)(p.R * p.ncb * p.nc);
   kernel<<<blocks, p.DB * TPC, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
+          bool SLICE>
+cudaError_t launch_one(const Params& p, cudaStream_t stream) {
+  return launch_kernel<S>(
+      scan_fwd_kernel<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>, p, stream);
 }
 
 template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE>
@@ -734,7 +917,7 @@ int gated_scan_fwd(const void* u, const void* dt, const void* z,
   if (agg == nullptr || incl == nullptr || sdel == nullptr ||
       flags == nullptr)
     return (int)cudaErrorInvalidValue;
-  Params p;
+  Params p{};
   p.u = u; p.dt = dt; p.z = z; p.acc = acc; p.B = B; p.C = C;
   p.A = A; p.Dv = Dv; p.bias = bias;
   p.out = out; p.states = states; p.agg = agg; p.incl = incl;
@@ -773,6 +956,50 @@ int gated_scan_fwd(const void* u, const void* dt, const void* z,
     err = reverse ? launch_flags<float, true, true, false>(p, g, a, st)
                   : launch_flags<float, false, true, false>(p, g, a, st);
   return (int)err;
+}
+
+// K7 (RATIO): float32 u, delta (final), B, C with strides u_r, u_l,
+// delta_r, delta_l, B_r, B_l, C_r, C_l, A_r (elements; host array of 9); A
+// (R|1, D, 16); y (R, L, D) contiguous and the chunk exit states (R, nc,
+// 16, D) written; agg, incl, sdel and flags (zeroed) as
+// gated_scan_fwd_scratch sizes them. sub | T is the sub-block, guarded the
+// per-unit guard (0: the ratio form everywhere); tally (two uint64, added
+// to) or null counts the units of the first n_valid states by form.
+// Returns a cudaError_t value.
+int mxu_scan_fwd(const float* u, const float* dt, const float* A,
+                 const float* B, const float* C, float* y, float* states,
+                 float* agg, float* incl, float* sdel, unsigned* flags,
+                 unsigned long long* tally, long long R, long long L,
+                 long long D, int T, int sub, int guarded, int n_valid,
+                 int channels, const long long* strides, void* stream) {
+  if (T < 1 || T > 256 || sub < 1 || T % sub != 0 || channels < 32 ||
+      channels % 32 || channels * TPC > MAX_THREADS || R < 1 || L < 1 ||
+      D < 1 || L > 0x7fffffffLL || n_valid < 1 || n_valid > NS)
+    return (int)cudaErrorInvalidValue;
+  if (y == nullptr || states == nullptr || agg == nullptr ||
+      incl == nullptr || sdel == nullptr || flags == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.u = u; p.dt = dt; p.B = B; p.C = C; p.A = A;
+  p.out = y; p.states = states; p.agg = agg; p.incl = incl;
+  p.sdel = sdel; p.flags = flags; p.tally = tally;
+  p.R = R; p.L = L; p.D = D; p.T = T; p.DB = channels;
+  p.S = 1u;
+  p.P = (unsigned)L;
+  p.sub = sub; p.guarded = guarded != 0; p.n_valid = n_valid;
+  const long long nc = (L + T - 1) / T;
+  const long long ncb = (D + channels - 1) / channels;
+  if (R * ncb * nc > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.nc = (int)nc;
+  p.ncb = (int)ncb;
+  if (smem_bytes<float>(p) > 232448) return (int)cudaErrorInvalidValue;
+  p.su_r = strides[0]; p.su_l = strides[1];
+  p.sdt_r = strides[2]; p.sdt_l = strides[3];
+  p.sB_r = strides[4]; p.sB_l = strides[5];
+  p.sC_r = strides[6]; p.sC_l = strides[7];
+  p.sA_r = strides[8];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)launch_kernel<float>(mxu_fwd_kernel, p, st);
 }
 
 // Scratch sizes in elements: agg and incl (floats each), sdel (floats),

@@ -25,8 +25,11 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
+# -I csrc: the shared headers, also for copies of a source built elsewhere
+# (the probes under tools/ build edited copies in BUILD_DIR)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
+              str(CSRC_DIR))
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build wall time (0.0 when reused), "log": nvcc output}

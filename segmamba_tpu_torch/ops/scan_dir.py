@@ -237,15 +237,6 @@ def _plain_bwd(u, dt, z, acc, A, B, C, D, dt_bias, dout, *, reverse, gate,
         reverse=reverse, chunk_size=chunk_size)
 
 
-def _block_threads(dim):
-    """Threads per block of K7's kernels (one channel each): the largest of
-    128/96/64/32 that divides ``dim``, else a masked block of up to 128."""
-    for t in (128, 96, 64, 32):
-        if dim % t == 0:
-            return t
-    return min(128, -(-dim // 32) * 32)
-
-
 def _bwd_block_channels(dim):
     """Channels per block of the backward kernel (four threads each): the
     largest of 48/40/32 that divides ``dim``, else a masked block of 48.

@@ -5,8 +5,11 @@ Port of ``segmamba_tpu/ops/scan_pallas_mxu.py`` ``selective_scan_mxu``
 (:379-428) and its guarded custom VJP (``_make_core`` :335-371). The Pallas
 kernels ``_fwd_kernel`` (:131) and ``_bwd_kernel`` (:165), with their
 helpers ``_block_scan`` (:107) and ``_masks`` (:82), run here as the
-hand-written Hopper kernels ``csrc/mxu_scan_fwd.cu`` and
-``csrc/mxu_scan_bwd.cu``. The function is K6's core (``scan_core``)::
+hand-written Hopper kernels ``mxu_fwd_kernel`` and ``mxu_bwd_kernel``: the
+``RATIO`` instances of the single-pass look-back templates
+``csrc/gated_scan_fwd.cu`` and ``csrc/gated_scan_bwd.cu`` (K1-K6's), one
+launch per call and group of 16 states each way, built into those
+templates' libraries. The function is K6's core (``scan_core``)::
 
     (u, delta, A, B, C) -> (y, chunk exit states),  y_t = C_t . x_t
 
@@ -37,9 +40,19 @@ recurrence ``x_t = exp(delta A) x_{t-1} + b_t``; the carry across sub-blocks
 is the same in both. A unit's drop never exceeds JAX's bound, so every unit
 JAX sends to the ratio form goes there here too, and the result is exact
 in both forms (the f32 tier). No host sync, no second kernel; the backward
-recomputes the same decision from the same inputs. ``guarded=False`` is
-JAX's unguarded kernel: the ratio form everywhere, with the NaN-guard clamp
-of ``Pinv`` (:150-152).
+recomputes the same decision from the same serial sum of the same values.
+``guarded=False`` is JAX's unguarded kernel: the ratio form everywhere,
+with the NaN-guard clamp of ``Pinv`` (:150-152).
+
+The kernels' schedule (the sources say more): the forward's sweep 1 runs
+each chunk from zero in this arithmetic (its exit the chunk's aggregate),
+a decoupled look-back folds the aggregates, exp(A sum delta) x + agg, and
+sweep 2 writes y and the exit state from the entry state in the same
+arithmetic. The backward's sweep F rebuilds x from the
+forward's chunk states, checkpointing the ratio form's running value in
+shared memory, and forms the chunk's adjoint aggregate; a reverse look-back
+hands each chunk its adjoint entry; sweep B replays and walks the adjoint
+in the same forms (JAX's upper-triangular sums, :204-225).
 
 - ``selective_scan_mxu`` takes CPU tensors to the plain versions and CUDA
   tensors to the kernels; any other device raises. There is no fallback.
@@ -58,7 +71,7 @@ of ``Pinv`` (:150-152).
   plain backward, ``autograd.grad`` through it.
 - ``tally()`` counts the units through each form: inside it the kernels
   get a pointer to two int64 counts (ratio, step), added to once per
-  block; outside it the pointer is null. The plain versions count too.
+  warp; outside it the pointer is null. The plain versions count too.
 - ``LAUNCHES`` / ``BWD_LAUNCHES`` count this wrapper's kernel launches.
 """
 
@@ -69,7 +82,7 @@ import ctypes
 
 import torch
 
-from segmamba_tpu_torch.ops import _build, scan_core, scan_dir
+from segmamba_tpu_torch.ops import scan_core, scan_dir
 from segmamba_tpu_torch.ops.selective_scan import (
     _hs_scan,
     _postprocess,
@@ -85,8 +98,6 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 _GROUP = scan_dir._KERNEL_N     # states per launch
 _MAX_T = 256                    # the kernels' largest chunk
-_LIB_NAME = "mxu_scan_fwd"
-_BWD_LIB_NAME = "mxu_scan_bwd"
 
 
 def _round_up(x, m):
@@ -293,34 +304,43 @@ def _ptr(t):
 
 def _run_kernel(lib, stream, u, delta, A, B, C, T, S, guarded, n_valid=16,
                 tally_buf=None):
-    """Validate, allocate y, the chunk exit states and the scratch on u's
-    device and call the library's ``mxu_scan_fwd`` on ``stream``. Returns
-    (y (R, L, D), states (R, nc, 16, D)), float32."""
+    """Validate, allocate y, the chunk exit states and the look-back scratch
+    (records and sums of delta; the flags, the first of them the chunks'
+    ticket, zeroed here) on u's device and call the library's
+    ``mxu_scan_fwd`` on ``stream``: one kernel. Returns (y (R, L, D),
+    states (R, nc, 16, D)), float32."""
     R, L, D, Af, strides = _check_operands(u, delta, A, B, C, T, S)
     nc = -(-L // T)
     f32 = dict(dtype=torch.float32, device=u.device)
     y = torch.empty((R, L, D), **f32)
     states = torch.empty((R, nc, _GROUP, D), **f32)
-    hbuf = torch.empty((R, nc, _GROUP, D), **f32) if nc > 1 else None
-    sdelta = torch.empty((R, nc, D), **f32) if nc > 1 else None
+    sizes = (ctypes.c_longlong * 3)()
+    lib.gated_scan_fwd_scratch(R, L, D, T, sizes)
+    n_st, n_sd, n_fl = sizes
+    scratch = torch.empty(2 * n_st + n_sd, **f32)
+    flags = torch.zeros(n_fl, dtype=torch.int32, device=u.device)
+    base = scratch.data_ptr()
     err = lib.mxu_scan_fwd(
         _ptr(u), _ptr(delta), _ptr(Af), _ptr(B), _ptr(C), _ptr(y),
-        _ptr(states), _ptr(hbuf), _ptr(sdelta), _ptr(tally_buf), R, L, D, T,
-        S, int(guarded), n_valid, scan_dir._block_threads(D),
-        (ctypes.c_longlong * 9)(*strides), stream)
+        _ptr(states), base, base + 4 * n_st, base + 8 * n_st, _ptr(flags),
+        _ptr(tally_buf), R, L, D, T, S, int(guarded), n_valid,
+        scan_dir._block_channels(D), (ctypes.c_longlong * 9)(*strides),
+        stream)
     if err != 0:
-        msg = lib.mxu_scan_error_string(err).decode()
+        msg = lib.gated_scan_error_string(err).decode()
         raise RuntimeError(f"mxu_scan_fwd launch failed: {msg} ({err})")
     return y, states
 
 
 def _run_bwd_kernel(lib, stream, u, delta, A, B, C, dy, dlast, states, T, S,
                     guarded, n_valid=16, tally_buf=None):
-    """Validate, allocate every gradient, partial and scratch buffer on u's
-    device, call the library's ``mxu_scan_bwd`` on ``stream`` and reduce
-    the partials with ``torch.sum``. ``dlast`` (R, 16, D) float32 or None,
-    ``states`` the forward's chunk exit states. Returns (du, ddelta, dA,
-    dB, dC) in the shapes of (u, delta, A, B, C)."""
+    """Validate, allocate every gradient and one scratch buffer (look-back
+    records, the per-chunk dA and per-channel-block dB / dC partials, sums
+    of delta, the flags zeroed) on u's device, call the library's
+    ``mxu_scan_bwd`` on ``stream`` (one kernel) and reduce the partials
+    with ``torch.sum``. ``dlast`` (R, 16, D) float32 or None, ``states``
+    the forward's chunk exit states. Returns (du, ddelta, dA, dB, dC) in
+    the shapes of (u, delta, A, B, C)."""
     R, L, D, Af, strides = _check_operands(u, delta, A, B, C, T, S)
     nc = -(-L // T)
     if tuple(states.shape) != (R, nc, _GROUP, D) or (
@@ -336,69 +356,67 @@ def _run_bwd_kernel(lib, stream, u, delta, A, B, C, dy, dlast, states, T, S,
             or dlast.dtype != torch.float32 or not dlast.is_contiguous()):
         raise ValueError(f"dlast: {tuple(dlast.shape)}, expected contiguous "
                          f"float32 {(R, _GROUP, D)} on {u.device}")
-    threads = scan_dir._block_threads(D)
-    nbd = -(-D // threads)
+    channels = scan_dir._bwd_block_channels(D)
     f32 = dict(dtype=torch.float32, device=u.device)
     du = torch.empty((R, L, D), **f32)
     ddelta = torch.empty((R, L, D), **f32)
-    dA_p = torch.empty((R, nc, _GROUP, D), **f32)
-    dB_p = torch.empty((nbd, R, L, _GROUP), **f32)
-    dC_p = torch.empty((nbd, R, L, _GROUP), **f32)
-    gbuf = torch.empty((R, nc, _GROUP, D), **f32) if nc > 1 else None
-    sdelta = torch.empty((R, nc, D), **f32) if nc > 1 else None
-    ckpt = torch.empty((R, nc, -(-T // lib.mxu_scan_bwd_sub_len()), _GROUP,
-                        D), **f32)
+    # records (n_st floats each), dA partials (R, nc, D, 16), whose rows the
+    # kernel writes as 16-byte vectors, dB and dC partials (nbd, R, L, 16),
+    # sums of delta (n_sd), flags (n_fl ints, the first the ticket)
+    sizes = (ctypes.c_longlong * 3)()
+    lib.gated_scan_bwd_scratch(R, L, D, T, channels, sizes)
+    n_st, n_sd, n_fl = sizes
+    nbd = -(-D // channels)
+    n_dA, n_bc = R * nc * D * _GROUP, nbd * R * L * _GROUP
+    o_bc = 2 * n_st + n_dA
+    o_sd = o_bc + 2 * n_bc
+    scratch = torch.empty(o_sd + n_sd + n_fl, **f32)
+    scratch[-n_fl:].zero_()
+    dA_p = scratch[2 * n_st:o_bc].view(R, nc, D, _GROUP)
+    dB_p, dC_p = scratch[o_bc:o_sd].view(2, nbd, R, L, _GROUP)
+    at = lambda o: scratch.data_ptr() + 4 * o
     err = lib.mxu_scan_bwd(
         _ptr(u), _ptr(delta), _ptr(Af), _ptr(B), _ptr(C), _ptr(dy),
         _ptr(states), _ptr(dlast), _ptr(du), _ptr(ddelta), _ptr(dA_p),
-        _ptr(dB_p), _ptr(dC_p), _ptr(gbuf), _ptr(sdelta), _ptr(ckpt),
-        _ptr(tally_buf), R, L, D, T, S, int(guarded), n_valid, threads,
-        (ctypes.c_longlong * 9)(*strides), stream)
+        _ptr(dB_p), _ptr(dC_p), at(0), at(n_st), at(o_sd),
+        at(o_sd + n_sd), _ptr(tally_buf), R, L, D, T, S, int(guarded),
+        n_valid, channels, (ctypes.c_longlong * 9)(*strides), stream)
     if err != 0:
-        msg = lib.mxu_scan_bwd_error_string(err).decode()
+        msg = lib.gated_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"mxu_scan_bwd launch failed: {msg} ({err})")
-    dA = dA_p.sum(1).transpose(-1, -2)           # (R, D, 16)
+    dA = dA_p.sum(1)                             # (R, D, 16)
     if A.dim() == 2:
         dA = dA.sum(0)
     return du, ddelta, dA, dB_p.sum(0), dC_p.sum(0)
 
 
-_LIB = None
-_BWD_LIB = None
+_DECLARED = set()
 
 
 def _lib():
-    """The forward kernel library with its C signature declared (built on
-    first use)."""
-    global _LIB
-    if _LIB is None:
-        lib = _build.load_library(_LIB_NAME)
+    """The forward template's library (``gated_scan_fwd``, built on first
+    use) with K7's entry declared."""
+    lib = scan_dir._lib()
+    if "fwd" not in _DECLARED:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mxu_scan_fwd.argtypes = ([vp] * 10 + [ll] * 3 + [i] * 5
+        lib.mxu_scan_fwd.argtypes = ([vp] * 12 + [ll] * 3 + [i] * 5
                                      + [ctypes.POINTER(ll), vp])
         lib.mxu_scan_fwd.restype = i
-        lib.mxu_scan_error_string.argtypes = [i]
-        lib.mxu_scan_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _DECLARED.add("fwd")
+    return lib
 
 
 def _bwd_lib():
-    """The backward kernel library with its C signature declared (built on
-    first use)."""
-    global _BWD_LIB
-    if _BWD_LIB is None:
-        lib = _build.load_library(_BWD_LIB_NAME)
+    """The backward template's library (``gated_scan_bwd``, built on first
+    use) with K7's entry declared."""
+    lib = scan_dir._bwd_lib()
+    if "bwd" not in _DECLARED:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mxu_scan_bwd.argtypes = ([vp] * 17 + [ll] * 3 + [i] * 5
+        lib.mxu_scan_bwd.argtypes = ([vp] * 18 + [ll] * 3 + [i] * 5
                                      + [ctypes.POINTER(ll), vp])
         lib.mxu_scan_bwd.restype = i
-        lib.mxu_scan_bwd_sub_len.argtypes = []
-        lib.mxu_scan_bwd_sub_len.restype = i
-        lib.mxu_scan_bwd_error_string.argtypes = [i]
-        lib.mxu_scan_bwd_error_string.restype = ctypes.c_char_p
-        _BWD_LIB = lib
-    return _BWD_LIB
+        _DECLARED.add("bwd")
+    return lib
 
 
 def _valid(N, g):

@@ -891,12 +891,14 @@ def _mxu_inputs(seed, R, L, D, N_, kind, device):
     (2, 256, 96, 16, "model", True), (1, 200, 50, 16, "mixed", True),
     (2, 300, 136, 4, "model", True), (1, 37, 40, 64, "benign", True),
     (1, 520, 32, 64, "mixed", True), (1, 256, 40, 16, "tripped", True),
-    (1, 300, 64, 16, "benign", False)])
+    (1, 300, 64, 16, "benign", False), (1, 100, 40, 32, "mixed", True),
+    (2, 128, 72, 4, "mixed", True), (1, 2000, 96, 32, "model", True)])
 def test_mxu_kernel_matches_plain(cuda, R, L, D, N_, kind, guarded):
     """K7 forward (y, chunk states, last state) and backward (du, ddelta,
     dA, dB, dC with a nonzero gradient of the last state) against the plain
-    versions: ragged L (200, 37, 300, 520), one chunk and many, N = 4 / 16 /
-    64 (groups of 16 states), guard-tripped and mixed inputs, and the
+    versions: ragged L (200, 37, 300, 520, 100, 2000), one chunk (37, 100:
+    one sub-block of the whole chunk; 128) and many, N = 4 / 16 / 32 / 64
+    (groups of 16 states), guard-tripped and mixed inputs, and the
     unguarded ratio form."""
     u, delta, A, B, C = _mxu_inputs(15, R, L, D, N_, kind, cuda)
     T, S = scan_mxu._geometry(L)
@@ -943,6 +945,124 @@ def test_mxu_tally_counts_units(cuda, kind):
         scan_mxu.selective_scan_mxu_core_ref(u.cpu(), delta.cpu(), A.cpu(),
                                              B.cpu(), C.cpu())
     assert (tp.ratio, tp.step) == (want[0] // 2, want[1] // 2)
+
+
+@pytest.mark.parametrize("kind", ["model", "mixed", "tripped"])
+def test_mxu_tally_matches_the_guard(cuda, kind):
+    """The forward and the backward kernel each count every unit once, in
+    the form that the guard picks from the sub-blocks' sums of |delta| as
+    ``block_drop`` takes them (ragged L padded with zeros, |A| per state),
+    and the plain version counts the same."""
+    R, L, D, N_ = 2, 1000, 40, 16
+    u, delta, A, B, C = _mxu_inputs(20, R, L, D, N_, kind, cuda)
+    T, S = scan_mxu._geometry(L)
+    dsum = torch.nn.functional.pad(delta, (0, 0, 0, (-L) % S)).abs()
+    dsum = dsum.reshape(R, -1, S, D).sum(2)
+    n_ratio = int((dsum[..., None] * A.abs() < scan_mxu.MAX_BLOCK_DROP).sum())
+    want = (n_ratio, dsum.numel() * N_ - n_ratio)
+    with scan_mxu.tally() as tf:
+        _, st = scan_mxu._launch(u, delta, A, B, C, T, S, True)
+    with scan_mxu.tally() as tb:
+        scan_mxu._launch_bwd(u, delta, A, B, C, torch.randn_like(u),
+                             torch.randn(R, D, N_, device=cuda), st, T, S,
+                             True)
+    with scan_mxu.tally() as tp:
+        scan_mxu.selective_scan_mxu_core_ref(u, delta, A, B, C)
+    assert (tf.ratio, tf.step) == want
+    assert (tb.ratio, tb.step) == want
+    assert (tp.ratio, tp.step) == want
+
+
+@pytest.mark.parametrize("L,kind", [(2000, "mixed"), (100, "model")])
+def test_mxu_kernel_is_deterministic(cuda, L, kind):
+    """Two launches of K7's forward and of its backward on the same
+    inputs give the same bits (the look-backs fold in one order wherever a
+    walk stops; dB / dC are summed in a fixed order)."""
+    R, D = 2, 136
+    u, delta, A, B, C = _mxu_inputs(21, R, L, D, 16, kind, cuda)
+    T, S = scan_mxu._geometry(L)
+    dy = torch.randn(R, L, D, device=cuda)
+    dlast = torch.randn(R, D, 16, device=cuda)
+    runs = []
+    for _ in range(2):
+        y, st = scan_mxu._launch(u, delta, A, B, C, T, S, True)
+        runs.append((y, st, *scan_mxu._launch_bwd(u, delta, A, B, C, dy,
+                                                   dlast, st, T, S, True)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sub", [16, 8, 64])
+def test_mxu_forward_sub_blocks(cuda, sub):
+    """K7's forward at sub-blocks of 16, 8 and 64 steps (64: wider than the
+    staging sub-chunk, so the whole chunk is staged before sweep 1) against
+    the plain forward, on mixed inputs over many chunks and a ragged L."""
+    R, L, D = 2, 1100, 72
+    u, delta, A, B, C = _mxu_inputs(22, R, L, D, 16, "mixed", cuda)
+    T, S = scan_mxu._geometry(L, sub_block=sub)
+    y, st = scan_mxu._launch(u, delta, A, B, C, T, S, True)
+    y_p, st_p = scan_mxu.selective_scan_mxu_core_ref(
+        u, delta, A, B, C, sub_block=sub, return_states=True)
+    _close(y, y_p, F32)
+    _close(st, st_p, F32)
+
+
+_ONE_KERNEL_CHILD = """
+import json
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from segmamba_tpu_torch.ops import scan_mxu
+g = torch.Generator(device="cuda").manual_seed(23)
+R, L, D = 2, 4096, 96
+rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+u, B, C, dy = rn(R, L, D), rn(R, L, 16), rn(R, L, 16), rn(R, L, D)
+delta = torch.nn.functional.softplus(rn(R, L, D) - 2.0)
+A, dlast = -torch.exp(rn(D, 16)), rn(R, D, 16)
+T, S = scan_mxu._geometry(L)
+fwd = lambda: scan_mxu._launch(u, delta, A, B, C, T, S, True)
+st = fwd()[1]
+bwd = lambda: scan_mxu._launch_bwd(u, delta, A, B, C, dy, dlast, st, T, S,
+                                   True)
+fwd(), bwd()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    fwd()
+    bwd()
+    torch.cuda.synchronize()
+print(json.dumps({e.key: e.count for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and e.self_device_time_total > 0}))
+"""
+
+
+def test_mxu_scan_is_one_kernel_each_way(cuda):
+    """One K7 forward and one backward call (16 states) each run one scan
+    kernel on the card, beside the zero fill of the flags and the
+    wrapper's sums: no chunk or carry pass. Profiled in a fresh process (a
+    later profiler session in a long one can come back without the card's
+    kernels), taken again once if it comes back empty."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    for _ in range(2):
+        proc = subprocess.run([sys.executable, "-c", _ONE_KERNEL_CHILD],
+                              capture_output=True, text=True, timeout=600,
+                              cwd=root)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        counts = json.loads(proc.stdout.strip().splitlines()[-1])
+        if counts:
+            break
+    for name in ("mxu_fwd_kernel", "mxu_bwd_kernel"):
+        scans = [k for k in counts if name in k]
+        assert len(scans) == 1 and counts[scans[0]] == 1, counts
+    others = [k for k in counts
+              if "mxu_fwd_kernel" not in k and "mxu_bwd_kernel" not in k]
+    assert not any("mxu" in k or "scan" in k for k in others), others
 
 
 def test_mxu_never_syncs_the_host(cuda):

@@ -66,8 +66,8 @@ PROBE = [
 VARIANTS = {
     "base": [],
     "probe": PROBE,
-    "two_blocks": [("__launch_bounds__(MAX_THREADS, 3)",
-                    "__launch_bounds__(MAX_THREADS, 2)")],
+    "two_blocks": [("constexpr int MIN_BLOCKS = 3;",
+                    "constexpr int MIN_BLOCKS = 2;")],
     "no_bc_sum": [("      xch[k * 32 + lane] = (h4",
                    "      if (false) xch[k * 32 + lane] = (h4")],
 }
