@@ -10,11 +10,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    required, the forward scan kernel built from ``segmamba_tpu_torch/csrc``.
 1b. The backward scan kernel (``gated_scan_bwd.cu``; with the forward
    one they also hold the ratio-form scan K7, ``mxu_fwd_kernel`` and
-   ``mxu_bwd_kernel``), the projection-fused kernels (``proj_scan_fwd.cu``,
-   ``proj_scan_bwd.cu``), the 3x3x3 conv K9 (``conv3d_k3s1_fwd.cu``,
-   ``conv3d_k3s1_dw.cu``) and the scan probes K10 (``scan_lb_fwd.cu``) and
-   K11 (``scan_flat_fwd.cu``), built in parallel with the forward one (one
-   nvcc each, from eight threads): build times, ptxas registers/spills.
+   ``mxu_bwd_kernel``, and the projection-fused scan K8,
+   ``proj_fwd_kernel`` and ``proj_bwd_kernel``), the 3x3x3 conv K9
+   (``conv3d_k3s1_fwd.cu``, ``conv3d_k3s1_dw.cu``) and the scan probes
+   K10 (``scan_lb_fwd.cu``) and K11 (``scan_flat_fwd.cu``), built in
+   parallel with the forward one (one nvcc each, from six threads): build
+   times, ptxas registers/spills.
 2. Kernel vs plain PyTorch at the main path's shapes (stage 0: R=1,
    L=262144, D=96; stage 3: R=1, L=512, D=768; N=16) for the three flag
    sets the path launches (dir reverse ungated, dir gate + acc, fused gate
@@ -130,13 +131,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    (K2 on interleaved copies, de-interleaved), K5 backward at R=1 and 2
    with the plain backward over channel slices as in phase 5, both also
    at stage 3's shape (L=512, d_inner 768 over several channel blocks,
-   S=8); K8 forward at
-   R=2 in the three flag sets of the "proj" chain (slice ungated, reverse
-   + acc, forward + acc + gate), K8 backward at R=1 (its plain backward
+   S=8); K8 forward at R=2 in the three flag sets of the "proj" chain
+   (slice ungated, reverse + acc, forward + acc + gate) and at R=1 (the
+   case's rows) in the last, K8 backward at R=1 (its plain backward
    cannot be split by channel: its peak is measured at L=16384 and the
    full length must fit the card first). float32 and bfloat16 at the
-   phase-2/5 tiers; times, plain times and bounds; K5's stage-0 R=2 bf16
-   backward also split by kernel name (``--breakdown bwd_slice``).
+   phase-2/5 tiers; times, plain times and bounds; the backward's bf16
+   forward + acc + gate call also timed at R=2 (the train step's rows);
+   K5's stage-0 R=2 bf16 backward and K8's bf16 calls (forward R=2,
+   backward R=1) also split by kernel name (``--breakdown bwd_slice``,
+   ``proj_fwd``, ``proj_bwd``).
 12. The compositions at full width, built by
    ``Config(model=ModelConfig(scan_impl=...)).build_model()`` with the
    same seed-0 weights: "dir2", "dir", "dir" with ``slice_kernel=True``
@@ -156,7 +160,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    Mamba layer run alone; then the device time of a stage-0 layer's
    forward + backward by kernel name under "mxu" and "dir2"
    (``--breakdown mxu_layer`` / ``dir2_layer``): K7's kernels against the
-   per-direction glue (flips, float32 casts, D-skip and gate).
+   per-direction glue (flips, float32 casts, D-skip and gate); and under
+   "proj" (``proj_layer``): K8's two kernels against the rest.
 14. K7 (``scan_mxu``) vs its plain version at the LM prefill's shape
    (R=2, L=2048, D=5120), a ragged one (R=1, L=2000) and SegMamba's stage
    0 (R=1 and 2, L=262144, D=96), N=16, on four kinds of input: deltas in
@@ -294,8 +299,6 @@ from segmamba_tpu_torch.utils.hf import from_pretrained
 
 SOURCES = {"fwd": "segmamba_tpu_torch/csrc/gated_scan_fwd.cu",
            "bwd": "segmamba_tpu_torch/csrc/gated_scan_bwd.cu"}
-PROJ_SOURCES = {"fwd": "segmamba_tpu_torch/csrc/proj_scan_fwd.cu",
-                "bwd": "segmamba_tpu_torch/csrc/proj_scan_bwd.cu"}
 REPLACES = {
     "scan_dir": "segmamba_tpu/ops/scan_pallas_dir.py:60",
     "scan_fused": "segmamba_tpu/ops/scan_pallas_fused.py:42",
@@ -952,11 +955,8 @@ def phase_grads():
 KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
     ("scan K7 backward (gated_scan_bwd RATIO)", ("mxu_bwd_kernel",)),
     ("scan K7 forward (gated_scan_fwd RATIO)", ("mxu_fwd_kernel",)),
-    ("scan K8 backward (proj_scan_bwd)",
-     ("proj_bwd_chunk_kernel", "proj_bwd_carry_kernel",
-      "proj_bwd_grad_kernel")),
-    ("scan K8 forward (proj_scan_fwd)",
-     ("proj_exit_kernel", "proj_carry_kernel", "proj_output_kernel")),
+    ("scan K8 backward (gated_scan_bwd PROJ)", ("proj_bwd_kernel",)),
+    ("scan K8 forward (gated_scan_fwd PROJ)", ("proj_fwd_kernel",)),
     ("scan backward (gated_scan_bwd)", ("scan_bwd_kernel",)),
     ("scan forward (gated_scan_fwd)", ("scan_fwd_kernel",)),
     ("cuDNN convolution (incl. layout transforms)",
@@ -1822,17 +1822,41 @@ def proj_plain_bwd(a, flags, dout):
                                              dout, **kw)
 
 
-def phase_proj_kernel(results):
-    """K8 forward (R = 2) and backward (R = 1) vs plain at stage 0, in the
-    three flag sets of the "proj" chain; fills ``results``. The plain
-    backward cannot be split by channel (the projections mix them): its
-    peak per (row, step, channel, state) is measured at L = 16384 first,
-    and the full length must fit in PROJ_PLAIN_SHARE of free memory."""
+def proj_call(direction, R, dtype=torch.bfloat16, flags=None):
+    """One K8 kernel call at stage 0 (phase 11's operands, forward + acc +
+    gate unless ``flags``) as a closure: the forward launch, or the
+    backward launch from a forward's chunk states (not counted)."""
     L, E, _, rank = STAGE0
-    for dtype in (torch.float32, torch.bfloat16):
-        a = proj_inputs(2, L, E, rank, dtype, seed=L + 7)
+    flags = flags or PROJ_CHAIN["forward_acc_gate"]
+    a = proj_inputs(R, L, E, rank, dtype, seed=L + 6 + R)
+    args = [a[k] for k in PROJ_ARGS] + [a["z"] if flags["z"] else None,
+                                        a["acc"] if flags["acc"] else None]
+    kw = dict(reverse=flags["reverse"], chunk_size=scan_proj.DEF_CHUNK)
+    if direction == "fwd":
+        return lambda: scan_proj._launch(*args, return_states=False, **kw)
+    g = torch.Generator(device="cuda").manual_seed(L + 9)
+    dout = torch.randn(R, L, E, generator=g, device="cuda").to(dtype)
+    _, states = scan_proj._launch(*args, return_states=True, **kw)
+    return lambda: scan_proj._launch_bwd(*args, dout, states, **kw)
+
+
+def phase_proj_kernel(results):
+    """K8 forward (R = 2, and R = 1 in the last flag set) and backward
+    (R = 1) vs plain at stage 0, in the three flag sets of the "proj"
+    chain; fills ``results``. The plain backward cannot be split by channel
+    (the projections mix them): its peak per (row, step, channel, state) is
+    measured at L = 16384 first, and the full length must fit in
+    PROJ_PLAIN_SHARE of free memory. The bf16 forward + acc + gate
+    backward is also timed at R = 2, and K8's bf16 calls split by kernel
+    name (``--breakdown proj_fwd`` / ``proj_bwd``)."""
+    L, E, _, rank = STAGE0
+    for dtype, R in ((torch.float32, 2), (torch.bfloat16, 2),
+                     (torch.float32, 1), (torch.bfloat16, 1)):
+        a = proj_inputs(R, L, E, rank, dtype, seed=L + 7)
         rtol, atol = TOL[dtype]
-        for fname, flags in PROJ_CHAIN.items():
+        chain = PROJ_CHAIN if R == 2 else ("forward_acc_gate",)
+        for fname in chain:
+            flags = PROJ_CHAIN[fname]
             kw = dict(z=a["z"] if flags["z"] else None,
                       acc=a["acc"] if flags["acc"] else None,
                       reverse=flags["reverse"])
@@ -1844,18 +1868,18 @@ def phase_proj_kernel(results):
             out_k, st_k = kern(True)
             out_p, st_p = plain(True)
             torch.cuda.synchronize()
-            tag = f"K8 fwd {fname} R=2 {str(dtype)[6:]}"
+            tag = f"K8 fwd {fname} R={R} {str(dtype)[6:]}"
             err = check_close(f"{tag} out", out_k, out_p, rtol, atol)
             err_st = check_close(f"{tag} states", st_k, st_p,
                                  *TOL[torch.float32])
             del out_k, st_k, out_p, st_p
             ms = cuda_ms(kern, 5)
             plain_ms = cuda_ms(plain, 3)
-            bound, bound_by = proj_bound("fwd", flags, 2, L, E, rank, dtype)
+            bound, bound_by = proj_bound("fwd", flags, R, L, E, rank, dtype)
             log(f"kernel {tag}: max_abs_err {err:.3e} (states {err_st:.3e}),"
                 f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{bound:.4f} ms ({bound_by})")
-            results.append(dict(direction="fwd", variant=fname,
+            results.append(dict(direction="fwd", variant=fname, R=R,
                                 dtype=str(dtype)[6:],
                                 max_abs_err=max(err, err_st), ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound,
@@ -1939,7 +1963,7 @@ def phase_proj_kernel(results):
                 f"max(1, max|plain|): {', '.join(rel)}), kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms (peak {peak / 2 ** 30:.2f} GiB), "
                 f"bound {bound:.4f} ms ({bound_by})")
-            results.append(dict(direction="bwd", variant=fname,
+            results.append(dict(direction="bwd", variant=fname, R=1,
                                 dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound,
                                 bound_by=bound_by))
@@ -1947,6 +1971,24 @@ def phase_proj_kernel(results):
             torch.cuda.empty_cache()
         del a, dout
         torch.cuda.empty_cache()
+    # the train step's rows: the bf16 forward + acc + gate backward at R = 2
+    flags = PROJ_CHAIN["forward_acc_gate"]
+    ms = cuda_ms(proj_call("bwd", 2), 5)
+    bound, bound_by = proj_bound("bwd", flags, 2, L, E, rank, torch.bfloat16)
+    log(f"kernel K8 bwd forward_acc_gate R=2 bfloat16: kernel {ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({bound_by})")
+    results.append(dict(direction="bwd", variant="forward_acc_gate", R=2,
+                        dtype="bfloat16", ms=ms, bound_ms=bound,
+                        bound_by=bound_by))
+    torch.cuda.empty_cache()
+    for direction, R in (("fwd", 2), ("bwd", 1)):
+        parts = breakdown_in_child(f"proj_{direction}",
+                                   f"K8 {direction} stage0 R={R} bfloat16")
+        row = next(r for r in results if r["direction"] == direction
+                   and r["R"] == R and r["dtype"] == "bfloat16"
+                   and r["variant"] == "forward_acc_gate")
+        row["device_ms"] = None if parts is None else sum(parts.values())
+        row["device_parts"] = parts
 
 
 def build_composition(comp, dtype, remat=False):
@@ -2829,12 +2871,16 @@ def breakdown_call(name):
     ("bwd_slice"); phase 9's K6 backward at the prefill shape
     ("bwd_core"); phase 14's K7 calls ("mxu_fwd", "mxu_bwd", and at the
     prefill shape "mxu_fwd_prefill", "mxu_bwd_prefill"; "k6_..." K6 on the
-    same inputs: ``mxu_breakdown_call``); phase 13's stage-0 layer
-    ("mxu_layer", "dir2_layer": ``layer_call``); or phase 17's R = 1 bf16
-    calls of K2 ("k2"), K10 ("noshift", "nohs") and K11 ("flat") on phase
-    17's inputs."""
-    if name in ("mxu_layer", "dir2_layer"):
+    same inputs: ``mxu_breakdown_call``); phase 11's bf16 forward + acc +
+    gate K8 calls ("proj_fwd" at R = 2, "proj_bwd" at R = 1:
+    ``proj_call``); phase 13's stage-0 layer ("mxu_layer", "dir2_layer",
+    "proj_layer": ``layer_call``); or phase 17's R = 1 bf16 calls of K2
+    ("k2"), K10 ("noshift", "nohs") and K11 ("flat") on phase 17's
+    inputs."""
+    if name in ("mxu_layer", "dir2_layer", "proj_layer"):
         return layer_call(name[:-len("_layer")])
+    if name in ("proj_fwd", "proj_bwd"):
+        return proj_call(name[5:], 2 if name == "proj_fwd" else 1)
     if name.startswith(("mxu_", "k6_")):
         return mxu_breakdown_call(name)
     if name in VARIANTS:
@@ -2885,7 +2931,7 @@ def mxu_breakdown_call(name):
 
 
 def layer_call(comp):
-    """``--breakdown mxu_layer`` / ``dir2_layer``: phase 13's stage-0 Mamba
+    """``--breakdown {mxu|dir2|proj}_layer``: phase 13's stage-0 Mamba
     layer (``vit.stages.0.0`` of the bf16 train-step model under
     composition ``comp``), forward and backward on the input it sees in the
     recipe batch's forward."""
@@ -2910,13 +2956,15 @@ def layer_call(comp):
 
 def layer_split():
     """Phase 13's stage-0 layer (forward + backward) by kernel name under
-    "mxu" and "dir2", each profile in a fresh process: K7's two kernels
-    against the rest of the mxu layer (the per-direction glue), dir2's
-    scan kernels against the rest of its layer. Returns {comp: {"total",
-    "scan", "rest"} device ms} (None where not measured)."""
+    "mxu", "dir2" and "proj", each profile in a fresh process: K7's two
+    kernels against the rest of the mxu layer (the per-direction glue),
+    dir2's scan kernels against the rest of its layer, K8's two kernels
+    against the rest of the proj layer. Returns {comp: {"total", "scan",
+    "rest"} device ms} (None where not measured)."""
     out = {}
     for comp, scan in (("mxu", ("mxu_fwd_kernel", "mxu_bwd_kernel")),
-                       ("dir2", ("scan_fwd_kernel", "scan_bwd_kernel"))):
+                       ("dir2", ("scan_fwd_kernel", "scan_bwd_kernel")),
+                       ("proj", ("proj_fwd_kernel", "proj_bwd_kernel"))):
         parts = breakdown_in_child(f"{comp}_layer",
                                    f"stage-0 layer fwd + bwd {comp}")
         if parts is None:
@@ -2925,7 +2973,7 @@ def layer_split():
         total = sum(parts.values())
         sc = sum(v for k, v in parts.items() if k in scan)
         out[comp] = dict(total=total, scan=sc, rest=total - sc)
-    if None not in out.values():
+    if out["mxu"] is not None and out["dir2"] is not None:
         m, d = out["mxu"], out["dir2"]
         log(f"stage-0 layer fwd + bwd, device: mxu {m['total']:.4f} ms = "
             f"K7 {m['scan']:.4f} + the rest {m['rest']:.4f}; dir2 "
@@ -2933,6 +2981,13 @@ def layer_split():
             f"{d['rest']:.4f}; mxu's extra {m['total'] - d['total']:.4f} ms "
             f"= scans {m['scan'] - d['scan']:.4f} + the per-direction glue "
             f"{m['rest'] - d['rest']:.4f}")
+    if out["proj"] is not None and out["dir2"] is not None:
+        q, d = out["proj"], out["dir2"]
+        log(f"stage-0 layer fwd + bwd, device: proj {q['total']:.4f} ms = "
+            f"K8 {q['scan']:.4f} + the rest {q['rest']:.4f}; proj - dir2 "
+            f"{q['total'] - d['total']:.4f} ms = scans "
+            f"{q['scan'] - d['scan']:.4f} + the rest "
+            f"{q['rest'] - d['rest']:.4f}")
     return out
 
 
@@ -3087,17 +3142,17 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{device_kind}, count {torch.cuda.device_count()}")
     # one nvcc per source, all started together (threads wait on them)
-    loaders = (scan_mxu._lib, scan_mxu._bwd_lib, scan_proj._lib,
-               scan_proj._bwd_lib, conv3d._lib, conv3d._dw_lib,
-               bench_scan_lb._lib, bench_scan_flat._lib)
+    # (K7's and K8's entries live in the two gated_scan libraries)
+    loaders = (scan_mxu._lib, scan_mxu._bwd_lib, conv3d._lib,
+               conv3d._dw_lib, bench_scan_lb._lib, bench_scan_flat._lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
-    for name in ("gated_scan_fwd", "gated_scan_bwd", "proj_scan_fwd",
-                 "proj_scan_bwd", "conv3d_k3s1_fwd", "conv3d_k3s1_dw",
-                 "scan_lb_fwd", "scan_flat_fwd"):
+    scan_proj._lib(), scan_proj._bwd_lib()
+    for name in ("gated_scan_fwd", "gated_scan_bwd", "conv3d_k3s1_fwd",
+                 "conv3d_k3s1_dw", "scan_lb_fwd", "scan_flat_fwd"):
         info = _build.BUILD_INFO[name]
-        log(f"built {name} in {info['seconds']:.1f} s (all eight sources "
+        log(f"built {name} in {info['seconds']:.1f} s (all six sources "
             "in parallel)")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line.lower():
@@ -3285,23 +3340,35 @@ def main():
                if direction == "bwd" else {})))
     for direction in ("fwd", "bwd"):
         rows = [r for r in proj_results if r["direction"] == direction]
-        main_row = next(r for r in rows if r["variant"] == "forward_acc_gate"
-                        and r["dtype"] == "bfloat16")
+        main_R, other_R = (2, 1) if direction == "fwd" else (1, 2)
+        at = lambda R: next(r for r in rows if r["R"] == R
+                            and r["variant"] == "forward_acc_gate"
+                            and r["dtype"] == "bfloat16")
+        main_row, other = at(main_R), at(other_R)
         if direction == "fwd":
             by_path = {"inference_case": comp_stats["proj"]["case_counts"][
+                "scan_proj"], "train_step": comp_train["proj"]["counts"][
                 "scan_proj"]}
         else:
             by_path = {"train_step": comp_train["proj"]["counts"][
                 "scan_proj_bwd"]}
         kernels.append(dict(
             name=f"proj_scan_{direction}[scan_proj]", route="cuda",
-            source=PROJ_SOURCES[direction], replaces=PROJ_REPLACES[direction],
+            source=SOURCES[direction], replaces=PROJ_REPLACES[direction],
+            kernel=f"proj_{direction}_kernel",
             launches=next(iter(by_path.values())),
-            max_abs_err=max(r["max_abs_err"] for r in rows),
+            max_abs_err=max(r["max_abs_err"] for r in rows
+                            if "max_abs_err" in r),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=None, variant=main_row["variant"],
-            launches_by_path=by_path))
+            library_ms=None, variant=main_row["variant"], R=main_R,
+            device_ms=main_row.get("device_ms"),
+            device_parts=main_row.get("device_parts"),
+            **{f"R{other_R}": {k: other[k] for k in (
+                "ms", "bound_ms", "bound_by")}},
+            launches_by_path=by_path,
+            **({"layer_split": comp_train["mxu"]["layer_split"].get("proj")}
+               if direction == "bwd" else {})))
     for direction in ("fwd", "bwd"):
         rows = [r for r in mxu_results if r["direction"] == direction]
         main_row = next(r for r in rows if r["shape"] == "prefill"

@@ -19,6 +19,10 @@
 //   K7  segmamba_tpu/ops/scan_pallas_mxu.py:165   _bwd_kernel (pallas_call
 //       :284; _bwd_call_mxu :275, _make_core :335): K6's adjoint in K7's
 //       ratio form (RATIO, below), as its own kernel mxu_bwd_kernel.
+//   K8  segmamba_tpu/ops/scan_pallas_proj.py:134  _proj_bwd_kernel
+//       (pallas_call :351; _proj_bwd_call :200, _make_proj_core :369): K3
+//       through the projections formed in the tile (PROJ, below), as its own
+//       kernel proj_bwd_kernel.
 // It is the adjoint of csrc/gated_scan_fwd.cu and reads that kernel's chunk
 // exit states (R, nc, N, D), float32, in scan order.
 //
@@ -166,6 +170,41 @@
 // the per-unit selects (Form); sweep B does not: its three copies spilled
 // to local memory and ran 1.13x slower on the H100 (PERF.md §6).
 // dD and dbias are not formed (the wrapper applies D and bias outside).
+//
+// PROJ (K8; K3's flags, softplus, u = xc, the adjoint of gated_scan_fwd.cu's
+// PROJ): with x_dbl = xc [W_dt | W_B | W_C], xdt its dt columns, dt_raw =
+// xdt dt_proj + bias, the gradients of xc and of the weights:
+//   dB_s = sum_e g delta xc,  dC_s = sum_e x dy,  dxdt_s = dt_proj ddt_raw_s
+//   dxc  = S delta + dy D + dxdt W_dt^T + dB W_B^T + dC W_C^T
+//   dW   = xc^T [dxdt | dB | dC],  d dt_proj = xdt^T ddt_raw,
+//   dbias = sum ddt_raw, dA, dD as K3's.
+// dB, dC and dxdt are sums over every channel and each channel's dxc needs
+// them, so one block owns all E <= 128 channels of its chunk (DB = E
+// rounded up to 8, four threads a channel: up to 512 threads, one block an
+// SM). Before sweep F the block stages x_proj (columns reordered to [B | C |
+// dt]) and dt_proj, loads the chunk's xc rows (scan order) into the
+// checkpoints' region and projects them once (csrc/proj_tile.cuh; on the
+// tensor cores for bf16 xc and x_proj, from a bf16 copy of x_proj in the
+// slots, free until sweep F): B, C and xdt of the whole tile stay in shared
+// memory for both sweeps (18 KB at T = 128, E = 96, against projecting each
+// 8-step group twice). Each sweep
+// stages its groups as K3's do, delta = softplus(xdt . dt_proj + bias) from
+// the tile's xdt. Sweep B's walk leaves S delta + dy D and ddt_raw per
+// (step, channel) in shared memory; after the group's barrier the block
+// adds the warps' dB / dC partials in warp order and forms dxdt (a dot over
+// the channels), and after another the four threads of a channel form its
+// dxc (two steps each) and add the group's terms of dW (a fourth of the
+// columns each) and d dt_proj in registers. No (blocks, R, L, N) dB / dC
+// buffer and no checkpoint in device memory: a block's weight gradients go
+// out once, as one float32 partial per (row, chunk) that the wrapper sums
+// with torch.sum (the same bits every run). A thread-block cluster of two
+// CTAs of 48 channels (K3's block) adding their channel sums through
+// distributed shared memory ran about 1.2x slower on the H100 (PERF.md
+// §6). Shared memory (proj_scan_bwd_smem): 171 KiB at E = 96, T = 128,
+// dt_rank 3 (bf16 or float32: the xc tile shares the checkpoints'
+// region); 223 KiB at E = 128, dt_rank 4; dt_rank <= 6 fits at E = 128, T
+// = 128, and E <= 64 at T = 256 (scan_proj.proj_scan_supported sends the
+// rest to the directional scan).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -230,6 +269,12 @@ struct Params {
   long long sA_r, sDv_r, sbias_r;
   int sub, guarded, n_valid;    // RATIO: sub-block, guard, real states
   unsigned long long* tally;    // RATIO: (ratio units, step units) or null
+  const float* W;        // PROJ: x_proj (D, Rk + 2 NS), float32
+  const float* dtp;      // PROJ: dt_proj (Rk, D), float32
+  float* part;           // PROJ: (R, nc, (2 Rk + 3 NS + 2) D) partials
+  int Rk, ldu;           // PROJ: dt_rank; elements of a staged xc row
+  int wmma;              // PROJ: bf16 xc and x_proj, tensor cores
+  int nch;               // PROJ: channels of the tile and the weights (16 k)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -253,6 +298,11 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 #include "ratio_guard.cuh"   // RATIO's guard and step, shared with the fwd
+#include "proj_tile.cuh"     // PROJ's projections, shared with the fwd
+
+constexpr int PROJ_THREADS = PROJ_MAX_CHANNELS * TPC;
+constexpr int PROJ_ACC_W = (2 * NS + PROJ_MAX_RANK) / TPC;  // dW columns
+constexpr int PROJ_ACC_D = PROJ_MAX_RANK / TPC;   // d dt_proj rows a thread
 
 __device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
   unsigned v;
@@ -352,9 +402,10 @@ struct Staged {
 };
 
 // Issue the loads of group j (scan steps j K .. j K + K - 1) of the chunk
-// at t0; sweep F (FWD) also loads acc.
+// at t0; sweep F (FWD) also loads acc. PROJ loads neither B, C nor dt (the
+// tile's projections hold them).
 template <typename S, bool FWD, bool REVERSE, bool GATE, bool HAS_ACC,
-          bool SLICE>
+          bool SLICE, bool PROJ = false>
 __device__ __forceinline__ void load_group(const Params& p, long long r,
                                            long long d0, long long t0,
                                            int len, int j, Staged<S>& q) {
@@ -363,6 +414,7 @@ __device__ __forceinline__ void load_group(const Params& p, long long r,
   const S* C = static_cast<const S*>(p.C) + r * p.sC_r;
 #pragma unroll
   for (int e = 0; e < BC_PER; ++e) {
+    if (PROJ) break;
     const int i = min(tid + e * nthr, K * NS - 1);
     const long long tt = phys<REVERSE, SLICE>(p, t0, len, j * K + i / NS);
     q.b[e] = B[tt * p.sB_l + i % NS];
@@ -378,7 +430,7 @@ __device__ __forceinline__ void load_group(const Params& p, long long r,
   for (int e = 0; e < RPT; ++e) {
     const long long tt =
         phys<REVERSE, SLICE>(p, t0, len, j * K + tid / DB + e * TPC);
-    q.dt[e] = dt[tt * p.sdt_l];
+    if (!PROJ) q.dt[e] = dt[tt * p.sdt_l];
     q.u[e] = u[tt * p.su_l];
     q.go[e] = go[tt * p.D];
     if (GATE) q.z[e] = z[tt * p.sz_l];
@@ -389,22 +441,25 @@ __device__ __forceinline__ void load_group(const Params& p, long long r,
 // Write a loaded group into a slot: B, C and the per-channel arrays (sweep
 // F: delta, u, dy, dzf, yw; sweep B: delta, u, dy, sigmoid). Steps past the
 // chunk and channels past D stage zeros. Sweep F's staging also writes
-// dacc = dy.
+// dacc = dy. PROJ's slot has no B and C, and its dt_raw comes from the
+// tile's xdt rows (sXdt) and dt_proj (sDtp).
 template <typename S, bool FWD, bool REVERSE, bool GATE, bool HAS_ACC,
-          bool SOFTPLUS, bool SLICE>
+          bool SOFTPLUS, bool SLICE, bool PROJ = false>
 __device__ __forceinline__ void store_group(const Params& p, long long r,
                                             long long d0, long long t0,
                                             int len, int j, float bias,
                                             float Dv, const Staged<S>& q,
-                                            float* slot) {
+                                            float* slot,
+                                            const float* sXdt = nullptr,
+                                            const float* sDtp = nullptr) {
   const int tid = threadIdx.x, nthr = blockDim.x, DB = p.DB;
   float* sB = slot;
   float* sC = sB + K * NS;
-  float* arr = sC + K * NS;
+  float* arr = PROJ ? slot : sC + K * NS;
 #pragma unroll
   for (int e = 0; e < BC_PER; ++e) {
     const int i = tid + e * nthr;
-    if (i < K * NS) {
+    if (!PROJ && i < K * NS) {
       const bool ok = j * K + i / NS < len;
       sB[i] = ok ? to_f(q.b[e]) : 0.f;
       sC[i] = ok ? to_f(q.c[e]) : 0.f;
@@ -413,11 +468,17 @@ __device__ __forceinline__ void store_group(const Params& p, long long r,
   const int k = tid % DB;
   const bool live = d0 + k < p.D;
   S* dacc = static_cast<S*>(p.dacc) + r * p.L * p.D + d0 + k;
+  float xr[RPT];   // dt_raw of the thread's rows, before any store
+#pragma unroll
+  for (int e = 0; e < RPT; ++e)
+    xr[e] = PROJ ? proj_dt_raw(sXdt + (j * K + tid / DB + e * TPC) * p.Rk,
+                               sDtp, p.nch, p.Rk, (int)d0 + k, bias)
+                 : to_f(q.dt[e]) + bias;
 #pragma unroll
   for (int e = 0; e < RPT; ++e) {
     const int row = tid / DB + e * TPC;   // step of the group
     const bool ok = live && j * K + row < len;
-    const float x = to_f(q.dt[e]) + bias;
+    const float x = xr[e];
     float sig = 1.f;
     const float delta = SOFTPLUS ? softplus_sig(x, sig) : x;
     const float uu = to_f(q.u[e]);
@@ -446,8 +507,66 @@ __device__ __forceinline__ void store_group(const Params& p, long long r,
   }
 }
 
+// PROJ: a group's sums over the block's channels into sRed (Rk + 2 NS, K:
+// a column's K steps 16-byte aligned together), one warp item a step,
+// dealt to the warps in turn: its lanes add the warps' reduce-scattered dB |
+// dC partials in sX (nw, K, 32) in warp order (a lane an output), and form
+// its dxdt = sum_e ddt_raw dt_proj (dt_proj's rows of ldt floats, nvalid
+// real channels; the lanes take the channels in turn, PROJ_MAX_RANK / 4
+// ranks at once, then shuffle trees add them: the same order every run).
+// No barrier.
+__device__ __forceinline__ void proj_group_sums(int Rk, int DB, int nvalid,
+                                                int nw, const float* sX,
+                                                const float* sDdt,
+                                                const float* sDtp, int ldt,
+                                                float* sRed) {
+  constexpr int RB = PROJ_MAX_RANK / 4;   // ranks a pass
+  const int ncol = Rk + 2 * NS;
+  const int lane = threadIdx.x & 31;
+  for (int k = threadIdx.x >> 5; k < K; k += nw) {
+    const int o = k * 32 + lane;
+    float s = 0.f;
+    for (int v = 0; v < nw; ++v) s += sX[v * K * 32 + o];
+    // lane l of a warp kept dB (bit 4 clear) or dC of state
+    // (l mod 4) SPT + 2 (bit 3) + (bit 2)
+    const int n = (lane & 3) * SPT + ((lane >> 3) & 1) * 2 +
+                  ((lane >> 2) & 1);
+    sRed[(((lane & 16) ? NS : 0) + n) * K + k] = s;
+    for (int k0 = 0; k0 < Rk; k0 += RB) {
+      float d[RB];
+#pragma unroll
+      for (int m = 0; m < RB; ++m) d[m] = 0.f;
+      for (int e = lane; e < nvalid; e += 32) {
+        const float g = sDdt[k * DB + e];
+#pragma unroll
+        for (int m = 0; m < RB; ++m)
+          if (k0 + m < Rk) d[m] = __fmaf_rn(g, sDtp[(k0 + m) * ldt + e], d[m]);
+      }
+#pragma unroll
+      for (int m = 0; m < RB; ++m)
+#pragma unroll
+        for (int w = 16; w > 0; w >>= 1)
+          d[m] += __shfl_xor_sync(0xffffffffu, d[m], w);
+#pragma unroll
+      for (int m = 0; m < RB; ++m)
+        if (lane == 0 && k0 + m < Rk) sRed[(2 * NS + k0 + m) * K + k] = d[m];
+    }
+  }
+}
+
+// Floats of the region that holds the checkpoints, (ngmax - 1, DB, NS);
+// PROJ first stages the chunk's xc rows there (ngmax K rows of ldu).
+template <typename S>
+__host__ __device__ __forceinline__ int ck_floats(int T, int DB, int ldu,
+                                                  bool proj) {
+  const int ngmax = (T + K - 1) / K;
+  const int ck = (ngmax - 1) * DB * NS;
+  const int tile = (ngmax * K * ldu * (int)sizeof(S) + 15) / 16 * 4;
+  return proj && tile > ck ? tile : ck;
+}
+
 template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
-          bool SLICE, bool RATIO>
+          bool SLICE, bool RATIO, bool PROJ>
 __device__ __forceinline__ void scan_bwd_body(const Params& p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -455,13 +574,27 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
   const int ngmax = (T + K - 1) / K;
-  const int slot_len = K * (2 * NS + (RATIO ? NA_RATIO : NA) * DB);
+  const int slot_len =
+      K * ((PROJ ? 0 : 2 * NS) + (RATIO ? NA_RATIO : NA) * DB);
   unsigned* sMisc = reinterpret_cast<unsigned*>(smem);   // ticket, walk
   float* sCk = smem + 4;                     // (ngmax - 1, DB, NS)
-  float* sSlot = sCk + (ngmax - 1) * DB * NS;   // two slots
-  float* sX = sSlot + 2 * slot_len;          // two (nw, K, 32) exchanges
-  float* sCum = sX + 2 * nw * K * 32;        // RATIO: (ngmax - 1, DB) cum
+  float* sSlot = sCk + ck_floats<S>(T, DB, p.ldu, PROJ);   // two slots
+  float* sX = sSlot + 2 * slot_len;   // two (nw, K, 32) exchanges (PROJ: one)
+  float* sCum = sX + (PROJ ? 1 : 2) * nw * K * 32;   // RATIO: (ngmax - 1, DB)
   float* sDabs = sCum + (ngmax - 1) * DB;    // RATIO: (T / sub, DB)
+  // PROJ, in RATIO's place: the tile's B, C (ngmax K, NS) and xdt (ngmax K,
+  // Rk); x_proj transposed (Rk + 2 NS, nch) and dt_proj (Rk, nch); a
+  // group's sums dB | dC | dxdt (Rk + 2 NS, K), S delta + dy D and ddt_raw
+  // (K, DB)
+  const int ncol = p.Rk + 2 * NS;
+  float* sBt = sCum;
+  float* sCt = sBt + ngmax * K * NS;
+  float* sXdt = sCt + ngmax * K * NS;
+  float* sWt = sXdt + (ngmax * K * p.Rk + 3) / 4 * 4;
+  float* sDtp = sWt + ncol * p.nch;
+  float* sRed = sDtp + p.Rk * p.nch;
+  float* sPart = sRed + (K * ncol + 3) / 4 * 4;
+  float* sDdt = sPart + K * DB;
 
   if (tid == 0) sMisc[0] = atomicAdd(p.flags, 1u);
   __syncthreads();
@@ -510,6 +643,47 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
     for (int n = 0; n < SPT; ++n)
       if (active && qs * SPT + n < p.n_valid) valid |= 1u << n;
   }
+  // PROJ: the weights, and the chunk's xc rows in scan order (zero past L
+  // and past E) in the checkpoints' region, projected once: the tile's B,
+  // C and xdt for both sweeps
+  if constexpr (PROJ) {
+    S* tile = reinterpret_cast<S*>(sCk);
+    const S* xc = static_cast<const S*>(p.u) + r * p.su_r;
+    const int nt = blockDim.x, nch = p.nch, n = ng * K * nch;
+    for (int e0 = tid; e0 < n; e0 += 8 * nt) {   // 8 loads, then 8 stores
+      S v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = e0 + j * nt, i = e / nch, k = e % nch;
+        v[j] = from_f<S>(0.f);
+        if (e < n && i < len && k < p.D)
+          v[j] = xc[phys<REVERSE, SLICE>(p, t0, len, i) * p.su_l + k];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = e0 + j * nt;
+        if (e < n) tile[e / nch * p.ldu + e % nch] = v[j];
+      }
+    }
+    // the epilogue's float32 weights; the tensor cores' bfloat16 copy in
+    // the slots, free until sweep F stages its first group
+    proj_stage_weights(p.W, p.dtp, (int)p.D, nch, p.Rk, sWt, true);
+    __nv_bfloat16* sWb = reinterpret_cast<__nv_bfloat16*>(sSlot);
+    if (p.wmma) proj_stage_wb(p.W, (int)p.D, nch, p.Rk, sWb);
+    __syncthreads();
+    if constexpr (is_bf16<S>) {
+      if (p.wmma)
+        project_rows_mma(tile, p.ldu, 0, ng * K, nch, sWb, p.Rk, sBt, sCt,
+                         sXdt);
+      else
+        project_rows<S>(tile, p.ldu, 0, ng * K, nch, sWt, p.Rk, sBt, sCt,
+                        sXdt);
+    } else {
+      project_rows<S>(tile, p.ldu, 0, ng * K, nch, sWt, p.Rk, sBt, sCt,
+                      sXdt);
+    }
+    __syncthreads();   // the tile's projections are out
+  }
 
   // Sweep F: x from the entry state, its checkpoints, the aggregate h and
   // sum delta; dz.
@@ -535,15 +709,16 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
 
   S* dz = static_cast<S*>(p.dz) + r * p.L * p.D + dc;
   Staged<S> q;
-  load_group<S, true, REVERSE, GATE, HAS_ACC, SLICE>(p, r, d0, t0, len, 0, q);
-  store_group<S, true, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>(
-      p, r, d0, t0, len, 0, bias_s, Dv_s, q, sSlot);
+  load_group<S, true, REVERSE, GATE, HAS_ACC, SLICE, PROJ>(p, r, d0, t0, len,
+                                                           0, q);
+  store_group<S, true, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, PROJ>(
+      p, r, d0, t0, len, 0, bias_s, Dv_s, q, sSlot, sXdt, sDtp);
   __syncthreads();
   for (int j = 0; j < ng; ++j) {
     const bool more = j + 1 < ng;
     if (more)
-      load_group<S, true, REVERSE, GATE, HAS_ACC, SLICE>(p, r, d0, t0, len,
-                                                          j + 1, q);
+      load_group<S, true, REVERSE, GATE, HAS_ACC, SLICE, PROJ>(
+          p, r, d0, t0, len, j + 1, q);
     if (j > 0) {
       *reinterpret_cast<float4*>(sCk + ((j - 1) * DB + ch) * NS +
                                  qs * SPT) = make_float4(x[0], x[1], x[2],
@@ -551,9 +726,9 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
       if (RATIO && qs == 0) sCum[(j - 1) * DB + ch] = cum;
     }
     const float* slot = sSlot + (j & 1) * slot_len;
-    const float* sB = slot;
-    const float* sC = sB + K * NS;
-    const float* arr = sC + K * NS;
+    const float* sB = PROJ ? sBt + j * K * NS : slot;
+    const float* sC = PROJ ? sCt + j * K * NS : sB + K * NS;
+    const float* arr = PROJ ? slot : sC + K * NS;
     float yp[K];   // this thread's part of C.x, per step
     if constexpr (RATIO) {
       auto steps = [&](auto form) __attribute__((always_inline)) {
@@ -655,9 +830,9 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
       }
     }
     if (more)   // group j + 1's slot: nobody reads it yet
-      store_group<S, true, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>(
+      store_group<S, true, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, PROJ>(
           p, r, d0, t0, len, j + 1, bias_s, Dv_s, q,
-          sSlot + ((j + 1) & 1) * slot_len);
+          sSlot + ((j + 1) & 1) * slot_len, sXdt, sDtp);
     __syncthreads();
   }
 
@@ -754,24 +929,31 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
 #pragma unroll
   for (int n = 0; n < SPT; ++n) dA[n] = 0.f;
   float dDs = 0.f, dbs = 0.f;
-  S* du_o = static_cast<S*>(p.du) + r * p.L * p.D + dc;
+  // PROJ: this thread's terms of dW (columns qs + TPC m of the reordered
+  // x_dbl) and of d dt_proj (rows qs + TPC m), for channel ch
+  float accW[PROJ ? PROJ_ACC_W : 1], accD[PROJ ? PROJ_ACC_D : 1];
+#pragma unroll
+  for (int m = 0; m < (PROJ ? PROJ_ACC_W : 1); ++m) accW[m] = 0.f;
+#pragma unroll
+  for (int m = 0; m < (PROJ ? PROJ_ACC_D : 1); ++m) accD[m] = 0.f;
+  S* du_o = static_cast<S*>(p.du) + r * p.L * p.D + dc;   // PROJ: dxc
   S* ddt_o = static_cast<S*>(p.ddt) + r * p.L * p.D + dc;
   float* dBp = p.dB_p + ((long long)cb * p.R + r) * p.L * NS;
   float* dCp = p.dC_p + ((long long)cb * p.R + r) * p.L * NS;
-  load_group<S, false, REVERSE, GATE, HAS_ACC, SLICE>(p, r, d0, t0, len,
-                                                       ng - 1, q);
-  store_group<S, false, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>(
+  load_group<S, false, REVERSE, GATE, HAS_ACC, SLICE, PROJ>(
+      p, r, d0, t0, len, ng - 1, q);
+  store_group<S, false, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, PROJ>(
       p, r, d0, t0, len, ng - 1, bias_s, Dv_s, q,
-      sSlot + ((ng - 1) & 1) * slot_len);
+      sSlot + ((ng - 1) & 1) * slot_len, sXdt, sDtp);
   __syncthreads();
   for (int j = ng - 1; j >= 0; --j) {
     if (j > 0)
-      load_group<S, false, REVERSE, GATE, HAS_ACC, SLICE>(p, r, d0, t0, len,
-                                                           j - 1, q);
+      load_group<S, false, REVERSE, GATE, HAS_ACC, SLICE, PROJ>(
+          p, r, d0, t0, len, j - 1, q);
     const float* slot = sSlot + (j & 1) * slot_len;
-    const float* sB = slot;
-    const float* sC = sB + K * NS;
-    const float* arr = sC + K * NS;
+    const float* sB = PROJ ? sBt + j * K * NS : slot;
+    const float* sC = PROJ ? sCt + j * K * NS : sB + K * NS;
+    const float* arr = PROJ ? slot : sC + K * NS;
     float xc[SPT], rc = 0.f;   // the checkpoint (RATIO: and its cum)
     if (j > 0) {
       unpack(*reinterpret_cast<const float4*>(sCk + ((j - 1) * DB + ch) *
@@ -837,7 +1019,7 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
         xs[k][n] = __fmaf_rn(an, k > 0 ? xs[k - 1][n] : xc[n], du * b[n]);
       }
     }
-    float* xch = sX + ((j & 1) * nw + warp) * K * 32;
+    float* xch = sX + ((PROJ ? 0 : j & 1) * nw + warp) * K * 32;
     // the walk, last step first
 #pragma unroll
     for (int k = K - 1; k >= 0; --k) {
@@ -887,7 +1069,17 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
                   __shfl_xor_sync(0xffffffffu, odd ? Sp : ddp, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const int i = j * K + k;
-      if (active && i < len && qs < 2) {
+      if (PROJ && qs < 2) {   // the epilogue's per (step, channel) terms
+        const bool ok = active && i < len;
+        if (qs == 0) {
+          sPart[k * DB + ch] = ok ? __fmaf_rn(sum, delta, dy * Dv) : 0.f;
+          if (ok) dDs = __fmaf_rn(dy, uu, dDs);
+        } else {
+          const float ddt_v = ok ? sum * a[A_SIG * K * DB] : 0.f;
+          sDdt[k * DB + ch] = ddt_v;
+          dbs += ddt_v;
+        }
+      } else if (active && i < len && qs < 2) {
         const long long tt = phys<REVERSE, SLICE>(p, t0, len, i) * p.D;
         if (qs == 0) {
           du_o[tt] = from_f<S>(__fmaf_rn(sum, delta, dy * Dv));
@@ -915,10 +1107,61 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
                            __shfl_xor_sync(0xffffffffu, h4 ? s2[0] : s2[1], 4);
     }
     if (j > 0)   // group j - 1's slot: nobody reads it yet
-      store_group<S, false, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE>(
+      store_group<S, false, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, PROJ>(
           p, r, d0, t0, len, j - 1, bias_s, Dv_s, q,
-          sSlot + ((j - 1) & 1) * slot_len);
+          sSlot + ((j - 1) & 1) * slot_len, sXdt, sDtp);
     __syncthreads();
+    if constexpr (PROJ) {
+      proj_group_sums(p.Rk, DB, (int)p.D, nw, sX, sDdt, sDtp, p.nch, sRed);
+      __syncthreads();
+      // dxc of steps qs and qs + TPC; the group's terms of dW and d dt_proj
+      const float* xg = slot + A_U * K * DB;   // the group's xc, (K, DB)
+      static_assert(K == 2 * TPC && K == 8,
+                    "a thread: the dxc of two steps, dW terms of 8");
+      float v0 = sPart[qs * DB + ch], v1 = sPart[(qs + TPC) * DB + ch];
+      const float* wt = sWt + ch;   // the channel's x_proj row
+#pragma unroll 4
+      for (int c = 0; c < ncol; ++c) {
+        const float wc = wt[c * p.nch];
+        v0 = __fmaf_rn(sRed[c * K + qs], wc, v0);
+        v1 = __fmaf_rn(sRed[c * K + qs + TPC], wc, v1);
+      }
+      if (active && j * K + qs < len)
+        du_o[phys<REVERSE, SLICE>(p, t0, len, j * K + qs) * p.D] =
+            from_f<S>(v0);
+      if (active && j * K + qs + TPC < len)
+        du_o[phys<REVERSE, SLICE>(p, t0, len, j * K + qs + TPC) * p.D] =
+            from_f<S>(v1);
+      float xk[K];   // the channel's xc at the group's steps
+#pragma unroll
+      for (int k = 0; k < K; ++k) xk[k] = xg[k * DB + ch];
+#pragma unroll
+      for (int m = 0; m < PROJ_ACC_W; ++m)
+        if (qs + TPC * m < ncol) {
+          const float4* rc =
+              reinterpret_cast<const float4*>(sRed + (qs + TPC * m) * K);
+          const float4 r0 = rc[0], r1 = rc[1];
+          accW[m] = __fmaf_rn(xk[0], r0.x, accW[m]);
+          accW[m] = __fmaf_rn(xk[1], r0.y, accW[m]);
+          accW[m] = __fmaf_rn(xk[2], r0.z, accW[m]);
+          accW[m] = __fmaf_rn(xk[3], r0.w, accW[m]);
+          accW[m] = __fmaf_rn(xk[4], r1.x, accW[m]);
+          accW[m] = __fmaf_rn(xk[5], r1.y, accW[m]);
+          accW[m] = __fmaf_rn(xk[6], r1.z, accW[m]);
+          accW[m] = __fmaf_rn(xk[7], r1.w, accW[m]);
+        }
+#pragma unroll
+      for (int m = 0; m < PROJ_ACC_D; ++m)
+        if (qs + TPC * m < p.Rk) {
+          const int kk = qs + TPC * m;
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            accD[m] = __fmaf_rn(sXdt[(j * K + k) * p.Rk + kk],
+                                sDdt[k * DB + ch], accD[m]);
+        }
+      __syncthreads();   // the exchange and the group's sums are free
+      continue;
+    }
     // the block's dB, dC of the group's steps: the warps' sums in order
     const float* xj = sX + (j & 1) * nw * K * 32;
     for (int e = tid; e < K * 32; e += blockDim.x) {
@@ -936,6 +1179,24 @@ __device__ __forceinline__ void scan_bwd_body(const Params& p) {
     }
   }
 
+  if constexpr (PROJ) {   // the block's partials, (2 Rk + 3 NS + 2, D)
+    if (active) {
+      float* pb = p.part + (r * p.nc + w) * (2 * p.Rk + 3 * NS + 2) * p.D + d;
+#pragma unroll
+      for (int m = 0; m < PROJ_ACC_W; ++m)   // dW^T in x_proj's column order
+        if (qs + TPC * m < ncol)
+          pb[proj_col_in(qs + TPC * m, p.Rk) * p.D] = accW[m];
+#pragma unroll
+      for (int m = 0; m < PROJ_ACC_D; ++m)   // d dt_proj
+        if (qs + TPC * m < p.Rk) pb[(ncol + qs + TPC * m) * p.D] = accD[m];
+#pragma unroll
+      for (int n = 0; n < SPT; ++n)   // dA^T
+        pb[(ncol + p.Rk + qs * SPT + n) * p.D] = dA[n];
+      if (qs == 1) pb[(ncol + p.Rk + NS) * p.D] = dbs;
+      if (qs == 0) pb[(ncol + p.Rk + NS + 1) * p.D] = dDs;
+    }
+    return;
+  }
   if (active) {
     *reinterpret_cast<float4*>(p.dA_p + ((r * p.nc + w) * p.D + d) * NS +
                                qs * SPT) =
@@ -950,14 +1211,23 @@ template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
           bool SLICE>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     scan_bwd_kernel(Params p) {
-  scan_bwd_body<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, false>(p);
+  scan_bwd_body<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, false, false>(p);
 }
 
 // K7: K6's instance (float32, forward, ungated, no acc, delta as given) in
 // the ratio form.
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     mxu_bwd_kernel(Params p) {
-  scan_bwd_body<float, false, false, false, false, false, true>(p);
+  scan_bwd_body<float, false, false, false, false, false, true, false>(p);
+}
+
+// K8: K3's instances through the projections, one block a chunk and an SM:
+// MAXT 384 threads (E <= 96, up to 168 registers; 5% faster at stage 0 on
+// the H100 than the 512-thread bound's 128, `tools/proj_ab.py --ablate`)
+// or PROJ_THREADS (E <= 128).
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1) proj_bwd_kernel(Params p) {
+  scan_bwd_body<S, REVERSE, GATE, HAS_ACC, true, false, false, true>(p);
 }
 
 // Shared memory of a block; RATIO (sub-block `sub`) has three slot arrays,
@@ -968,6 +1238,19 @@ size_t smem_bytes(int T, int DB, bool ratio, int sub) {
                   2 * (size_t)K * (2 * NS + (ratio ? NA_RATIO : NA) * DB) +
                   2 * nw * K * 32;
   if (ratio) floats += (ngmax - 1) * DB + (size_t)(T / sub) * DB;
+  return 16 + floats * sizeof(float);
+}
+
+// Shared memory of a PROJ block of DB channels (the carve of
+// scan_bwd_body), nch channels of the tile and the weights.
+template <typename S>
+size_t proj_smem_bytes(int T, int DB, int nch, int Rk) {
+  const size_t ngmax = (T + K - 1) / K, nw = DB * TPC / 32;
+  const size_t ncol = Rk + 2 * NS;
+  const size_t floats =
+      ck_floats<S>(T, DB, nch + 4, true) + 2 * (size_t)K * NA * DB +
+      nw * K * 32 + 2 * ngmax * K * NS + (ngmax * K * Rk + 3) / 4 * 4 +
+      (ncol + Rk) * nch + (K * ncol + 3) / 4 * 4 + 2 * (size_t)K * DB;
   return 16 + floats * sizeof(float);
 }
 
@@ -989,6 +1272,28 @@ cudaError_t launch_one(const Params& p, cudaStream_t stream) {
       smem_bytes(p.T, p.DB, false, 1), stream);
 }
 
+template <typename S, bool REVERSE, int MAXT>
+cudaError_t launch_proj(const Params& p, bool gate, bool has_acc,
+                        cudaStream_t stream) {
+  const size_t smem = proj_smem_bytes<S>(p.T, p.DB, p.nch, p.Rk);
+  if (gate && has_acc)
+    return launch_kernel(proj_bwd_kernel<S, REVERSE, true, true, MAXT>, p,
+                         smem, stream);
+  if (gate)
+    return launch_kernel(proj_bwd_kernel<S, REVERSE, true, false, MAXT>, p,
+                         smem, stream);
+  return launch_kernel(proj_bwd_kernel<S, REVERSE, false, false, MAXT>, p,
+                       smem, stream);
+}
+
+template <typename S, bool REVERSE>
+cudaError_t launch_proj(const Params& p, bool gate, bool has_acc,
+                        cudaStream_t stream) {
+  if (p.DB * TPC <= 384)
+    return launch_proj<S, REVERSE, 384>(p, gate, has_acc, stream);
+  return launch_proj<S, REVERSE, PROJ_THREADS>(p, gate, has_acc, stream);
+}
+
 // acc enters the backward only through the gate (dz's ytot): an ungated
 // link with acc runs the ungated instance, the wrapper sets its dacc.
 template <typename S, bool REVERSE, bool SOFTPLUS, bool SLICE>
@@ -1002,6 +1307,9 @@ cudaError_t launch_flags(const Params& p, bool gate, bool has_acc,
     return launch_one<S, REVERSE, true, false, true, SLICE>(p, stream);
   return launch_one<S, REVERSE, false, false, true, SLICE>(p, stream);
 }
+
+// K8's channels of the staged tile (E rounded up to 16, whole m16 tiles).
+int proj_tile_channels(long long E) { return (int)(E + 15) / 16 * 16; }
 
 }  // namespace
 
@@ -1132,6 +1440,85 @@ int mxu_scan_bwd(const float* u, const float* dt, const float* A,
   p.sA_r = strides[8];
   return (int)launch_kernel(mxu_bwd_kernel, p, smem,
                             static_cast<cudaStream_t>(stream));
+}
+
+// K8's channels a block: E rounded up to 8 (whole warps of 8 channels), at
+// least 32 (the template's 128 threads).
+int proj_scan_bwd_channels(int E) {
+  const int c = (E + 7) / 8 * 8;
+  return c < 32 ? 32 : c;
+}
+
+// K8's shared memory a block in bytes (proj_scan_bwd takes at most
+// 232448, an H100 block's limit); scan_proj.py mirrors it.
+long long proj_scan_bwd_smem(long long E, int Rk, int T, int is_bf16) {
+  const int DB = proj_scan_bwd_channels((int)E), nch = proj_tile_channels(E);
+  return (long long)(is_bf16 ? proj_smem_bytes<__nv_bfloat16>(T, DB, nch, Rk)
+                             : proj_smem_bytes<float>(T, DB, nch, Rk));
+}
+
+// K8 (PROJ): the adjoint of proj_scan_fwd. xc (R, L, E) with strides xc_r,
+// xc_l, z_r, z_l, acc_r, acc_l (elements; host array of 6); dout (R, L, E)
+// contiguous; W, dtp, bias, A, D as proj_scan_fwd; states (R, nc, N, E) the
+// forward's chunk exit states (required when L > T). dxc, dz, dacc (R, L,
+// E) contiguous in the storage dtype (dz with the gate, dacc with the gate
+// and acc); part (R, nc, (2 Rk + 3 N + 2) E) float32 partials per (row,
+// chunk): dW^T (Rk + 2 N, E) in x_proj's column order | d dt_proj (Rk, E) |
+// dA^T (N, E) | dbias (E) | dD (E); agg, incl, sdel and flags (zeroed) as
+// gated_scan_bwd_scratch sizes them for proj_scan_bwd_channels(E) channels.
+// E <= 128, 1 <= Rk <= 16, proj_scan_bwd_smem <= 232448 (at T = 128: Rk
+// <= 6 at E = 128; at T = 256: E <= 64). wmma (with is_bf16): W holds
+// bfloat16 values, and the projections run on the tensor cores where E
+// rounded up to 8 is a multiple of 16. Returns a cudaError_t value.
+int proj_scan_bwd(const void* xc, const void* z, const void* acc,
+                  const void* dout, const float* W, const float* dtp,
+                  const float* bias, const float* A, const float* Dv,
+                  const float* states, void* dxc, void* dz, void* dacc,
+                  float* part, float* agg, float* incl, float* sdel,
+                  unsigned* flags, int is_bf16, int wmma, int reverse,
+                  int gate, int has_acc, long long R, long long L,
+                  long long E, int Rk, int T, const long long* strides,
+                  void* stream) {
+  if (T < 1 || T > 256 || E < 1 || E > PROJ_MAX_CHANNELS || Rk < 1 ||
+      Rk > PROJ_MAX_RANK || R < 1 || L < 1 || L > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const long long nc = (L + T - 1) / T;
+  if (R * nc > 0x7fffffffLL || (nc > 1 && states == nullptr) ||
+      xc == nullptr || dout == nullptr || W == nullptr || dtp == nullptr ||
+      dxc == nullptr || part == nullptr || agg == nullptr ||
+      incl == nullptr || sdel == nullptr || flags == nullptr ||
+      (gate && (z == nullptr || dz == nullptr)) ||
+      (gate && has_acc && (acc == nullptr || dacc == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.u = xc; p.z = z; p.acc = acc; p.dout = dout; p.A = A; p.Dv = Dv;
+  p.bias = bias; p.states = states; p.du = dxc; p.dz = dz; p.dacc = dacc;
+  p.part = part; p.agg = agg; p.incl = incl; p.sdel = sdel; p.flags = flags;
+  p.W = W; p.dtp = dtp; p.Rk = Rk;
+  p.R = R; p.L = L; p.D = E; p.T = T; p.nc = (int)nc;
+  p.DB = proj_scan_bwd_channels((int)E);
+  p.ncb = 1;
+  p.nch = proj_tile_channels(E);
+  p.ldu = p.nch + 4;   // = 4 mod 8: conflict-free row-per-lane loads
+  p.wmma = is_bf16 && wmma;
+  p.S = 1u;
+  p.P = (unsigned)L;
+  p.su_r = strides[0]; p.su_l = strides[1];
+  p.sz_r = strides[2]; p.sz_l = strides[3];
+  p.sacc_r = strides[4]; p.sacc_l = strides[5];
+  if (proj_scan_bwd_smem(E, Rk, T, is_bf16) > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool g = gate != 0, a = has_acc != 0;
+  using bf = __nv_bfloat16;
+  cudaError_t err;
+  if (is_bf16)
+    err = reverse ? launch_proj<bf, true>(p, g, a, st)
+                  : launch_proj<bf, false>(p, g, a, st);
+  else
+    err = reverse ? launch_proj<float, true>(p, g, a, st)
+                  : launch_proj<float, false>(p, g, a, st);
+  return (int)err;
 }
 
 // Scratch sizes in elements for channels per block DB: agg and incl

@@ -20,6 +20,10 @@
 //       :251, helpers _block_scan :107, _masks :82; entry selective_scan_mxu
 //       :379): K6's function in K7's ratio form (RATIO, below), as its own
 //       kernel mxu_fwd_kernel so that profiles keep it apart.
+//   K8  segmamba_tpu/ops/scan_pallas_proj.py:71  _proj_fwd_kernel
+//       (pallas_call :284; flags REVERSE, GATE, HAS_ACC; entry
+//       mamba_scan_proj :406): K1 with B, C and delta projected from u = xc
+//       inside the tile (PROJ, below), as its own kernel proj_fwd_kernel.
 //
 // Per row r, channel d, state n (N = 16) and step t, in float32:
 //   delta = softplus(dt + bias)                  (logaddexp(x, 0) form;
@@ -92,7 +96,8 @@
 // warp loads flags with ld.relaxed.gpu, then fence.acq_rel.gpu (an
 // acquire), then the block barrier hands the walk's end to every thread,
 // which reads records with ld.global.cg (L2, not the SM's L1, which is not
-// coherent across SMs).
+// coherent across SMs). A poll that waits more than 4 s traps (the launch
+// fails) instead of hanging the card, as the backward's do.
 // exp is ex2.approx.ftz on A pre-scaled by log2(e): one MUFU and no extra
 // FMUL per state and step. Sweep 2 repeats sweep 1's exps (a chunk's decays
 // would take 16 x its staged delta in shared memory), so the SFU floor is
@@ -141,6 +146,25 @@
 // would take 3xTF32 for float32 parity, ~6.5 float32-add equivalents an
 // output against 1 for the running sum).
 //
+// PROJ (K8; K1's flags, softplus, u = xc): one block owns all E <= 128
+// channels of its chunk (DB = E rounded up to 32, two threads a channel),
+// since each step's B, C and delta mix every channel; x_proj (its columns
+// reordered to [B | C | dt]) and dt_proj are staged once a block
+// (csrc/proj_tile.cuh). The whole chunk is staged before sweep 1: its xc
+// rows are loaded (four sub-chunks' loads in flight at once) and stored as
+// u is (rows of ldu = DB + 4 elements, so a warp's row-per-lane vector
+// loads meet no bank conflict); then, between barriers, the projections
+// form every row's B, C and xdt = xc W_dt in shared memory (on the tensor
+// cores where xc and x_proj are bfloat16), and delta = softplus(xdt .
+// dt_proj + bias), once per (token, channel). Sweep 2 reads what sweep 1
+// staged, so a call projects each token once. Bounded as K1 (the SFU),
+// plus the projections' 2 E (32 + Rk) operations a row (the x_proj product
+// of a call, 3.5 GFLOP at stage 0 R = 2, is 0.05 ms of float32 peak); what
+// it costs beyond K1 is the staging phase, which sweep 1 cannot overlap:
+// per-sub-chunk phases of load, projection and delta, three barriers each,
+// took a third of a block on the H100 (PERF.md §6). Nothing of B, C or
+// delta goes to device memory.
+//
 // The kernel allocates nothing: the caller passes the output, the optional
 // exit-state output (R, nc, N, D), the scratch records agg and incl (R,
 // nc, D, TPC, SPT floats each) and sdel (R, nc, D floats), and the flags
@@ -163,6 +187,7 @@ constexpr int BC_PER = TS * NS / 64;   // B / C entries a thread stages
 constexpr int TICKET_PAD = 32;    // flags[0] is the ticket; flags from [32]
 constexpr unsigned FLAG_AGG = 1, FLAG_INCL = 2;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned long long WAIT_LIMIT_NS = 4000000000ull;
 
 struct Params {
   const void* u;
@@ -188,6 +213,11 @@ struct Params {
   long long sA_r, sDv_r, sbias_r;
   int sub, guarded, n_valid;    // RATIO: sub-block, guard, real states
   unsigned long long* tally;    // RATIO: (ratio units, step units) or null
+  int ldu;                      // elements of a staged row of u
+  const float* W;               // PROJ: x_proj (D, Rk + 2 NS), float32
+  const float* dtp;             // PROJ: dt_proj (Rk, D), float32
+  int Rk;                       // PROJ: dt_rank
+  int wmma;                     // PROJ: bf16 xc and x_proj, tensor cores
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -211,6 +241,7 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 #include "ratio_guard.cuh"   // RATIO's guard and step, shared with the bwd
+#include "proj_tile.cuh"     // PROJ's projections, shared with the bwd
 
 __device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
   unsigned v;
@@ -227,6 +258,12 @@ __device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
 // fence.acq_rel.gpu after relaxed flag loads: an acquire.
 __device__ __forceinline__ void fence_acquire() {
   asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
 // A block's flag: every thread fences its record stores, the block meets,
@@ -375,8 +412,9 @@ __device__ __forceinline__ void load_sub(const Params& p, long long r,
 }
 
 // Write a loaded sub-chunk into the chunk's shared buffers: B, C, delta =
-// softplus(dt + bias) and u. Out-of-range channels stage zeros. A full
-// sub-chunk needs no row test: its stores are predicated, not branched.
+// softplus(dt + bias) and u (rows of p.ldu). Out-of-range channels stage
+// zeros. A full sub-chunk needs no row test: its stores are predicated, not
+// branched.
 template <typename S, bool SOFTPLUS>
 __device__ __forceinline__ void store_sub(const Params& p, float bias,
                                           long long d0, int lo, int hi,
@@ -396,11 +434,11 @@ __device__ __forceinline__ void store_sub(const Params& p, float bias,
   const bool live = d0 + k < p.D;
   const int t1 = lo + tid / DB;
   float* del = sDel + t1 * DB + k;
-  S* us = sU + t1 * DB + k;
+  S* us = sU + t1 * p.ldu + k;
   auto put = [&](int e) {
     const float dv = delta_of<SOFTPLUS>(to_f(q.dt[e]) + bias);
     del[e * TPC * DB] = live ? dv : 0.f;
-    us[e * TPC * DB] = live ? q.u[e] : from_f<S>(0.f);
+    us[e * TPC * p.ldu] = live ? q.u[e] : from_f<S>(0.f);
   };
   if (hi - lo == TS) {
 #pragma unroll
@@ -412,11 +450,72 @@ __device__ __forceinline__ void store_sub(const Params& p, float bias,
   }
 }
 
+// PROJ: issue the loads of the xc rows [lo, hi) of the chunk at t0 (channel
+// tid % DB at rows tid / DB, + TPC, ...) and ask L2 for the z / acc rows
+// the outputs read, as load_sub does for u; B, C and delta are projected
+// from xc. A full sub-chunk steps its pointers by a constant stride;
+// otherwise every index is clamped into range.
+template <typename S, bool GATE, bool HAS_ACC>
+__device__ __forceinline__ void proj_load_rows(const Params& p, long long r,
+                                               long long d0, long long t0,
+                                               int lo, int hi,
+                                               S (&u)[TS / TPC]) {
+  const int DB = p.DB, k = threadIdx.x % DB;
+  const long long d = min(d0 + k, p.D - 1);
+  const S* xc = static_cast<const S*>(p.u) + r * p.su_r + d;
+  const S* z = static_cast<const S*>(p.z) + r * p.sz_r + d;
+  const S* acc = static_cast<const S*>(p.acc) + r * p.sacc_r + d;
+  const bool pf = (GATE || HAS_ACC) && d0 + k < p.D &&
+                  (k % (32 / (int)sizeof(S)) == 0 || d == p.D - 1);
+  const int t1 = lo + (int)threadIdx.x / DB;
+  if (hi - lo == TS) {
+    const long long tt = t0 + t1;
+    const S* pu = xc + tt * p.su_l;
+    const S* pz = z + tt * p.sz_l;
+    const S* pa = acc + tt * p.sacc_l;
+#pragma unroll
+    for (int e = 0; e < TS / TPC; ++e) {
+      u[e] = pu[e * TPC * p.su_l];
+      if (pf) {
+        if (GATE) prefetch_l2(pz + e * TPC * p.sz_l);
+        if (HAS_ACC) prefetch_l2(pa + e * TPC * p.sacc_l);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < TS / TPC; ++e) {
+    const int t = t1 + e * TPC;
+    const long long tt = t0 + min(t, hi - 1);
+    u[e] = xc[tt * p.su_l];
+    if (pf && t < hi) {
+      if (GATE) prefetch_l2(z + tt * p.sz_l);
+      if (HAS_ACC) prefetch_l2(acc + tt * p.sacc_l);
+    }
+  }
+}
+
+// PROJ: write loaded xc rows [lo, hi) into sU (rows of p.ldu). Channels
+// past D stage zeros.
+template <typename S>
+__device__ __forceinline__ void proj_store_rows(const Params& p, long long d0,
+                                                int lo, int hi,
+                                                const S (&u)[TS / TPC],
+                                                S* sU) {
+  const int k = threadIdx.x % p.DB, t1 = lo + (int)threadIdx.x / p.DB;
+  const bool live = d0 + k < p.D;
+  S* us = sU + t1 * p.ldu + k;
+#pragma unroll
+  for (int e = 0; e < TS / TPC; ++e)
+    if (hi - lo == TS || t1 + e * TPC < hi)
+      us[e * TPC * p.ldu] = live ? u[e] : from_f<S>(0.f);
+}
+
 // Sweep 2 over NSTEP scan steps from i0: the states advance; returns each
 // step's C . x over this thread's half of the states, and u.
 template <typename S, bool REVERSE, int NSTEP>
-__device__ __forceinline__ void sweep_out(int i0, int len, int DB, int dl,
-                                          int g, const float* sB,
+__device__ __forceinline__ void sweep_out(int i0, int len, int DB, int ldu,
+                                          int dl, int g, const float* sB,
                                           const float* sC, const float* sDel,
                                           const S* sU, const float (&a2)[SPT],
                                           float (&x)[SPT], float (&y)[NSTEP],
@@ -425,7 +524,7 @@ __device__ __forceinline__ void sweep_out(int i0, int len, int DB, int dl,
   for (int e = 0; e < NSTEP; ++e) {
     const int t = REVERSE ? len - 1 - (i0 + e) : i0 + e;
     const float delta = sDel[t * DB + dl];
-    uv[e] = to_f(sU[t * DB + dl]);
+    uv[e] = to_f(sU[t * ldu + dl]);
     const float du = delta * uv[e];
     float b[SPT], c[SPT];
     const float4* b4 = reinterpret_cast<const float4*>(sB + t * NS + g * SPT);
@@ -460,14 +559,15 @@ __device__ __forceinline__ S out_of(float y, float uu, float Dv, S zz, S aa) {
 // and the sum of delta advance.
 template <typename S, bool REVERSE>
 __device__ __forceinline__ void sweep_agg(int i0, int i1, int len, int DB,
-                                          int dl, int g, const float* sB,
+                                          int ldu, int dl, int g,
+                                          const float* sB,
                                           const float* sDel, const S* sU,
                                           const float (&a2)[SPT],
                                           float (&h)[SPT], float& sd) {
   auto step = [&](int i) {
     const int t = REVERSE ? len - 1 - i : i;
     const float delta = sDel[t * DB + dl];
-    const float du = delta * to_f(sU[t * DB + dl]);
+    const float du = delta * to_f(sU[t * ldu + dl]);
     sd += delta;
     float b[SPT];
     const float4* b4 = reinterpret_cast<const float4*>(sB + t * NS + g * SPT);
@@ -511,8 +611,8 @@ __device__ __forceinline__ void sweep_sub_out(
 #pragma unroll
     for (int q0 = 0; q0 < TS; q0 += G) {
       float y[G], uv[G];
-      sweep_out<S, REVERSE, G>(s * TS + q0, len, DB, dl, g, sB, sC, sDel, sU,
-                               a2, x, y, uv);
+      sweep_out<S, REVERSE, G>(s * TS + q0, len, DB, p.ldu, dl, g, sB, sC,
+                               sDel, sU, a2, x, y, uv);
 #pragma unroll
       for (int j2 = 0; j2 < G / 2; ++j2) {
         // send the partner the half of its step, receive ours
@@ -530,8 +630,8 @@ __device__ __forceinline__ void sweep_sub_out(
   }
   for (int i = s * TS; i < i1; ++i) {   // a ragged chunk's last steps
     float y[1], uv[1];
-    sweep_out<S, REVERSE, 1>(i, len, DB, dl, g, sB, sC, sDel, sU, a2, x, y,
-                             uv);
+    sweep_out<S, REVERSE, 1>(i, len, DB, p.ldu, dl, g, sB, sC, sDel, sU, a2,
+                             x, y, uv);
     const float yy = y[0] + __shfl_xor_sync(pair, y[0], 1);
     if ((i & 1) == g) {
       const long long tt = row_of<SLICE>(p, t0 + (REVERSE ? len - 1 - i : i));
@@ -591,7 +691,7 @@ __device__ __forceinline__ void sweep_ratio(
       constexpr int F = decltype(form)::value;
       for (int t = tb; t < te; ++t) {
         const float delta = sDel[t * DB + dl];
-        const float du = delta * sU[t * DB + dl];
+        const float du = delta * sU[t * p.ldu + dl];
         cum += delta;
         sd += delta;
         float b[SPT], c[SPT];
@@ -634,8 +734,90 @@ __device__ __forceinline__ void sweep_ratio(
   }
 }
 
+// PROJ: delta = softplus(xdt . dt_proj + bias) of the chunk's rows for the
+// staging channel (tid % DB), 8 rows at a time: their loads and softplus
+// before their stores. No barrier.
+template <int RK>
+__device__ __forceinline__ void proj_delta_rows(const Params& p, float bias,
+                                                long long d0, int len,
+                                                const float* sXdt,
+                                                const float* sDtp,
+                                                float* sDel) {
+  const int DB = p.DB, k = threadIdx.x % DB;
+  const bool live = d0 + k < p.D;
+  for (int t0 = (int)threadIdx.x / DB; t0 < len; t0 += 8 * TPC) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int t = min(t0 + j * TPC, len - 1);
+      v[j] = softplus_f(proj_dt_raw<RK>(sXdt + t * p.Rk, sDtp, DB, p.Rk, k,
+                                        bias));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (t0 + j * TPC < len)
+        sDel[(t0 + j * TPC) * DB + k] = live ? v[j] : 0.f;
+  }
+}
+
+// PROJ: the whole chunk staged at once. Its xc rows go to sU (the loads of
+// up to four sub-chunks in flight together, issued before any is stored);
+// then, between barriers, the projections of every row form B, C and xdt,
+// and delta = softplus(xdt . dt_proj + bias) is formed for the staging
+// channel (tid % DB), as store_sub stages delta. One staging phase a chunk,
+// three barriers: four sub-chunks' phases, with three barriers each, left
+// the projections latency-bound (a third of a block on the H100). Every
+// thread enters; ends with a barrier.
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC>
+__device__ __forceinline__ void proj_stage_chunk(
+    const Params& p, long long r, long long d0, long long t0, int len,
+    float bias, S* sU, const float* sWt, const float* sDtp, float* sB,
+    float* sC, float* sXdt, float* sDel) {
+  constexpr int AHEAD = 4;   // sub-chunks whose loads are in flight at once
+  const int nsub = (len + TS - 1) / TS;
+  for (int s0 = 0; s0 < nsub; s0 += AHEAD) {
+    S q[AHEAD][TS / TPC];
+    int lo[AHEAD], hi[AHEAD];
+#pragma unroll
+    for (int k = 0; k < AHEAD; ++k)
+      if (s0 + k < nsub) {
+        sub_rows<REVERSE>(s0 + k, len, lo[k], hi[k]);
+        proj_load_rows<S, GATE, HAS_ACC>(p, r, d0, t0, lo[k], hi[k], q[k]);
+      }
+#pragma unroll
+    for (int k = 0; k < AHEAD; ++k)
+      if (s0 + k < nsub) proj_store_rows<S>(p, d0, lo[k], hi[k], q[k], sU);
+  }
+  __syncthreads();
+  if constexpr (is_bf16<S>) {
+    if (p.wmma)   // sWt holds the weights in bfloat16 (proj_stage_wb)
+      project_rows_mma(sU, p.ldu, 0, len, p.DB,
+                       reinterpret_cast<const __nv_bfloat16*>(sWt), p.Rk, sB,
+                       sC, sXdt);
+    else
+      project_rows<S>(sU, p.ldu, 0, len, p.DB, sWt, p.Rk, sB, sC, sXdt);
+  } else {
+    project_rows<S>(sU, p.ldu, 0, len, p.DB, sWt, p.Rk, sB, sC, sXdt);
+  }
+  __syncthreads();
+  switch (p.Rk) {   // delta; the models' dt_ranks unrolled
+    case 1: proj_delta_rows<1>(p, bias, d0, len, sXdt, sDtp, sDel); break;
+    case 2: proj_delta_rows<2>(p, bias, d0, len, sXdt, sDtp, sDel); break;
+    case 3: proj_delta_rows<3>(p, bias, d0, len, sXdt, sDtp, sDel); break;
+    case 4: proj_delta_rows<4>(p, bias, d0, len, sXdt, sDtp, sDel); break;
+    default: proj_delta_rows<0>(p, bias, d0, len, sXdt, sDtp, sDel);
+  }
+  __syncthreads();
+}
+
+// Floats of the staged u rows (T rows of ldu elements), 16-byte aligned.
+template <typename S>
+__host__ __device__ __forceinline__ int u_floats(int T, int ldu) {
+  return (T * ldu * (int)sizeof(S) + 15) / 16 * 4;
+}
+
 template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
-          bool SLICE, bool RATIO>
+          bool SLICE, bool RATIO, bool PROJ>
 __device__ __forceinline__ void scan_fwd_body(const Params& p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -644,7 +826,11 @@ __device__ __forceinline__ void scan_fwd_body(const Params& p) {
   float* sB = smem + 4;             // (T, NS)
   float* sC = sB + T * NS;          // (T, NS)
   float* sDel = sC + T * NS;        // (T, DB) delta
-  S* sU = reinterpret_cast<S*>(sDel + T * DB);   // (T, DB) u
+  S* sU = reinterpret_cast<S*>(sDel + T * DB);   // (T, ldu) u
+  // PROJ: xdt (T, Rk), x_proj transposed (Rk + 2 NS, DB), dt_proj (Rk, DB)
+  float* sXdt = sDel + T * DB + u_floats<S>(T, p.ldu);
+  float* sWt = sXdt + (T * p.Rk + 3) / 4 * 4;
+  float* sDtp = sWt + (p.Rk + 2 * NS) * DB;
   const int tid = threadIdx.x;
 
   if (tid == 0) sMisc[0] = atomicAdd(p.flags, 1u);
@@ -666,7 +852,14 @@ __device__ __forceinline__ void scan_fwd_body(const Params& p) {
   Staged<S> q;
   int lo, hi;
   sub_rows<REVERSE>(0, len, lo, hi);
-  load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, true, q);
+  if constexpr (PROJ) {   // the weights: bfloat16 for the tensor cores
+    proj_stage_weights(p.W, p.dtp, (int)p.D, DB, p.Rk, sWt, !p.wmma);
+    if (p.wmma)
+      proj_stage_wb(p.W, (int)p.D, DB, p.Rk,
+                    reinterpret_cast<__nv_bfloat16*>(sWt));
+  } else {
+    load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, true, q);
+  }
   float a2[SPT], aa[SPT];   // A log2(e); |A| (RATIO's guard)
   const float* Ar = p.A + r * p.sA_r + dc * NS + g * SPT;
 #pragma unroll
@@ -677,15 +870,21 @@ __device__ __forceinline__ void scan_fwd_body(const Params& p) {
   // the staging channel's bias
   const float bias =
       RATIO ? 0.f : p.bias[r * p.sbias_r + min(d0 + tid % DB, p.D - 1)];
-  store_sub<S, SOFTPLUS>(p, bias, d0, lo, hi, q, sB, sC, sDel, sU);
   // RATIO with sub-blocks that straddle sub-chunks: the whole chunk first
   const bool whole = RATIO && TS % p.sub != 0;
-  for (int s = 1; whole && s < nsub; ++s) {
-    sub_rows<REVERSE>(s, len, lo, hi);
-    load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, false, q);
+  if constexpr (PROJ) {   // PROJ: the whole chunk, projected once
+    proj_stage_chunk<S, REVERSE, GATE, HAS_ACC>(p, r, d0, t0, len, bias, sU,
+                                                sWt, sDtp, sB, sC, sXdt,
+                                                sDel);
+  } else {
     store_sub<S, SOFTPLUS>(p, bias, d0, lo, hi, q, sB, sC, sDel, sU);
+    for (int s = 1; whole && s < nsub; ++s) {
+      sub_rows<REVERSE>(s, len, lo, hi);
+      load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, false, q);
+      store_sub<S, SOFTPLUS>(p, bias, d0, lo, hi, q, sB, sC, sDel, sU);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   const unsigned pair = 3u << (tid & 30);   // the channel's two threads
   float* yr = RATIO ? static_cast<float*>(p.out) + (r * p.L + t0) * p.D + dc
                     : nullptr;              // RATIO: the chunk's outputs
@@ -695,13 +894,13 @@ __device__ __forceinline__ void scan_fwd_body(const Params& p) {
     if (g * SPT + n < p.n_valid) valid |= 1u << n;
 
   // Sweep 1: the chunk from a zero state, each sub-chunk's loads in flight
-  // while the one before it is swept.
+  // while the one before it is swept (PROJ: all staged before).
   float h[SPT], sd = 0.f;
 #pragma unroll
   for (int n = 0; n < SPT; ++n) h[n] = 0.f;
   const int nsw = whole ? 1 : nsub;
   for (int s = 0; s < nsw; ++s) {
-    const bool more = s + 1 < nsw;
+    const bool more = !PROJ && s + 1 < nsw;   // PROJ: the chunk is staged
     if (more) {
       sub_rows<REVERSE>(s + 1, len, lo, hi);
       load_sub<S, GATE, HAS_ACC, SLICE>(p, r, d0, t0, lo, hi, true, q);
@@ -712,8 +911,8 @@ __device__ __forceinline__ void scan_fwd_body(const Params& p) {
         sweep_ratio<false>(p, s * TS, i1, len, DB, dl, g, pair, sB, sC,
                            sDel, sU, a2, aa, valid, h, sd, units, yr);
       else
-        sweep_agg<S, REVERSE>(s * TS, i1, len, DB, dl, g, sB, sDel, sU, a2,
-                              h, sd);
+        sweep_agg<S, REVERSE>(s * TS, i1, len, DB, p.ldu, dl, g, sB, sDel, sU,
+                              a2, h, sd);
     }
     if (more) {   // rows of sub-chunk s + 1: nobody reads them yet
       store_sub<S, SOFTPLUS>(p, bias, d0, lo, hi, q, sB, sC, sDel, sU);
@@ -747,6 +946,7 @@ __device__ __forceinline__ void scan_fwd_body(const Params& p) {
     if (tid < 32) {
       const int lane = tid;
       int top = w - 1;
+      unsigned long long t_wait = 0;
       for (;;) {
         const int m = top - lane;
         const unsigned f = m >= 0 ? ld_relaxed(flags + m) : 0u;
@@ -761,6 +961,9 @@ __device__ __forceinline__ void scan_fwd_body(const Params& p) {
           break;
         }
         top -= k;             // wait at the one not out yet
+        const unsigned long long now = global_ns();
+        if (t_wait == 0) t_wait = now;
+        else if (now - t_wait > WAIT_LIMIT_NS) __trap();
         __nanosleep(32);
       }
       fence_acquire();
@@ -837,19 +1040,30 @@ __device__ __forceinline__ void scan_fwd_body(const Params& p) {
 template <typename S, bool REVERSE, bool GATE, bool HAS_ACC, bool SOFTPLUS,
           bool SLICE>
 __global__ void __launch_bounds__(MAX_THREADS, 2) scan_fwd_kernel(Params p) {
-  scan_fwd_body<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, false>(p);
+  scan_fwd_body<S, REVERSE, GATE, HAS_ACC, SOFTPLUS, SLICE, false, false>(p);
 }
 
 // K7: K6's instance (float32, forward, ungated, no acc, delta as given) in
 // the ratio form.
 __global__ void __launch_bounds__(MAX_THREADS, 2) mxu_fwd_kernel(Params p) {
-  scan_fwd_body<float, false, false, false, false, false, true>(p);
+  scan_fwd_body<float, false, false, false, false, false, true, false>(p);
+}
+
+// K8: K1's instances with the projections in the tile. Up to 256 threads
+// (128 channels) a block, with K1's register budget (168 a thread, as two
+// blocks of 192 threads an SM give K1).
+template <typename S, bool REVERSE, bool GATE, bool HAS_ACC>
+__global__ void __maxnreg__(168) proj_fwd_kernel(Params p) {
+  scan_fwd_body<S, REVERSE, GATE, HAS_ACC, true, false, false, true>(p);
 }
 
 template <typename S>
 size_t smem_bytes(const Params& p) {
-  return 16 + (size_t)p.T * (2 * NS + p.DB) * sizeof(float) +
-         (size_t)p.T * p.DB * sizeof(S);
+  size_t floats = 4 + (size_t)p.T * (2 * NS + p.DB) + u_floats<S>(p.T, p.ldu);
+  if (p.Rk > 0)   // PROJ: xdt, x_proj and dt_proj
+    floats += (size_t)(p.T * p.Rk + 3) / 4 * 4 +
+              (size_t)(2 * p.Rk + 2 * NS) * p.DB;
+  return floats * sizeof(float);
 }
 
 template <typename S>
@@ -883,6 +1097,32 @@ cudaError_t launch_flags(const Params& p, bool gate, bool has_acc,
   if (has_acc)
     return launch_one<S, REVERSE, false, true, true, SLICE>(p, stream);
   return launch_one<S, REVERSE, false, false, true, SLICE>(p, stream);
+}
+
+template <typename S, bool REVERSE>
+cudaError_t launch_proj(const Params& p, bool gate, bool has_acc,
+                        cudaStream_t stream) {
+  if (gate && has_acc)
+    return launch_kernel<S>(proj_fwd_kernel<S, REVERSE, true, true>, p,
+                            stream);
+  if (gate)
+    return launch_kernel<S>(proj_fwd_kernel<S, REVERSE, true, false>, p,
+                            stream);
+  if (has_acc)
+    return launch_kernel<S>(proj_fwd_kernel<S, REVERSE, false, true>, p,
+                            stream);
+  return launch_kernel<S>(proj_fwd_kernel<S, REVERSE, false, false>, p,
+                          stream);
+}
+
+// K8's block for E channels, dt_rank Rk and chunk T: E rounded up to 32
+// channels, staged rows of ldu = DB + 4 elements (= 4 mod 8: conflict-free
+// row-per-lane loads).
+void proj_block(Params& p, long long E, int Rk, int T) {
+  p.T = T;
+  p.Rk = Rk;
+  p.DB = (int)(E + 31) / 32 * 32;
+  p.ldu = p.DB + 4;
 }
 
 }  // namespace
@@ -923,6 +1163,7 @@ int gated_scan_fwd(const void* u, const void* dt, const void* z,
   p.out = out; p.states = states; p.agg = agg; p.incl = incl;
   p.sdel = sdel; p.flags = flags;
   p.R = R; p.L = L; p.D = D; p.T = T; p.DB = channels;
+  p.ldu = channels;
   p.S = nslices ? (unsigned)nslices : 1u;
   p.P = (unsigned)(L / p.S);
   const long long nc = (L + T - 1) / T;
@@ -984,6 +1225,7 @@ int mxu_scan_fwd(const float* u, const float* dt, const float* A,
   p.out = y; p.states = states; p.agg = agg; p.incl = incl;
   p.sdel = sdel; p.flags = flags; p.tally = tally;
   p.R = R; p.L = L; p.D = D; p.T = T; p.DB = channels;
+  p.ldu = channels;
   p.S = 1u;
   p.P = (unsigned)L;
   p.sub = sub; p.guarded = guarded != 0; p.n_valid = n_valid;
@@ -1000,6 +1242,70 @@ int mxu_scan_fwd(const float* u, const float* dt, const float* A,
   p.sA_r = strides[8];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)launch_kernel<float>(mxu_fwd_kernel, p, st);
+}
+
+// K8's shared memory a block in bytes (proj_scan_fwd takes at most
+// 232448, an H100 block's limit); scan_proj.py mirrors it.
+long long proj_scan_fwd_smem(long long E, int Rk, int T, int is_bf16) {
+  Params p{};
+  proj_block(p, E, Rk, T);
+  return (long long)(is_bf16 ? smem_bytes<__nv_bfloat16>(p)
+                             : smem_bytes<float>(p));
+}
+
+// K8 (PROJ): xc (R, L, E) with strides xc_r, xc_l, z_r, z_l, acc_r, acc_l
+// (elements; host array of 6), unit stride along the channels; W = x_proj
+// (E, Rk + 2 N) and dtp = dt_proj (Rk, E), bias and D (E) and A (E, N),
+// float32, contiguous, shared by the rows. out (R, L, E) contiguous;
+// states (R, nc, N, E) in scan order, or null; agg, incl, sdel and flags
+// (zeroed) as gated_scan_fwd_scratch sizes them. E <= 128 (one block owns
+// every channel), 1 <= Rk <= 16, proj_scan_fwd_smem <= 232448. wmma (with
+// is_bf16): W holds bfloat16 values (x_proj was bfloat16), and the
+// projections run on the tensor cores. Returns a cudaError_t value.
+int proj_scan_fwd(const void* xc, const void* z, const void* acc,
+                  const float* W, const float* dtp, const float* bias,
+                  const float* A, const float* Dv, void* out, float* states,
+                  float* agg, float* incl, float* sdel, unsigned* flags,
+                  int is_bf16, int wmma, int reverse, int gate, int has_acc,
+                  long long R, long long L, long long E, int Rk, int T,
+                  const long long* strides, void* stream) {
+  if (T < 1 || T > 256 || E < 1 || E > PROJ_MAX_CHANNELS || Rk < 1 ||
+      Rk > PROJ_MAX_RANK || R < 1 || L < 1 || L > 0x7fffffffLL ||
+      (gate && z == nullptr) || (has_acc && acc == nullptr) ||
+      xc == nullptr || W == nullptr || dtp == nullptr || out == nullptr ||
+      agg == nullptr || incl == nullptr || sdel == nullptr ||
+      flags == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long nc = (L + T - 1) / T;
+  if (R * nc > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.u = xc; p.z = z; p.acc = acc; p.A = A; p.Dv = Dv; p.bias = bias;
+  p.out = out; p.states = states; p.agg = agg; p.incl = incl;
+  p.sdel = sdel; p.flags = flags; p.W = W; p.dtp = dtp;
+  p.wmma = is_bf16 && wmma;
+  p.R = R; p.L = L; p.D = E;
+  proj_block(p, E, Rk, T);
+  p.S = 1u;
+  p.P = (unsigned)L;
+  p.nc = (int)nc;
+  p.ncb = 1;
+  p.n_valid = NS;
+  p.su_r = strides[0]; p.su_l = strides[1];
+  p.sz_r = strides[2]; p.sz_l = strides[3];
+  p.sacc_r = strides[4]; p.sacc_l = strides[5];
+  if (proj_scan_fwd_smem(E, Rk, T, is_bf16) > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool g = gate != 0, a = has_acc != 0;
+  using bf = __nv_bfloat16;
+  cudaError_t err;
+  if (is_bf16)
+    err = reverse ? launch_proj<bf, true>(p, g, a, st)
+                  : launch_proj<bf, false>(p, g, a, st);
+  else
+    err = reverse ? launch_proj<float, true>(p, g, a, st)
+                  : launch_proj<float, false>(p, g, a, st);
+  return (int)err;
 }
 
 // Scratch sizes in elements: agg and incl (floats each), sdel (floats),

@@ -23,7 +23,9 @@ a CUDA input, where the JAX package says TPU:
   slice-order kernel K5 on the slice group of the directional conv.
 - ``"proj"``, ``_run_directions_proj`` (:205-244): the projection-fused
   kernel K8 chained slice -> reverse (``acc``) -> forward (``acc`` and the
-  gate); where d_inner > 128 it falls to ``"dir"``.
+  gate); where K8 does not take the layer (``proj_scan_supported``:
+  d_inner <= 128, and the chunk's tile in a block's shared memory) it falls
+  to ``"dir"``.
 - ``"fused"``, ``_run_directions_batched`` (:170-203): the three
   orientations as one batched op (flip and interleave copies, the grouped
   conv, one K2 launch).
@@ -314,7 +316,8 @@ class MambaV3(nn.Module):
             == "cuda")
         if not dirlike:
             return "fused" if impl == "fused" else "per_direction"
-        if impl == "proj" and scan_proj.proj_scan_supported(self.d_inner):
+        if impl == "proj" and scan_proj.proj_scan_supported(
+                self.d_inner, self.dt_rank, self.scan_chunk):
             return "proj"
         return "dir2" if impl in ("dir2", "auto", "pallas") else "dir"
 

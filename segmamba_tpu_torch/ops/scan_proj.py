@@ -3,11 +3,16 @@
 Port of ``segmamba_tpu/ops/scan_pallas_proj.py`` ``mamba_scan_proj``
 (:406-466), ``proj_scan_supported`` (:401) and its custom VJP
 (``_make_proj_core`` :369). The Pallas kernels ``_proj_fwd_kernel`` (:71)
-and ``_proj_bwd_kernel`` (:134) run here as the hand-written Hopper kernels
-``csrc/proj_scan_fwd.cu`` and ``csrc/proj_scan_bwd.cu``. Per direction the
-kernel itself computes the projections from the conv output ``xc``::
+and ``_proj_bwd_kernel`` (:134) run here as the ``PROJ`` instances of the
+single-pass scan templates, ``proj_fwd_kernel`` in ``csrc/gated_scan_fwd.cu``
+and ``proj_bwd_kernel`` in ``csrc/gated_scan_bwd.cu`` (entries
+``proj_scan_fwd`` / ``proj_scan_bwd`` in those two libraries): one kernel a
+call each way, a block owning all channels of one chunk, the chunk carries
+by decoupled look-back. Per direction the kernel itself computes the
+projections from the conv output ``xc``::
 
-    x_dbl = xc @ x_proj                     (in the kernel, float32 sums)
+    x_dbl = xc @ x_proj       (in the kernel, float32 sums; on the tensor
+                               cores when xc and x_proj are both bfloat16)
     delta = softplus(x_dbl[:, :R] @ dt_proj + dt_bias)
     out   = (scan(xc, delta, A, B, C) + D xc [+ acc]) [* silu(z)]
 
@@ -15,7 +20,10 @@ so delta, B and C never go to device memory, and the backward has no
 (blocks, R, L, N) dB/dC buffers. ``acc`` and ``z`` chain the orientations
 (slice and reverse emit ungated partials, forward adds them and gates once).
 The port does not pad ``dt_rank`` to 8 as JAX does (a TPU layout rule; the
-padding is exact).
+padding is exact); the kernels take dt_rank <= ``MAX_RANK``, and a chunk's
+tile must fit one block's shared memory (``proj_scan_supported``: at the
+default chunk of 128, dt_rank <= 6 at d_inner = 128; at 256, d_inner <=
+64). The model sends other layers to the directional scan.
 
 - ``mamba_scan_proj`` takes CPU tensors to the plain versions and CUDA
   tensors to the kernels; any other device raises. There is no fallback.
@@ -43,7 +51,7 @@ import ctypes
 
 import torch
 
-from segmamba_tpu_torch.ops import _build, scan_dir
+from segmamba_tpu_torch.ops import scan_dir
 from segmamba_tpu_torch.ops.scan_dir import (
     _IO_DTYPES,
     _check_cuda,
@@ -58,14 +66,57 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 DEF_CHUNK = 128
 MAX_CHANNELS = 128
+MAX_RANK = 16
+SMEM_LIMIT = 232448   # bytes of shared memory an H100 block may take
 _KERNEL_N = 16
-_FWD_LIB_NAME = "proj_scan_fwd"
-_BWD_LIB_NAME = "proj_scan_bwd"
 
 
-def proj_scan_supported(d_inner):
-    """The projections need all channels in one block: d_inner <= 128."""
-    return d_inner <= MAX_CHANNELS
+def _smem_bytes(E, rank, T, itemsize):
+    """Shared memory of the forward and the backward kernel's block in
+    bytes, for E channels, dt_rank ``rank``, chunk T and I/O elements of
+    ``itemsize`` bytes: the libraries' ``proj_scan_fwd_smem`` /
+    ``proj_scan_bwd_smem``, mirrored so that the dispatch needs no
+    library."""
+    N, K, NA = _KERNEL_N, 8, 5   # states, backward group, slot arrays
+    up = lambda x, m: -(-x // m) * m
+    # forward: B, C, delta, the xc rows (DB + 4 a row), xdt, the weights
+    DB = up(E, 32)
+    fwd = 4 * (4 + T * (2 * N + DB) + up(T * (DB + 4) * itemsize, 16) // 4
+               + up(T * rank, 4) + (2 * rank + 2 * N) * DB)
+    # backward: the checkpoints' region (or the chunk's xc rows, if
+    # larger), two slots, the exchange, the tile's B, C and xdt, the
+    # weights, a group's sums and its per (step, channel) terms
+    DB, nch, ng = max(32, up(E, 8)), up(E, 16), -(-T // K)
+    ncol = rank + 2 * N
+    ck = max((ng - 1) * DB * N, up(ng * K * (nch + 4) * itemsize, 16) // 4)
+    bwd = 16 + 4 * (ck + 2 * K * NA * DB + DB // 8 * K * 32
+                    + 2 * ng * K * N + up(ng * K * rank, 4)
+                    + (ncol + rank) * nch + up(K * ncol, 4) + 2 * K * DB)
+    return fwd, bwd
+
+
+def proj_scan_supported(d_inner, dt_rank=1, chunk_size=DEF_CHUNK,
+                        dtype=torch.float32):
+    """Whether the kernels take a layer: its d_inner <= 128 channels in one
+    block (the projections mix them all), 1 <= dt_rank <= 16, and the
+    chunk's tile in the block's shared memory, forward and backward, at
+    I/O ``dtype`` (float32 takes the most). At the default chunk of 128
+    that is dt_rank <= 6 at d_inner = 128; at a chunk of 256, d_inner <=
+    64. The model asks at float32, so a layer's composition does not
+    depend on its dtype."""
+    if not (1 <= d_inner <= MAX_CHANNELS and 1 <= dt_rank <= MAX_RANK):
+        return False
+    return max(_smem_bytes(d_inner, dt_rank, chunk_size,
+                           dtype.itemsize)) <= SMEM_LIMIT
+
+
+def _unsupported(E, rank, T):
+    return ValueError(
+        f"d_inner={E}, dt_rank={rank}, chunk {T}: the projection-fused "
+        f"kernel takes d_inner <= {MAX_CHANNELS}, 1 <= dt_rank <= "
+        f"{MAX_RANK} and a chunk whose tile fits {SMEM_LIMIT} bytes of "
+        "shared memory (proj_scan_supported); use "
+        "scan_dir.mamba_scan_fused_dir")
 
 
 def mamba_scan_proj_ref(xc, x_proj, dt_proj, dt_bias, A, D_skip, *, z=None,
@@ -134,17 +185,16 @@ def _operands(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, chunk_size):
     if N != _KERNEL_N:
         raise ValueError(f"the projection-fused kernel is built for "
                          f"N={_KERNEL_N}, got N={N}")
-    if not proj_scan_supported(E):
-        raise ValueError(f"d_inner={E} > {MAX_CHANNELS}; use "
-                         "scan_dir.mamba_scan_fused_dir")
     if xc.dtype not in _IO_DTYPES:
         raise ValueError(f"unsupported I/O dtype {xc.dtype}")
     if not 1 <= chunk_size <= 256:
         raise ValueError(f"chunk_size must be in [1, 256], got {chunk_size}")
     rank = x_proj.shape[1] - 2 * N
-    if rank < 1:
+    if not 1 <= rank <= MAX_RANK:
         raise ValueError(f"x_proj {tuple(x_proj.shape)}: needs dt_rank + "
-                         f"2 * {N} columns")
+                         f"2 * {N} columns, 1 <= dt_rank <= {MAX_RANK}")
+    if not proj_scan_supported(E, rank, min(chunk_size, L), xc.dtype):
+        raise _unsupported(E, rank, min(chunk_size, L))
     dev = xc.device
     W = _f32(x_proj, "x_proj", (E, rank + 2 * N), dev)
     dtp = _f32(dt_proj, "dt_proj", (rank, E), dev)
@@ -159,14 +209,17 @@ def _operands(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, chunk_size):
     return b, L, E, rank, min(chunk_size, L), W, dtp, bias, Af, Df, strides
 
 
-def _threads(E):
-    return -(-E // 32) * 32
+def _tensor_cores(xc, x_proj):
+    """Whether the kernels may form x_dbl = xc x_proj on the tensor cores
+    (bf16 x bf16 -> f32, every product exact): both in bfloat16."""
+    return int(xc.dtype == x_proj.dtype == torch.bfloat16)
 
 
 def _run_kernel(lib, stream, xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc,
                 *, reverse, chunk_size, return_states):
-    """Validate the operands, allocate the output and scratch on xc's device
-    and call the library's ``proj_scan_fwd`` on ``stream``."""
+    """Validate the operands, allocate the output and the look-back scratch
+    on xc's device and call the library's ``proj_scan_fwd`` on ``stream``:
+    one kernel, and a zero fill of its flags and ticket before it."""
     b, L, E, rank, T, W, dtp, bias, Af, Df, strides = _operands(
         xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, chunk_size)
     N = _KERNEL_N
@@ -174,16 +227,23 @@ def _run_kernel(lib, stream, xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc,
     f32 = dict(dtype=torch.float32, device=xc.device)
     out = torch.empty((b, L, E), dtype=xc.dtype, device=xc.device)
     states = torch.empty((b, nc, N, E), **f32) if return_states else None
-    hbuf = torch.empty((b, nc, N, E), **f32) if nc > 1 else None
-    sdelta = torch.empty((b, nc, E), **f32) if nc > 1 else None
+    # aggregate and inclusive records (n_st floats each), sums of delta
+    # (n_sd) and the flags, the first of them the ticket (ints, zeroed)
+    sizes = (ctypes.c_longlong * 3)()
+    lib.gated_scan_fwd_scratch(b, L, E, T, sizes)
+    n_st, n_sd, n_fl = sizes
+    scratch = torch.empty(2 * n_st + n_sd, **f32)
+    flags = torch.zeros(n_fl, dtype=torch.int32, device=xc.device)
+    at = lambda o: scratch.data_ptr() + 4 * o
     err = lib.proj_scan_fwd(
         _ptr(xc), _ptr(z), _ptr(acc), _ptr(W), _ptr(dtp), _ptr(bias),
-        _ptr(Af), _ptr(Df), _ptr(out), _ptr(states), _ptr(hbuf),
-        _ptr(sdelta), int(xc.dtype == torch.bfloat16), int(reverse),
-        int(z is not None), int(acc is not None), b, L, E, rank, N, T,
-        _threads(E), (ctypes.c_longlong * 6)(*strides), stream)
+        _ptr(Af), _ptr(Df), _ptr(out), _ptr(states), at(0), at(n_st),
+        at(2 * n_st), _ptr(flags), int(xc.dtype == torch.bfloat16),
+        _tensor_cores(xc, x_proj), int(reverse), int(z is not None),
+        int(acc is not None), b, L, E, rank, T,
+        (ctypes.c_longlong * 6)(*strides), stream)
     if err != 0:
-        msg = lib.proj_scan_error_string(err).decode()
+        msg = lib.gated_scan_error_string(err).decode()
         raise RuntimeError(f"proj_scan_fwd launch failed: {msg} ({err})")
     return (out, states) if return_states else out
 
@@ -208,26 +268,34 @@ def _run_bwd_kernel(lib, stream, xc, x_proj, dt_proj, dt_bias, A, D_skip, z,
         raise ValueError(f"dout: {tuple(dout.shape)} on {dout.device}, "
                          f"expected {(b, L, E)} on {xc.device}")
     gate, has_acc = z is not None, acc is not None
-    f32 = dict(dtype=torch.float32, device=xc.device)
     seq = dict(dtype=xc.dtype, device=xc.device)
     dxc = torch.empty((b, L, E), **seq)
     dz = torch.empty((b, L, E), **seq) if gate else None
     dacc_k = torch.empty((b, L, E), **seq) if gate and has_acc else None
-    pw = lib.proj_scan_bwd_part_len(E, rank)
-    part = torch.empty((b, nc, pw), **f32)
-    gbuf = torch.empty((b, nc, N, E), **f32) if nc > 1 else None
-    sdelta = torch.empty((b, nc, E), **f32) if nc > 1 else None
-    ckpt = torch.empty((b, nc, -(-T // lib.proj_scan_bwd_sub_len()), N, E),
-                       **f32)
+    # one scratch buffer: aggregate and inclusive records (n_st floats
+    # each, float4 rows first), sums of delta (n_sd), the per-(row, chunk)
+    # weight-gradient partials (pw floats each), the flags (n_fl ints, the
+    # first the ticket), zeroed here
+    sizes = (ctypes.c_longlong * 3)()
+    lib.gated_scan_bwd_scratch(b, L, E, T, lib.proj_scan_bwd_channels(E),
+                               sizes)
+    n_st, n_sd, n_fl = sizes
+    pw = (2 * rank + 3 * N + 2) * E
+    o_part = 2 * n_st + n_sd
+    scratch = torch.empty(o_part + b * nc * pw + n_fl, dtype=torch.float32,
+                          device=xc.device)
+    scratch[-n_fl:].zero_()
+    part = scratch[o_part:o_part + b * nc * pw].view(b, nc, pw)
+    at = lambda o: scratch.data_ptr() + 4 * o
     err = lib.proj_scan_bwd(
         _ptr(xc), _ptr(z), _ptr(acc), _ptr(dout), _ptr(W), _ptr(dtp),
         _ptr(bias), _ptr(Af), _ptr(Df), _ptr(states), _ptr(dxc), _ptr(dz),
-        _ptr(dacc_k), _ptr(part), _ptr(gbuf), _ptr(sdelta), _ptr(ckpt),
-        int(xc.dtype == torch.bfloat16), int(reverse), int(gate),
-        int(has_acc), b, L, E, rank, N, T, _threads(E),
-        (ctypes.c_longlong * 6)(*strides), stream)
+        _ptr(dacc_k), _ptr(part), at(0), at(n_st), at(2 * n_st),
+        at(o_part + b * nc * pw), int(xc.dtype == torch.bfloat16),
+        _tensor_cores(xc, x_proj), int(reverse), int(gate), int(has_acc), b,
+        L, E, rank, T, (ctypes.c_longlong * 6)(*strides), stream)
     if err != 0:
-        msg = lib.proj_scan_bwd_error_string(err).decode()
+        msg = lib.gated_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"proj_scan_bwd launch failed: {msg} ({err})")
     tot = part.sum((0, 1))
     ncol = rank + 2 * N
@@ -240,43 +308,39 @@ def _run_bwd_kernel(lib, stream, xc, x_proj, dt_proj, dt_bias, A, D_skip, z,
             dAt.view(N, E).t().to(A.dtype), dD.to(D_skip.dtype), dz, dacc)
 
 
-_LIBS = {}
+_DECLARED = set()
 
 
 def _lib():
-    """The forward kernel library with its C signatures declared (built on
-    first use)."""
-    if "fwd" not in _LIBS:
-        lib = _build.load_library(_FWD_LIB_NAME)
+    """The forward template's library (``gated_scan_fwd``, built on first
+    use) with K8's entry declared."""
+    lib = scan_dir._lib()
+    if "fwd" not in _DECLARED:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.proj_scan_fwd.argtypes = (
-            [vp] * 12 + [i] * 4 + [ll] * 2 + [i] * 5
-            + [ctypes.POINTER(ll), vp])
+        lib.proj_scan_fwd.argtypes = ([vp] * 14 + [i] * 5 + [ll] * 3
+                                      + [i] * 2 + [ctypes.POINTER(ll), vp])
         lib.proj_scan_fwd.restype = i
-        lib.proj_scan_error_string.argtypes = [i]
-        lib.proj_scan_error_string.restype = ctypes.c_char_p
-        _LIBS["fwd"] = lib
-    return _LIBS["fwd"]
+        lib.proj_scan_fwd_smem.argtypes = [ll, i, i, i]
+        lib.proj_scan_fwd_smem.restype = ll
+        _DECLARED.add("fwd")
+    return lib
 
 
 def _bwd_lib():
-    """The backward kernel library with its C signatures declared (built on
-    first use)."""
-    if "bwd" not in _LIBS:
-        lib = _build.load_library(_BWD_LIB_NAME)
+    """The backward template's library (``gated_scan_bwd``, built on first
+    use) with K8's entries declared."""
+    lib = scan_dir._bwd_lib()
+    if "bwd" not in _DECLARED:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.proj_scan_bwd.argtypes = (
-            [vp] * 17 + [i] * 4 + [ll] * 2 + [i] * 5
-            + [ctypes.POINTER(ll), vp])
+        lib.proj_scan_bwd.argtypes = ([vp] * 18 + [i] * 5 + [ll] * 3
+                                      + [i] * 2 + [ctypes.POINTER(ll), vp])
         lib.proj_scan_bwd.restype = i
-        lib.proj_scan_bwd_sub_len.argtypes = []
-        lib.proj_scan_bwd_sub_len.restype = i
-        lib.proj_scan_bwd_part_len.argtypes = [i, i]
-        lib.proj_scan_bwd_part_len.restype = i
-        lib.proj_scan_bwd_error_string.argtypes = [i]
-        lib.proj_scan_bwd_error_string.restype = ctypes.c_char_p
-        _LIBS["bwd"] = lib
-    return _LIBS["bwd"]
+        lib.proj_scan_bwd_channels.argtypes = [i]
+        lib.proj_scan_bwd_channels.restype = i
+        lib.proj_scan_bwd_smem.argtypes = [ll, i, i, i]
+        lib.proj_scan_bwd_smem.restype = ll
+        _DECLARED.add("bwd")
+    return lib
 
 
 def _launch(xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc, *, reverse,
@@ -435,10 +499,12 @@ def mamba_scan_proj(xc, x_proj, dt_proj, dt_bias, A, D_skip, *, z=None,
     """Projection-fused direction-aware gated scan.
 
     xc: (batch, L, d_inner) conv output (post-silu), float32 or bfloat16,
-    d_inner <= 128; x_proj: (d_inner, dt_rank + 2 N) combined projection;
-    dt_proj: (dt_rank, d_inner); dt_bias: (d_inner,); A: (d_inner, N)
-    negative real (any N: ceil(N / 16) launches); D_skip: (d_inner,). z
-    and acc: optional (batch, L, d_inner) in xc's dtype: with z the output is
+    at a d_inner, dt_rank and chunk that ``proj_scan_supported`` takes (on
+    every device, so that CPU and CUDA take the same calls); x_proj:
+    (d_inner, dt_rank + 2 N) combined projection; dt_proj: (dt_rank,
+    d_inner); dt_bias: (d_inner,); A: (d_inner, N) negative real (any N:
+    ceil(N / 16) launches); D_skip: (d_inner,). z and acc: optional
+    (batch, L, d_inner) in xc's dtype: with z the output is
     ``(y [+ acc]) * silu(z)``, without it the raw partial ``y [+ acc]``.
     ``reverse`` scans right to left in place. Returns (batch, L, d_inner)
     in xc.dtype, and with ``return_states`` the float32 chunk exit states
@@ -447,9 +513,13 @@ def mamba_scan_proj(xc, x_proj, dt_proj, dt_bias, A, D_skip, *, z=None,
     CPU tensors run the plain versions; CUDA tensors launch the kernels.
     Differentiable in every tensor argument.
     """
-    if xc.shape[-1] > MAX_CHANNELS:
-        raise ValueError(f"d_inner={xc.shape[-1]} > {MAX_CHANNELS}; use "
-                         "scan_dir.mamba_scan_fused_dir")
+    N = A.shape[-1]
+    E, rank, T = xc.shape[-1], x_proj.shape[-1] - 2 * N, min(chunk_size,
+                                                             xc.shape[1])
+    # the kernels' I/O dtype: a bfloat16 chain of groups runs in float32
+    io = xc.dtype if _groups(N) == 1 else torch.float32
+    if not proj_scan_supported(E, rank, T, io):
+        raise _unsupported(E, rank, T)
     inputs = (xc, x_proj, dt_proj, dt_bias, A, D_skip, z, acc)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in inputs):

@@ -787,10 +787,14 @@ def _proj_inputs(seed, b, L, D, rank, dtype, device):
 def test_proj_kernel_matches_plain(cuda, reverse, dtype):
     """K8 forward (output, chunk states) and backward (all eight gradients
     through ``_ProjScan``) against the plain versions, in every z/acc flag
-    set, ragged L, masked channels, several dt_ranks."""
+    set, ragged L, masked channels, several dt_ranks; a call of 71 chunks
+    (look-back walks cross lagging chunks) and the widest tile, E = 128 at
+    the default chunk of 128 (one backward block of 512 threads), each
+    with exactly one forward and one backward launch."""
     for (b, L, D, rank, T), (zk, acck) in itertools.product(
             [(2, 300, 96, 3, 128), (1, 200, 50, 4, 64),
-             (1, 96, 128, 8, 32)],
+             (1, 96, 128, 8, 32), (2, 70 * 64 + 9, 96, 3, 64),
+             (1, 1000, 128, 4, 128)],
             [(True, True), (False, True), (False, False), (True, False)]):
         xc, wp, dtp, bias, A, Dv, z, acc = _proj_inputs(
             15, b, L, D, rank, dtype, cuda)
@@ -820,6 +824,181 @@ def test_proj_kernel_matches_plain(cuda, reverse, dtype):
             assert leaf.grad.dtype == leaf.dtype
             _grad_close(f"{name} {(b, L, D, rank)} z={zk} acc={acck}",
                         leaf.grad, w, TOL[dtype])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_proj_bfloat16_io_with_float32_x_proj(cuda, reverse):
+    """bfloat16 xc with a float32 x_proj: the projections stay float32
+    FMAs on the CUDA cores (the tensor cores take only bf16 x bf16);
+    forward and the eight gradients against the plain versions."""
+    b, L, D, rank, T = 2, 300, 96, 3, 64
+    xc, wp, dtp, bias, A, Dv, z, acc = _proj_inputs(
+        33, b, L, D, rank, torch.bfloat16, cuda)
+    wp = wp.float()
+    kw = dict(z=z, acc=acc, reverse=reverse, chunk_size=T)
+    args = (xc, wp, dtp, bias, A, Dv)
+    got, st = scan_proj.mamba_scan_proj(*args, return_states=True, **kw)
+    want, st_ref = scan_proj.mamba_scan_proj_ref(*args, return_states=True,
+                                                 **kw)
+    _close(got, want, TOL[torch.bfloat16])
+    _close(st, st_ref, F32)
+    dout = torch.randn(b, L, D, device=cuda).to(torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in args + (z, acc)]
+    scan_proj.mamba_scan_proj(*leaves[:6], z=leaves[6], acc=leaves[7],
+                              reverse=reverse, chunk_size=T).backward(dout)
+    want = scan_proj.mamba_scan_proj_bwd_ref(*args, dout, **kw)
+    for name, leaf, w in zip(("dxc", "dx_proj", "ddt_proj", "ddt_bias",
+                              "dA", "dD", "dz", "dacc"), leaves, want):
+        _grad_close(f"{name} reverse={reverse}", leaf.grad, w,
+                    TOL[torch.bfloat16])
+
+
+def test_proj_kernels_give_the_same_bits_twice(cuda):
+    """Two K8 calls on the same inputs give the same bits, forward (output
+    and chunk states) and all eight gradients, in the chain's three flag
+    sets and both dtypes: the look-backs fold in one order wherever a walk
+    stops, and the weight partials are added by the wrapper in one
+    order."""
+    b, L, D, rank = 2, 40 * 128 + 3, 96, 3
+    for dtype, (zk, acck, reverse) in itertools.product(
+            (torch.float32, torch.bfloat16),
+            ((False, False, False), (False, True, True),
+             (True, True, False))):
+        xc, wp, dtp, bias, A, Dv, z, acc = _proj_inputs(
+            31, b, L, D, rank, dtype, cuda)
+        ins = (xc, wp, dtp, bias, A, Dv, z if zk else None,
+               acc if acck else None)
+        dout = torch.randn(b, L, D, device=cuda).to(dtype)
+
+        def run():
+            leaves = [None if t is None else t.detach().requires_grad_()
+                      for t in ins]
+            out, st = scan_proj.mamba_scan_proj(
+                *leaves[:6], z=leaves[6], acc=leaves[7], reverse=reverse,
+                return_states=True)
+            out.backward(dout)
+            return [out, st] + [t.grad for t in leaves if t is not None]
+
+        first, again = run(), run()
+        assert len(first) == 2 + 6 + zk + acck
+        for k, (x, y) in enumerate(zip(first, again)):
+            assert torch.equal(x, y), (dtype, zk, acck, k)
+
+
+_PROJ_ONE_KERNEL_CHILD = """
+import json
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from segmamba_tpu_torch.ops import scan_proj
+g = torch.Generator(device="cuda").manual_seed(32)
+b, L, D, rank, N = 1, 8192, 96, 3, 16
+rn = lambda *s, sc=1.0: sc * torch.randn(*s, generator=g, device="cuda")
+bf = torch.bfloat16
+xc, z, acc, dout = (rn(b, L, D).to(bf) for _ in range(4))
+args = (xc, rn(D, rank + 2 * N, sc=0.1).to(bf), rn(rank, D, sc=0.3),
+        rn(D, sc=0.5), -torch.exp(rn(D, N)), rn(D), z, acc)
+kw = dict(reverse=False, chunk_size=scan_proj.DEF_CHUNK)
+st = scan_proj._launch(*args, return_states=True, **kw)[1]
+fwd = lambda: scan_proj._launch(*args, return_states=False, **kw)
+bwd = lambda: scan_proj._launch_bwd(*args, dout, st, **kw)
+fwd(), bwd()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    fwd()
+    bwd()
+    torch.cuda.synchronize()
+print(json.dumps({e.key: e.count for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and e.self_device_time_total > 0}))
+"""
+
+
+def test_proj_call_is_one_kernel_each_way(cuda):
+    """A K8 forward call runs one scan kernel (``proj_fwd_kernel``) and a
+    backward call one (``proj_bwd_kernel``), beside the zero fill of the
+    flags and the wrapper's sums of the partials: no carry pass. Profiled
+    in a fresh process (a later profiler session in a long one can come
+    back without the card's kernels), taken again once if it comes back
+    empty."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    for _ in range(2):
+        proc = subprocess.run([sys.executable, "-c", _PROJ_ONE_KERNEL_CHILD],
+                              capture_output=True, text=True, timeout=600,
+                              cwd=root)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        counts = json.loads(proc.stdout.strip().splitlines()[-1])
+        if counts:
+            break
+    for name in ("proj_fwd_kernel", "proj_bwd_kernel"):
+        scans = [k for k in counts if name in k]
+        assert len(scans) == 1 and counts[scans[0]] == 1, counts
+    others = [k for k in counts if "proj_" not in k]
+    assert not any("proj" in k or "scan" in k for k in others), others
+
+
+def test_proj_smem_mirror_matches_the_kernels(cuda):
+    """``scan_proj._smem_bytes``, the dispatch's mirror of K8's shared
+    memory, gives the bytes of the libraries' ``proj_scan_fwd_smem`` /
+    ``proj_scan_bwd_smem`` over d_inner, dt_rank, T and both I/O dtypes."""
+    lib, blib = scan_proj._lib(), scan_proj._bwd_lib()
+    for E, rank, T, bf in itertools.product(
+            (1, 24, 50, 96, 128), (1, 3, 6, 7, 16), (1, 32, 100, 128, 256),
+            (0, 1)):
+        want = (lib.proj_scan_fwd_smem(E, rank, T, bf),
+                blib.proj_scan_bwd_smem(E, rank, T, bf))
+        assert scan_proj._smem_bytes(E, rank, T, 2 if bf else 4) == want, (
+            E, rank, T, bf)
+
+
+@pytest.mark.parametrize("E,rank,T,bigger", [
+    (128, 6, 128, (128, 7, 128)), (64, 16, 256, (96, 1, 256))])
+def test_proj_largest_tiles_run_and_larger_raise(cuda, E, rank, T, bigger):
+    """The largest tiles ``proj_scan_supported`` takes run: forward and the
+    eight gradients against the plain versions (float32, gate and acc).
+    The next larger raises a ValueError before any launch, and a MambaV3
+    layer of that size runs the directional scan on the card, forward and
+    backward."""
+    b, L = 1, 3 * T + 5
+    xc, wp, dtp, bias, A, Dv, z, acc = _proj_inputs(
+        41, b, L, E, rank, torch.float32, cuda)
+    args = (xc, wp, dtp, bias, A, Dv)
+    kw = dict(z=z, acc=acc, reverse=False, chunk_size=T)
+    got, st = scan_proj.mamba_scan_proj(*args, return_states=True, **kw)
+    want, st_ref = scan_proj.mamba_scan_proj_ref(*args, return_states=True,
+                                                 **kw)
+    _close(got, want, F32)
+    _close(st, st_ref, F32)
+    dout = torch.randn(b, L, E, device=cuda)
+    leaves = [t.detach().requires_grad_() for t in args + (z, acc)]
+    scan_proj.mamba_scan_proj(*leaves[:6], z=leaves[6], acc=leaves[7],
+                              chunk_size=T).backward(dout)
+    want = scan_proj.mamba_scan_proj_bwd_ref(*args, dout, **kw)
+    for name, leaf, w in zip(("dxc", "dx_proj", "ddt_proj", "ddt_bias",
+                              "dA", "dD", "dz", "dacc"), leaves, want):
+        _grad_close(f"{name} {(E, rank, T)}", leaf.grad, w, F32)
+
+    E2, rank2, T2 = bigger
+    big = _proj_inputs(42, b, 2 * T2, E2, rank2, torch.float32, cuda)
+    before = scan_proj.LAUNCHES, scan_proj.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        scan_proj.mamba_scan_proj(*big[:6], chunk_size=T2)
+    assert (scan_proj.LAUNCHES, scan_proj.BWD_LAUNCHES) == before
+    d_model = E2 if rank2 > 1 else E2 // 2
+    m = MambaV3(d_model=d_model, expand=E2 // d_model, dt_rank=rank2,
+                nslices=4, scan_impl="proj", scan_chunk=T2,
+                generator=torch.Generator().manual_seed(0), device=cuda)
+    assert m.composition(cuda) == "dir"
+    h = torch.randn(1, 2 * T2, d_model, device=cuda, requires_grad=True)
+    m(h).square().mean().backward()
+    assert torch.isfinite(h.grad).all() and h.grad.abs().max() > 0
+    assert (scan_proj.LAUNCHES, scan_proj.BWD_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("scan_impl,slice_kernel", [("proj", False),

@@ -1,8 +1,9 @@
 """The port imports no JAX: the machine with the card has none of it.
 
 Walks ``segmamba_tpu_torch/**/*.py``, ``chip_smoke.py`` and the card
-tools ``tools/scan_fwd_timeline.py``, ``tools/scan_bwd_probe.py`` and
-``tools/scan_bwd_ab.py`` with ``ast``
+tools ``tools/scan_fwd_timeline.py``, ``tools/scan_bwd_probe.py``,
+``tools/scan_bwd_ab.py``, ``tools/mxu_ab.py`` and ``tools/proj_ab.py``
+with ``ast``
 (a ``sys.modules`` check would be wrong wherever something imports jax at
 interpreter start-up) and fails on any import of jax, flax, optax or the
 JAX package. Also checks that importing the port builds nothing.
@@ -19,7 +20,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "segmamba_tpu")
 SOURCES = sorted((ROOT / "segmamba_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + [ROOT / "tools" / f for f in (
-        "scan_fwd_timeline.py", "scan_bwd_probe.py", "scan_bwd_ab.py")]
+        "scan_fwd_timeline.py", "scan_bwd_probe.py", "scan_bwd_ab.py",
+        "mxu_ab.py", "proj_ab.py")]
 
 
 def _imported(tree):
