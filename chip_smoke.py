@@ -110,9 +110,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       layer's last state, the embedding trainable): exactly 64 K6 backward
       launches, finite gradients;
    d. bfloat16 serving (float32 parameters): ``generate`` on a 2048-token
-      prompt, batch 1, 128 greedy new tokens, one warm-up, median of 3:
-      prefill ms (``generate`` of one token), decode ms per token, new
-      tokens per second, peak memory; tokens in range, logits finite; the
+      prompt, batch 1, 128 greedy new tokens, a short warm-up (2
+      tokens), median of 3: prefill ms (``generate`` of one token), decode
+      ms per token, new tokens per second, peak memory; tokens in range,
+      logits finite; the
       generate run launches 64 K6 and no other scan kernel (decoding
       launches none);
    e. ``from_pretrained`` on a tiny snapshot written to a temporary
@@ -229,6 +230,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    - K10("nohs") gap. Then both twins' ``main()`` at their defaults, the
    counters set to 0 before and read after: exactly 19 launches of each
    K10 variant, 40 of K11 and 59 of K2.
+18. Whole-volume inference and the case pipeline (``infer/whole_volume.py``,
+   ``deploy.py``, ``compute_metrics.py``), full-width SegMamba, seed 0:
+   K1/K2 vs plain (phase 2's variants and tiers) at the whole-volume stage
+   shapes of the bench case padded to 160x192x160 (stage 0: R=1, L=614400,
+   D=96; stage 3: L=1200, D=768, a ragged last chunk); the float32
+   ``whole_volume_inference`` on a 155x240x240 brain phantom (a seeded
+   ellipsoid of nonzero voxels in a zero frame, z-scored inside; its box
+   rounds to 144x176x144) with kernels vs the same model on the plain
+   scans (rtol 2e-3, atol 1e-2 * max|ref|, as phase 3); bf16 times (host
+   clock after synchronize, median of 3 after a warm-up) and peak memory
+   of ``whole_volume_inference`` on the bench case (no crop), on the
+   phantom (crop) and on the uncropped frame (``crop_to_nonzero=False``,
+   160x240x240 padded), and ``whole_volume_tta`` over axes (0, 1, 2) on the
+   bench case; every call: exactly 16 K1 and 8 K2 launches a forward,
+   finite logits of the frame's shape, class 0 at 20.0 outside the box.
+   Then ``SegmentationAlgorithm`` on one raw phantom case written as four
+   NIfTI modalities and a seg (sliding window, roi 128^3, sw_batch 1,
+   mirror TTA over 3 axes, bf16; weights from a checkpoint): n_windows x 8
+   x 16 K1 and x 8 K2 launches, a NIfTI of the frame's shape with labels
+   in {0..3}; ``compute_metrics`` on it against the seg (finite); the
+   case's seconds by step (preprocessing, device prediction, inverse +
+   write).
+
+Times: kernels by CUDA events, median of several runs after a warm-up;
+the plain versions one run each, right after the run their check made.
+Breakdowns by kernel name run in fresh processes that a phase starts
+together; they import in parallel and take the card one at a time under a
+file lock (``breakdowns_in_children``).
 
 Bounds (``bound_of``): the largest of the bytes over the HBM rate, the
 float32 operations over 67 TFLOP/s, the transcendental results over the
@@ -245,6 +274,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import fcntl
 import functools
 import gc
 import itertools
@@ -273,8 +303,26 @@ from segmamba_tpu_torch.data import (
     PatchSampler,
     get_train_transforms,
 )
-from segmamba_tpu_torch.data.synthetic import write_synthetic_cases
-from segmamba_tpu_torch.infer import sliding_window_inference
+from segmamba_tpu_torch import compute_metrics
+from segmamba_tpu_torch.data.nifti import read_nifti
+from segmamba_tpu_torch.data.preprocessing import (
+    bbox_from_mask,
+    create_nonzero_mask,
+)
+from segmamba_tpu_torch.data.synthetic import (
+    MODALITIES,
+    phantom_case,
+    write_raw_phantom_case,
+    write_synthetic_cases,
+)
+from segmamba_tpu_torch.deploy import SegmentationAlgorithm
+from segmamba_tpu_torch.infer import (
+    nonzero_bbox,
+    sliding_window_inference,
+    whole_volume_inference,
+    whole_volume_tta,
+)
+from segmamba_tpu_torch.infer.sliding_window import _scan_starts
 from segmamba_tpu_torch.models import MambaLMHeadModel, MambaV3, SegMamba
 from segmamba_tpu_torch.models.mamba import _dt_bias_init
 from segmamba_tpu_torch.models.segmamba import _call
@@ -404,6 +452,14 @@ PROBE_SHAPE = (262144, 96)         # phase 17: L, D of the scripts' mains
 PROBE_FLAT_ROWS = (1, 3)           # bench_scan_flat.py's batches
 PROBE_CASES = (("noshift", 1), ("nohs", 1)) + tuple(
     ("flat", R) for R in PROBE_FLAT_ROWS)
+# phase 18: K1/K2 at the whole-volume stage shapes of the bench case padded
+# to 160x192x160 (stage 0: 80 x 96 x 80 tokens; stage 3: 10 x 12 x 10)
+WV_SHAPES = {"wv_stage0": (1, 614400, 96), "wv_stage3": (1, 1200, 768)}
+BRATS_FRAME = (155, 240, 240)      # the uncropped BraTS frame (z, y, x)
+WV_PER_FORWARD = dict(scan_dir=16, scan_fused=8)
+GPU_LOCK_ENV = "CHIP_SMOKE_GPU_LOCK"   # breakdown children's card lock
+WV_RUNS = ("wholevol_bench", "wholevol_phantom", "wholevol_uncropped",
+           "wholevol_tta_bench")
 
 
 def log(msg):
@@ -541,9 +597,10 @@ def variant_calls(vname, a):
     return kern, plain
 
 
-def phase_kernels(results):
+def phase_kernels(results, shapes=SHAPES):
     """Kernel vs plain at the main path's shapes; fills ``results``."""
-    for shape_name, (R, L, D) in SHAPES.items():
+    pending = []                  # (row, breakdown job)
+    for shape_name, (R, L, D) in shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
             a = scan_inputs(R, L, D, dtype, seed=L + D)
             rtol, atol = TOL[dtype]
@@ -559,7 +616,7 @@ def phase_kernels(results):
                                      *TOL[torch.float32])
                 reps = 10 if L * D < 1e6 else 5
                 ms = cuda_ms(kern, reps)
-                plain_ms = cuda_ms(plain, 3)
+                plain_ms = cuda_ms(plain, 1, warmup=0)
                 log(f"kernel {tag}: max_abs_err {err:.3e} (states "
                     f"{err_st:.3e}), kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms")
@@ -567,12 +624,14 @@ def phase_kernels(results):
                            dtype=str(dtype)[6:], max_abs_err=err, ms=ms,
                            plain_ms=plain_ms)
                 if tag in BREAKDOWN_TAGS:
-                    row["breakdown"] = breakdown_in_child(
-                        BREAKDOWN_TAGS[tag], tag)
+                    pending.append((row, (BREAKDOWN_TAGS[tag], tag)))
                 results.append(row)
                 del out_k, st_k, out_p, st_p
             del a
             torch.cuda.empty_cache()
+    for (row, _), parts in zip(pending, breakdowns_in_children(
+            [job for _, job in pending])):
+        row["breakdown"] = parts
 
 
 def phase_model():
@@ -793,6 +852,7 @@ def phase_backward(results):
     element at stage 3, {variant: {stage: bf16 kernel ms}})."""
     bytes_per_elem = None
     stage_ms = {v: {} for v in VARIANTS}
+    pending = []                  # (row, breakdown job)
     for shape_name, (R, L, D) in TRAIN_SHAPES.items():
         width = D
         if bytes_per_elem is not None:
@@ -862,7 +922,7 @@ def phase_backward(results):
                 # the kernel alone at the full length
                 kern = bwd_kernel_call(vname, a, dout)
                 ms = cuda_ms(kern, 5 if L * D > 1e6 else 10)
-                plain_ms = cuda_ms(plain, 2)
+                plain_ms = cuda_ms(plain, 1, warmup=0)
                 bound, bound_by = scan_bound("bwd", vname, R, L, D, dtype)
                 log(f"kernel {tag}: max_abs_err {err:.3e}, kernel "
                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms (channel slices "
@@ -877,16 +937,17 @@ def phase_backward(results):
                 del kern
                 torch.cuda.empty_cache()
                 if dtype == torch.bfloat16 and shape_name == "stage0":
-                    parts = breakdown_in_child(f"bwd_{vname}", tag)
-                    row["breakdown"] = parts
-                    row["device_ms"] = (None if parts is None
-                                        else sum(parts.values()))
+                    pending.append((row, (f"bwd_{vname}", tag)))
                 results.append(row)
             del a, dout
             torch.cuda.empty_cache()
         if shape_name == "stage3":
             log(f"plain backward: {bytes_per_elem:.1f} bytes of peak memory "
                 "per (row, step, channel, state) at stage 3")
+    for (row, _), parts in zip(pending, breakdowns_in_children(
+            [job for _, job in pending])):
+        row["breakdown"] = parts
+        row["device_ms"] = None if parts is None else sum(parts.values())
     for shape_name, (R, L, D) in TIME_SHAPES.items():
         a, dout = bwd_inputs(R, L, D, torch.bfloat16)
         for vname in VARIANTS:
@@ -1262,7 +1323,7 @@ def phase_core(results):
                               scan_core._last_state(st_p), rtol, atol))
         ms = cuda_ms(lambda: scan_core._launch(u, delta, A, B, C, T), 10)
         plain_ms = cuda_ms(lambda: scan_core.selective_scan_core_ref(
-            u, delta, A, B, C, T, return_states=True), 3)
+            u, delta, A, B, C, T, return_states=True), 1, warmup=0)
         bound, bound_by = core_bound("fwd", R, L, D)
         log(f"kernel {tag} fwd: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
@@ -1304,7 +1365,7 @@ def phase_core(results):
         ms = cuda_ms(lambda: scan_core._launch_bwd(u, delta, A, B, C, dy,
                                                    dlast, st, T), 10)
         plain_ms = cuda_ms(lambda: scan_core.selective_scan_core_bwd_ref(
-            u, delta, A, B, C, dy, dlast, T), 2)
+            u, delta, A, B, C, dy, dlast, T), 1, warmup=0)
         bound, bound_by = core_bound("bwd", R, L, D)
         log(f"kernel {tag} bwd: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms (peak {peak / 2 ** 30:.2f} GiB), "
@@ -1507,7 +1568,7 @@ def phase_lm():
                 and torch.isfinite(model._logits(h1)).all()):
             raise AssertionError("bf16 prefill or step logits not finite")
         del h, caches, logits, h1
-    model.generate(ids, new)                     # warm-up
+    model.generate(ids, 2)                       # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     prefill_s, total_s = [], []
@@ -1734,7 +1795,7 @@ def phase_slice_kernel(results, bytes_per_elem):
         del out_k, st_k, out_p, st_p
         ms = cuda_ms(kern, 5)
         copy_ms = cuda_ms(copy_form, 5)
-        plain_ms = cuda_ms(plain, 3)
+        plain_ms = cuda_ms(plain, 1, warmup=0)
         bound, bound_by = scan_bound("fwd", "fused_gate", R, L, E, dtype)
         log(f"kernel {tag}: max_abs_err {err:.3e} (states {err_st:.3e}, "
             f"interleave-copy form {err_copy:.3e}), kernel {ms:.4f} ms, "
@@ -1781,7 +1842,7 @@ def phase_slice_kernel(results, bytes_per_elem):
         del got, want
         kern = slice_bwd_call(R, (L, E, S), dtype, a, dout)
         ms = cuda_ms(kern, 5)
-        plain_ms = cuda_ms(plain_bwd, 2)
+        plain_ms = cuda_ms(plain_bwd, 1, warmup=0)
         bound, bound_by = scan_bound("bwd", "fused_gate", R, L, E, dtype)
         log(f"kernel {tag}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms (channel slices of {width}), "
@@ -1874,7 +1935,7 @@ def phase_proj_kernel(results):
                                  *TOL[torch.float32])
             del out_k, st_k, out_p, st_p
             ms = cuda_ms(kern, 5)
-            plain_ms = cuda_ms(plain, 3)
+            plain_ms = cuda_ms(plain, 1, warmup=0)
             bound, bound_by = proj_bound("fwd", flags, R, L, E, rank, dtype)
             log(f"kernel {tag}: max_abs_err {err:.3e} (states {err_st:.3e}),"
                 f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -1957,7 +2018,8 @@ def phase_proj_kernel(results):
             ms = cuda_ms(lambda: scan_proj._launch_bwd(
                 *(a[k] for k in PROJ_ARGS), kw["z"], kw["acc"], dout, states,
                 reverse=flags["reverse"], chunk_size=scan_proj.DEF_CHUNK), 5)
-            plain_ms = cuda_ms(lambda: proj_plain_bwd(a, flags, dout), 2)
+            plain_ms = cuda_ms(lambda: proj_plain_bwd(a, flags, dout), 1,
+                               warmup=0)
             bound, bound_by = proj_bound("bwd", flags, 1, L, E, rank, dtype)
             log(f"kernel {tag}: max_abs_err {err:.3e} (per gradient, over "
                 f"max(1, max|plain|): {', '.join(rel)}), kernel {ms:.4f} ms, "
@@ -1981,9 +2043,10 @@ def phase_proj_kernel(results):
                         dtype="bfloat16", ms=ms, bound_ms=bound,
                         bound_by=bound_by))
     torch.cuda.empty_cache()
-    for direction, R in (("fwd", 2), ("bwd", 1)):
-        parts = breakdown_in_child(f"proj_{direction}",
-                                   f"K8 {direction} stage0 R={R} bfloat16")
+    sides = (("fwd", 2), ("bwd", 1))
+    for (direction, R), parts in zip(sides, breakdowns_in_children([
+            (f"proj_{d}", f"K8 {d} stage0 R={r} bfloat16")
+            for d, r in sides])):
         row = next(r for r in results if r["direction"] == direction
                    and r["R"] == R and r["dtype"] == "bfloat16"
                    and r["variant"] == "forward_acc_gate")
@@ -2400,14 +2463,14 @@ def phase_mxu(results):
                     ddelta=dict(K7=ddelta, K6=ddelta6) if f64 else None))
             del u, delta, A, B, C, st, dy, dlast
             torch.cuda.empty_cache()
-    for direction in ("fwd", "bwd"):   # device time, each a fresh process
-        for suffix, shape in (("", "stage0_r2"), ("_prefill", "prefill")):
-            parts = breakdown_in_child(f"mxu_{direction}{suffix}",
-                                       f"K7 {direction} {shape} model")
-            row = next(r for r in results if r["direction"] == direction
-                       and r["shape"] == shape and r["kind"] == "model")
-            row["device_ms"] = (None if parts is None
-                                else sum(parts.values()))
+    jobs = [(direction, suffix, shape) for direction in ("fwd", "bwd")
+            for suffix, shape in (("", "stage0_r2"),
+                                  ("_prefill", "prefill"))]
+    for (direction, _, shape), parts in zip(jobs, breakdowns_in_children([
+            (f"mxu_{d}{x}", f"K7 {d} {sh} model") for d, x, sh in jobs])):
+        row = next(r for r in results if r["direction"] == direction
+                   and r["shape"] == shape and r["kind"] == "model")
+        row["device_ms"] = None if parts is None else sum(parts.values())
 
 
 def ddelta_report(tag, got, want, plain32):
@@ -2962,11 +3025,12 @@ def layer_split():
     against the rest of the proj layer. Returns {comp: {"total", "scan",
     "rest"} device ms} (None where not measured)."""
     out = {}
-    for comp, scan in (("mxu", ("mxu_fwd_kernel", "mxu_bwd_kernel")),
-                       ("dir2", ("scan_fwd_kernel", "scan_bwd_kernel")),
-                       ("proj", ("proj_fwd_kernel", "proj_bwd_kernel"))):
-        parts = breakdown_in_child(f"{comp}_layer",
-                                   f"stage-0 layer fwd + bwd {comp}")
+    scans = (("mxu", ("mxu_fwd_kernel", "mxu_bwd_kernel")),
+             ("dir2", ("scan_fwd_kernel", "scan_bwd_kernel")),
+             ("proj", ("proj_fwd_kernel", "proj_bwd_kernel")))
+    for (comp, scan), parts in zip(scans, breakdowns_in_children([
+            (f"{c}_layer", f"stage-0 layer fwd + bwd {c}")
+            for c, _ in scans])):
         if parts is None:
             out[comp] = None
             continue
@@ -2994,7 +3058,14 @@ def layer_split():
 def breakdown_child_main(name):
     """``--breakdown NAME``: one warm-up call, then the one profiler session
     of this process around one call; prints {kernel name: device ms} (empty
-    when the profiler recorded no device kernel) as the last line."""
+    when the profiler recorded no device kernel) as the last line. With
+    ``GPU_LOCK_ENV`` set the child takes that file's lock before its first
+    CUDA call: children started together import in parallel and use the
+    card one at a time."""
+    lock_path = os.environ.get(GPU_LOCK_ENV)
+    if lock_path:
+        lock = open(lock_path, "a")
+        fcntl.flock(lock, fcntl.LOCK_EX)
     if name == "conv":
         print(json.dumps(conv_device_breakdown()), flush=True)
         return
@@ -3004,34 +3075,70 @@ def breakdown_child_main(name):
     print(json.dumps(kernel_breakdown(name, fn)), flush=True)
 
 
-def breakdown_in_child(name, tag, tries=2):
-    """Device time of one call by kernel name, each profile taken in a fresh
-    process of its own (the libraries load from ``_build/`` without a
-    compile) as that process's only profiler session: on the H100 a later
-    session in one process has come back without the card's kernels (in
-    this script's own process at phase 2's second breakdown, and after
-    phase 7's step profile). A profile that comes back empty is taken
+def breakdowns_in_children(jobs, tries=2):
+    """Device time of one call by kernel name for each ``(name, tag)`` of
+    ``jobs``, each profile taken in a fresh process of its own (the
+    libraries load from ``_build/`` without a compile) as that process's
+    only profiler session: on the H100 a later session in one process has
+    come back without the card's kernels (in this script's own process at
+    phase 2's second breakdown, and after phase 7's step profile). The
+    processes start together and take turns on the card under a file lock
+    (``breakdown_child_main``), so their start-up overlaps and no two
+    profiles share the card. A profile that comes back empty is taken
     again in a new process; after ``tries`` empty ones the time is not
     measured (None). A child that fails raises."""
-    for attempt in range(1, tries + 1):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--breakdown", name],
-            capture_output=True, text=True, timeout=300)
-        lines = proc.stdout.strip().splitlines()
-        if proc.returncode != 0 or not lines:
-            raise RuntimeError(f"breakdown {tag}: child failed "
-                               f"({proc.returncode}):\n{proc.stdout}\n"
-                               f"{proc.stderr[-3000:]}")
-        parts = json.loads(lines[-1])
-        if parts:
-            log(f"breakdown {tag}: device {sum(parts.values()):.4f} ms: "
-                + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(
-                    parts.items(), key=lambda kv: -kv[1]))
-                + (f" (process {attempt})" if attempt > 1 else ""))
-            return parts
-        log(f"breakdown {tag}: process {attempt} recorded no device kernel")
-    log(f"breakdown {tag}: device time not measured")
-    return None
+    out = [None] * len(jobs)
+    pending = list(range(len(jobs)))
+    if not jobs:
+        return out
+    with tempfile.NamedTemporaryFile(suffix=".lock") as lock:
+        env = dict(os.environ, **{GPU_LOCK_ENV: lock.name})
+        for attempt in range(1, tries + 1):
+            t0 = time.perf_counter()
+            procs = [(i, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--breakdown",
+                 jobs[i][0]], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env)) for i in pending]
+            empty = []
+            try:
+                for i, proc in procs:
+                    stdout, stderr = proc.communicate(timeout=600)
+                    tag, lines = jobs[i][1], stdout.strip().splitlines()
+                    if proc.returncode != 0 or not lines:
+                        raise RuntimeError(
+                            f"breakdown {tag}: child failed "
+                            f"({proc.returncode}):\n{stdout}\n"
+                            f"{stderr[-3000:]}")
+                    parts = json.loads(lines[-1])
+                    if not parts:
+                        log(f"breakdown {tag}: process {attempt} recorded "
+                            "no device kernel")
+                        empty.append(i)
+                        continue
+                    out[i] = parts
+                    log(f"breakdown {tag}: device "
+                        f"{sum(parts.values()):.4f} ms: " + ", ".join(
+                            f"{k} {v:.4f} ms" for k, v in sorted(
+                                parts.items(), key=lambda kv: -kv[1]))
+                        + (f" (process {attempt})" if attempt > 1 else ""))
+            finally:
+                # a failure or a timeout leaves no child on the card
+                for _, proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.communicate()
+            log(f"breakdowns: {len(procs)} processes in "
+                f"{time.perf_counter() - t0:.1f} s")
+            pending = empty
+            if not pending:
+                break
+    for i in pending:
+        log(f"breakdown {jobs[i][1]}: device time not measured")
+    return out
+
+
+def breakdown_in_child(name, tag):
+    return breakdowns_in_children([(name, tag)])[0]
 
 
 def ms_or_none(fmt, x):
@@ -3091,10 +3198,10 @@ def phase_probes(results):
         results.append(row)
         del a
         torch.cuda.empty_cache()
-    device = {}
-    for name in ("k2", "noshift", "nohs", "flat"):
-        parts = breakdown_in_child(name, f"{name} stage 0 R=1 bf16")
-        device[name] = None if parts is None else sum(parts.values())
+    names = ("k2", "noshift", "nohs", "flat")
+    device = {name: None if parts is None else sum(parts.values())
+              for name, parts in zip(names, breakdowns_in_children(
+                  [(n, f"{n} stage 0 R=1 bf16") for n in names]))}
     by = {(r["kind"], r["R"]): r for r in results if r["dtype"] == "bfloat16"}
     for kind in ("noshift", "nohs", "flat"):
         by[kind, 1]["device_ms"] = device[kind]
@@ -3126,6 +3233,178 @@ def phase_probes(results):
                              f"variant {variants}")
     log(f"twins' mains: launches {counts}; K10 by variant {variants}")
     return dict(counts=counts, variants=variants)
+
+
+def phantom_volume(frame=BRATS_FRAME, seed=0):
+    """(1, 4, *frame) float32 brain phantom on the card, each channel
+    z-scored over the brain, zero outside it."""
+    images, _ = phantom_case(frame, seed)
+    x = images.astype(np.float32)
+    brain = images[0] != 0
+    for c in range(x.shape[0]):
+        v = x[c][brain]
+        x[c][brain] = (v - v.mean()) / v.std()
+    return torch.from_numpy(x)[None].cuda()
+
+
+def wv_check(tag, out, frame, box, counts, per_call):
+    """Exact K1/K2 launches, finite float32 logits of the frame's shape,
+    class 0 at 20.0 (the others 0) outside ``box``."""
+    want = expected_counts(**per_call)
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+    if (tuple(out.shape) != (1, 4, *frame) or out.dtype != torch.float32
+            or not torch.isfinite(out).all()):
+        raise AssertionError(f"{tag}: logits {tuple(out.shape)} "
+                             f"{out.dtype} or non-finite values")
+    if box is None:
+        return
+    outside = torch.ones(frame, dtype=torch.bool, device=out.device)
+    outside[tuple(slice(lo, hi) for lo, hi in box)] = False
+    if not (bool((out[0, 0][outside] == 20.0).all())
+            and bool((out[0, 1:][:, outside] == 0).all())):
+        raise AssertionError(f"{tag}: background outside the box is not "
+                             "class 0 at 20.0")
+
+
+def phase_whole_volume(results):
+    """Whole-volume inference: K1/K2 at its shapes, the f32 forward on
+    the phantom vs plain scans, bf16 times, checks; returns the stats."""
+    phase_kernels(results, WV_SHAPES)
+    phantom = phantom_volume()
+    box = nonzero_bbox(phantom)
+    crop = tuple(hi - lo for lo, hi in box)
+    stats = dict(phantom_box=box)
+    model = SegMamba(in_chans=4, out_chans=4,
+                     generator=torch.Generator().manual_seed(0),
+                     device="cuda").eval()
+    with torch.inference_mode():
+        reset_counts()
+        y_k = whole_volume_inference(model, phantom)
+        torch.cuda.synchronize()
+        wv_check("f32 phantom", y_k, BRATS_FRAME, box, launch_counts(),
+                 WV_PER_FORWARD)
+        torch.cuda.reset_peak_memory_stats()
+        with plain_scans():
+            y_p = whole_volume_inference(model, phantom)
+        torch.cuda.synchronize()
+        plain_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the scale of the computed logits, not of the pinned background
+        scale = float(y_p[(slice(None), slice(None)) + tuple(
+            slice(lo, hi) for lo, hi in box)].abs().max())
+        err = check_close("f32 whole volume (kernel vs plain scans)", y_k,
+                          y_p, 2e-3, 1e-2 * scale)
+    log(f"f32 whole volume, phantom {BRATS_FRAME} box {box} (crop {crop}):"
+        f" max|ref| {scale:.4f}, max abs err {err:.3e}; plain side peak "
+        f"{plain_gib:.2f} GiB")
+    stats["f32_max_abs_err"], stats["f32_scale"] = err, scale
+    del model, y_k, y_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = SegMamba(in_chans=4, out_chans=4, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0),
+                     device="cuda").eval()
+    bench = np.moveaxis(np.random.default_rng(0).standard_normal(
+        (1, *CASE_SHAPE, 4)), -1, 1)
+    bench = torch.from_numpy(bench.astype(np.float32)).cuda()
+    tta_calls = {k: 8 * v for k, v in WV_PER_FORWARD.items()}
+    runs = {
+        "wholevol_bench": (lambda: whole_volume_inference(model, bench),
+                           CASE_SHAPE, None, WV_PER_FORWARD),
+        "wholevol_phantom": (lambda: whole_volume_inference(model, phantom),
+                             BRATS_FRAME, box, WV_PER_FORWARD),
+        "wholevol_uncropped": (lambda: whole_volume_inference(
+            model, phantom, crop_to_nonzero=False), BRATS_FRAME, None,
+            WV_PER_FORWARD),
+        "wholevol_tta_bench": (lambda: whole_volume_tta(
+            model, bench, (0, 1, 2)), CASE_SHAPE, None, tta_calls),
+    }
+    with torch.inference_mode():
+        for name, (fn, frame, rbox, per_call) in runs.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            wv_check(name, out, frame, rbox, counts, per_call)
+            del out
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            stats[name] = dict(
+                sec=statistics.median(times), times=times, peak_gib=peak,
+                launches={k: counts[k] for k in per_call})
+            log(f"{name}: {stats[name]['sec']:.4f} s/case (median of 3: "
+                f"{', '.join(f'{t:.4f}' for t in times)}), peak "
+                f"{peak:.2f} GiB, launches {stats[name]['launches']}")
+    stats["deploy"] = phase_deploy(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_deploy(model):
+    """One raw phantom case through ``SegmentationAlgorithm`` (weights from
+    a checkpoint of ``model``; sliding window, roi 128^3, overlap 0.5,
+    sw_batch 1, mirror TTA over 3 axes, bf16) -> NIfTI, then
+    ``compute_metrics`` on it against the case's seg."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        raw = os.path.join(tmp, "raw")
+        images, _ = write_raw_phantom_case(os.path.join(raw, "phantom_0"),
+                                           BRATS_FRAME, seed=1)
+        ckpt = os.path.join(tmp, "model.pt")
+        torch.save({"model": model.state_dict()}, ckpt)
+        write_s = time.perf_counter() - t0
+        algo = SegmentationAlgorithm(
+            SegMamba(in_chans=4, out_chans=4, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(1)), ckpt,
+            input_dir=raw, output_dir=os.path.join(tmp, "pred", "deploy"),
+            data_filenames=MODALITIES, roi_size=ROI, sw_batch_size=1,
+            overlap=0.5, mirror_axes=(0, 1, 2), device="cuda")
+        for k, v in model.state_dict().items():
+            if not torch.equal(algo.model.state_dict()[k], v):
+                raise AssertionError(f"deploy: weight {k} not loaded")
+        crop = [hi - lo for lo, hi in bbox_from_mask(
+            create_nonzero_mask(images))]
+        padded = [-(-max(c, r) // 32) * 32 for c, r in zip(crop, ROI)]
+        n_windows = len(_scan_starts(padded, ROI, 0.5))
+        reset_counts()
+        (path,) = algo.process()
+        counts = launch_counts()
+        want = expected_counts(scan_dir=n_windows * 8 * 16,
+                               scan_fused=n_windows * 8 * 8)
+        if counts != want:
+            raise AssertionError(f"deploy: launches {counts}, expected "
+                                 f"{want} ({n_windows} windows x 8 flips)")
+        pred = read_nifti(path)
+        labels = set(np.unique(pred).tolist())
+        if pred.shape != BRATS_FRAME or not labels <= {0, 1, 2, 3}:
+            raise AssertionError(f"deploy: prediction {pred.shape}, labels "
+                                 f"{sorted(labels)}")
+        t1 = time.perf_counter()
+        arr = compute_metrics.main([
+            "--pred_name", "deploy", "--pred-dir", os.path.join(tmp, "pred"),
+            "--gt-dir", raw, "--raw-gt", "--out", os.path.join(tmp, "m")])
+        metrics_s = time.perf_counter() - t1
+    if arr is None or arr.shape != (1, 3, 2) or not np.isfinite(arr).all():
+        raise AssertionError(f"deploy: metrics {arr}")
+    split = dict(algo.timings["phantom_0"], write_case_s=write_s,
+                 metrics_s=metrics_s)
+    log(f"deploy case {BRATS_FRAME} (crop {crop}, {n_windows} windows x 8 "
+        f"flips): labels {sorted(labels)}, dice {arr[0, :, 0].tolist()}, "
+        f"hd95 {arr[0, :, 1].tolist()}; seconds " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()))
+    return dict(split, n_windows=n_windows, crop=crop,
+                launches={k: counts[k] for k in WV_PER_FORWARD},
+                metrics=arr[0].tolist())
 
 
 def main():
@@ -3251,10 +3530,20 @@ def main():
     probe_main = phase_probes(probe_results)
     log(f"phase 17 (K10 and K11 vs plain and K2; the twins' mains): "
         f"{time.perf_counter() - t0:.1f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wv_stats = phase_whole_volume(results)
+    log(f"phase 18 (whole volume and case pipeline): "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s; ms per window "
         f"{model_stats['ms_per_window']:.2f}; s/step "
         f"{train_stats['sec']:.4f}; LM decode ms/token "
         f"{lm_stats['decode_ms']:.3f}")
+    log("whole volume (s/case, peak GiB): " + "; ".join(
+        f"{n} {wv_stats[n]['sec']:.4f}, {wv_stats[n]['peak_gib']:.2f}"
+        for n in WV_RUNS))
     log("compositions (s/case, s/step, peak GiB of the step): " + "; ".join(
         f"{c} {comp_stats[c]['sec_per_case']:.4f}, "
         f"{comp_train[c]['sec']:.4f}, {comp_train[c]['peak_gib']:.2f}"
@@ -3275,6 +3564,17 @@ def main():
                 launches = case_launches[wrapper]
                 by_path = {"inference_case": launches,
                            "train_5_steps": train_launches[wrapper]}
+                by_path.update({name: wv_stats[name]["launches"][wrapper]
+                                for name in WV_RUNS})
+                by_path["deploy_case"] = wv_stats["deploy"]["launches"][
+                    wrapper]
+                extra = dict(wholevol_shapes={
+                    f"{r['shape']} {r['dtype']} {r['variant']}": dict(
+                        {k: r[k] for k in ("ms", "plain_ms", "max_abs_err")},
+                        **dict(zip(("bound_ms", "bound_by"), scan_bound(
+                            "fwd", r["variant"], *WV_SHAPES[r["shape"]],
+                            getattr(torch, r["dtype"])))))
+                    for r in rows if r["shape"] in WV_SHAPES})
             else:
                 bound, bound_by = main_row["bound_ms"], main_row["bound_by"]
                 launches = train_launches[f"{wrapper}_bwd"]
@@ -3295,7 +3595,7 @@ def main():
                 ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                 bound_ms=bound, bound_by=bound_by, library_ms=None,
                 variant=main_row["variant"], launches_by_path=by_path,
-                **(extra if direction == "bwd" else {})))
+                **extra))
     for direction in ("fwd", "bwd"):
         rows = [r for r in core_results if r["direction"] == direction]
         main_row = next(r for r in rows if r["shape"] == "prefill")

@@ -16,10 +16,16 @@ in_proj.weight``, ``decoder5.transp_conv.conv.weight``, ...) loads with
 
 ``dtype`` is the compute dtype; parameters stay float32 and are cast per op.
 LayerNorm eps is 1e-5, GELU is exact, logits come out float32.
+
+``num_slices_list`` only orders the slice scan and holds no parameter, so
+one set of weights runs any volume: ``with model.slices(counts):`` runs
+forwards with other per-stage slice counts (the whole-volume mode's, JAX
+``infer/whole_volume.py`` swaps them with ``dataclasses.replace``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -185,6 +191,31 @@ class SegMamba(nn.Module):
         self.out = UnetOutBlock(f[0], out_chans, **kw)
         if device is not None:
             self.to(device)
+
+    @property
+    def num_slices_list(self):
+        """The per-stage slice counts the Mamba layers hold now."""
+        return tuple(stage[0].mamba.nslices for stage in self.vit.stages)
+
+    @contextlib.contextmanager
+    def slices(self, num_slices_list):
+        """Run the forwards inside the block with ``num_slices_list`` as the
+        per-stage slice counts; the stored counts come back on exit, also
+        when the block raises."""
+        counts = tuple(int(n) for n in num_slices_list)
+        if len(counts) != len(self.vit.stages):
+            raise ValueError(f"{len(counts)} slice counts for "
+                             f"{len(self.vit.stages)} stages")
+        layers = [(layer.mamba, n) for stage, n in zip(self.vit.stages, counts)
+                  for layer in stage]
+        saved = [m.nslices for m, _ in layers]
+        try:
+            for m, n in layers:
+                m.nslices = n
+            yield self
+        finally:
+            for (m, _), n in zip(layers, saved):
+                m.nslices = n
 
     def forward(self, x_in):
         outs = self.vit(x_in)

@@ -21,14 +21,13 @@ import numpy as np
 import torch
 
 from segmamba_tpu_torch.data import get_train_val_test_loader_from_train
+from segmamba_tpu_torch.data.planning import load_plan
 from segmamba_tpu_torch.models import SegMamba
 from segmamba_tpu_torch.train.trainer import Trainer
 
 NOT_PORTED = {
     "--data-parallel": "data parallelism is not ported yet (ROADMAP A9)",
     "--seq-parallel": "sequence parallelism is not ported yet (ROADMAP A9)",
-    "--plan": "dataset plans (data/planning.py) are not ported yet "
-              "(ROADMAP A8)",
 }
 
 
@@ -106,14 +105,26 @@ def build_parser():
     return ap
 
 
+def apply_plan(args):
+    """Take the patch from a dataset plan (``preprocess``'s
+    ``data_analysis_result.json``), rounded down to multiples of 32 (at
+    least 32) for the model, and the slice counts from its depth."""
+    plan = load_plan(args.plan)
+    patch = [max(32, (int(p) // 32) * 32) for p in plan["patch_size"]]
+    print(f"plan patch_size {plan['patch_size']} -> model patch {patch}")
+    args.patch = patch
+    args.num_slices = [max(1, patch[0] // (2 ** (i + 1))) for i in range(4)]
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     asked = {"--data-parallel": args.data_parallel,
-             "--seq-parallel": args.seq_parallel != 1,
-             "--plan": args.plan is not None}
+             "--seq-parallel": args.seq_parallel != 1}
     for flag, on in asked.items():
         if on:
             raise SystemExit(f"{flag}: {NOT_PORTED[flag]}")
+    if args.plan:
+        apply_plan(args)
     if args.print_config:
         print(json.dumps({"patch": list(args.patch),
                           "num_slices": list(args.num_slices),

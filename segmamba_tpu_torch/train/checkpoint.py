@@ -7,6 +7,10 @@ resume. Names keep the reference layout: ``<symbol>_<metric:.4f>.pt``
 (``best_model_0.8123.pt``, ``final_model_...``) with exactly one file per
 symbol (``save_new_and_delete_last``), plus ``tmp_model_ep{e}_{m:.4f}.pt``
 every 100 epochs. Reading a JAX orbax checkpoint is not supported.
+
+``load_model_weights`` loads the model's weights alone for inference, from
+such a checkpoint or from a reference-format ``state_dict`` (the port's
+parameter names are the reference model's).
 """
 
 from __future__ import annotations
@@ -64,3 +68,23 @@ def find_checkpoint(model_dir, symbol="best_model"):
     if not cands:
         cands = sorted(glob.glob(os.path.join(model_dir, "*_*.pt")))
     return cands[-1] if cands else None
+
+
+def load_model_weights(model, path):
+    """Load the weights at ``path`` into ``model`` (strictly) and return it.
+
+    ``path`` holds a checkpoint of ``save_checkpoint`` (its ``"model"``
+    entry) or a reference torch ``state_dict``, bare or under a
+    ``"state_dict"`` key, as JAX's ``load_torch_checkpoint`` takes it; a
+    DDP ``module.`` prefix is stripped and BatchNorm's
+    ``num_batches_tracked`` counters are dropped."""
+    device = next(model.parameters()).device
+    sd = torch.load(path, map_location=device, weights_only=True)
+    for key in ("model", "state_dict"):
+        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
+            sd = sd[key]
+            break
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -1672,3 +1672,75 @@ def test_scan_probes_reject_unsupported_operands(cuda):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call(*(t.to("meta") for t in a))
     assert (bench_scan_lb.LAUNCHES, bench_scan_flat.LAUNCHES) == before
+
+
+def test_whole_volume_kernel_path_matches_plain(cuda):
+    """Full-width SegMamba over a non-cubic volume with a crop (box (32, 48,
+    32) of a (40, 70, 50) frame, slices 16/8/4/2 from its depth): kernels
+    vs plain scans in float32, 16 K1 and 8 K2 launches, class 0 pinned at
+    20.0 outside the box; the stored slice counts come back."""
+    from segmamba_tpu_torch.infer import whole_volume as twv
+    model = SegMamba(generator=torch.Generator().manual_seed(0),
+                     device=cuda).eval()
+    x = np.zeros((1, 4, 40, 70, 50), np.float32)
+    x[:, :, 5:34, 10:50, 12:40] = np.random.default_rng(5).standard_normal(
+        (1, 4, 29, 40, 28))
+    x = torch.from_numpy(x).to(cuda)
+    box = twv.nonzero_bbox(x)
+    assert box == ((5, 37), (10, 58), (12, 44))
+    before = (scan_dir.LAUNCHES, scan_fused.LAUNCHES)
+    got = twv.whole_volume_inference(model, x)
+    torch.cuda.synchronize()
+    assert (scan_dir.LAUNCHES - before[0],
+            scan_fused.LAUNCHES - before[1]) == (16, 8)
+    saved = scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused
+    scan_dir.mamba_scan_fused_dir = scan_dir.mamba_scan_fused_dir_ref
+    scan_fused.mamba_scan_fused = scan_fused.mamba_scan_fused_ref
+    try:
+        want = twv.whole_volume_inference(model, x)
+    finally:
+        scan_dir.mamba_scan_fused_dir, scan_fused.mamba_scan_fused = saved
+    assert got.shape == (1, 4, 40, 70, 50)
+    _close(got, want, (2e-3, 1e-2 * float(want.abs().max())))
+    outside = torch.ones(40, 70, 50, dtype=torch.bool, device=cuda)
+    outside[5:37, 10:58, 12:44] = False
+    assert bool((got[0, 0][outside] == 20.0).all())
+    assert bool((got[0, 1:][:, outside] == 0).all())
+    assert model.num_slices_list == (64, 32, 16, 8)
+
+
+def test_load_model_weights_round_trips_a_trainer_checkpoint(cuda, tmp_path):
+    """A checkpoint of the trainer's ``save_checkpoint``, written from the
+    card, loads into a fresh model on the card with every tensor equal and
+    the same logits; a reference-format ``state_dict`` too."""
+    import types
+    from segmamba_tpu_torch.train.checkpoint import (
+        load_model_weights,
+        save_checkpoint,
+    )
+    cfg = dict(in_chans=4, out_chans=4, depths=(1, 1, 1, 1),
+               feat_size=(8, 16, 32, 64), hidden_size=128,
+               num_slices_list=(16, 8, 4, 2))
+    model = SegMamba(generator=torch.Generator().manual_seed(0),
+                     device=cuda, **cfg).eval()
+    state = types.SimpleNamespace(
+        model=model, step=3,
+        optimizer=torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9))
+    path = save_checkpoint(state, str(tmp_path / "best_model_0.5000.pt"),
+                           epoch=1, metric=0.5)
+    ref = str(tmp_path / "reference.pt")
+    torch.save({"state_dict": {f"module.{k}": v.cpu() for k, v in
+                               model.state_dict().items()}}, ref)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, 4, 32, 32, 32)).astype(np.float32)).to(cuda)
+    with torch.inference_mode():
+        want = model(x)
+    for p in (path, ref):
+        fresh = SegMamba(generator=torch.Generator().manual_seed(1),
+                         device=cuda, **cfg).eval()
+        assert load_model_weights(fresh, p) is fresh
+        for k, v in model.state_dict().items():
+            got = fresh.state_dict()[k]
+            assert got.device.type == "cuda" and torch.equal(got, v), k
+        with torch.inference_mode():
+            assert torch.equal(fresh(x), want)

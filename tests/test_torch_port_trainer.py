@@ -17,6 +17,7 @@ CPU time: about 15 s.
 """
 
 import glob
+import json
 import os
 
 import numpy as np
@@ -158,11 +159,27 @@ def test_train_cli_trains_saves_and_resumes(cases, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--data-parallel"],
-                                  ["--seq-parallel", "2"],
-                                  ["--plan", "plan.json"]])
+                                  ["--seq-parallel", "2"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(SystemExit, match="ROADMAP A"):
         train_main(flag)
+
+
+@pytest.mark.parametrize("plan_patch,patch", [
+    ([128, 128, 128], [128, 128, 128]),
+    ([160, 192, 112], [160, 192, 96]),
+    ([20, 70, 300], [32, 64, 288]),
+])
+def test_plan_sets_patch_and_slices(tmp_path, capsys, plan_patch, patch):
+    """``--plan`` takes the plan's patch rounded down to multiples of 32 (at
+    least 32) and the slice counts from its depth, as 3_train.py does."""
+    path = tmp_path / "plan.json"
+    path.write_text(json.dumps({"patch_size": plan_patch}))
+    train_main(["--plan", str(path), "--print-config"])
+    cfg = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert cfg["patch"] == patch
+    assert cfg["num_slices"] == [max(1, patch[0] // 2 ** (i + 1))
+                                 for i in range(4)]
 
 
 def test_device_augmentation_raises():
