@@ -70,17 +70,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    scan launches per step exactly 16 + 8 forward and 16 + 8 backward. Peak
    memory; one more step under torch.profiler, its device time by kernel
    class and the device's idle share of the step; and the forward/backward
-   time of each top-level module run alone on the inputs it saw.
+   time of each top-level module run alone on the inputs it saw. The same
+   step with the device augmentation chain (``train_step(augment=...)``,
+   the trainer's draws): one warm-up, 5 steps timed alone with exactly
+   the bare step's scan launches each, then 6 with the trainer's prefetch
+   thread pinning and copying host batches meanwhile.
 8. The trainer end to end: ``segmamba_tpu_torch.train`` on six synthetic
    4 x 144^3 cases in a temporary directory, 1 epoch x 4 steps with
    validation on 2 patches, then ``--resume`` with 2 epochs: it continues
    at the saved epoch 0 and step 4, as the JAX trainer does, and ends at
    epoch 1, step 12; checkpoints must exist. First the
-   recipe's host augmentation chain is timed on two 2 x 4 x 128^3 batches
-   in this process (one core): it takes tens of seconds a batch, so the
-   trainer itself runs with ``--augmentation noaug`` (4 loader processes)
-   to keep the phase near 90 s; the chain's arrays are held against the
-   JAX package's by the CPU tests.
+   recipe's host augmentation chain (the native resampler) is timed on two
+   2 x 4 x 128^3 batches in this process: it takes seconds a batch, so
+   the trainer runs with ``--augmentation noaug`` (2 loader processes)
+   and with ``--augmentation device`` (the chain on the card inside the
+   step), each with its resume; step p50 and data-wait max of each run.
+   The chain's arrays are held against the JAX package's by the CPU tests.
+   The on-device chain (``data/augment_device.py``) on a raw 2 x 4 x 128^3
+   sampler batch: CUDA events, median of 5 after a warm-up, over five
+   default draws and with every coin forced to fire; the host's time to
+   draw a batch's parameters; and one all-firing sample on the card
+   against the port's CPU run of the same parameters and noise field
+   (images at rtol 1e-4 / atol 1e-4 x max|cpu|, labels equal except where
+   the CPU's warped seg lies within 1e-4 of a half-integer).
 9. K6 (``scan_core``, the templates' ``softplus=False`` mode) vs its plain
    version at the LM prefill's shape (R=2, L=2048, D=5120, N=16) and a
    ragged one (R=1, L=2000): forward y, chunk states and last state at the
@@ -301,6 +313,7 @@ from segmamba_tpu_torch.config import Config, ModelConfig
 from segmamba_tpu_torch.data import (
     MedicalDataset,
     PatchSampler,
+    augment_device,
     get_train_transforms,
 )
 from segmamba_tpu_torch import compute_metrics
@@ -343,6 +356,7 @@ from segmamba_tpu_torch.train.train_state import (
     create_train_state,
     train_step,
 )
+from segmamba_tpu_torch.train.trainer import _prefetch
 from segmamba_tpu_torch.utils.hf import from_pretrained
 
 SOURCES = {"fwd": "segmamba_tpu_torch/csrc/gated_scan_fwd.cu",
@@ -1058,22 +1072,14 @@ def profiled(fn):
     return busy, classes, kernels
 
 
-def kernel_breakdown(tag, fn):
-    """Device time of one call of ``fn`` by kernel name (torch.profiler),
-    logged on one line; returns {kernel name: device ms}."""
-    _, _, kernels = profiled(fn)
+def kernel_parts(kernels):
+    """{kernel name: device ms} of profiler events."""
     name = lambda e: (re.search(r"::(\w+)[<(]", e.key) or re.search(
         r"(\w+)<", e.key) or re.search(r"(\w+)", e.key)).group(1)
     parts = {}
     for e in kernels:
         parts[name(e)] = parts.get(name(e), 0.0) + (
             e.self_device_time_total / 1e3)
-    if not parts:
-        log(f"breakdown {tag}: the profiler recorded no device kernel")
-        return parts
-    log(f"breakdown {tag}: device {sum(parts.values()):.4f} ms: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in sorted(parts.items(),
-                                              key=lambda kv: -kv[1])))
     return parts
 
 
@@ -1185,6 +1191,7 @@ def phase_train():
         f"{', '.join(f'{v:.5f}' for v in losses)}; grad norms "
         f"{', '.join(f'{v:.4f}' for v in norms)}; launches over 5 steps "
         f"{launches}")
+    aug_launches = phase_train_device_aug(state, batch, per_step, sec)
     # where the step goes: kernel classes, then each module alone
     prof_stats = profile_step(state, batch, sec)
     rows = module_split(model, batch["image"])
@@ -1213,13 +1220,149 @@ def phase_train():
             f"{100 * (f + b) / total:5.1f}%")
     del model, state, batch
     torch.cuda.empty_cache()
-    return dict(sec=sec, peak_gib=peak_gib, launches=launches, **prof_stats)
+    return dict(sec=sec, peak_gib=peak_gib, launches=launches,
+                aug_launches=aug_launches, **prof_stats)
+
+
+def phase_train_device_aug(state, batch, per_step, bare_sec):
+    """The phase-7 step with the device chain on the same batch, each
+    step's parameters drawn as the trainer draws them (``seed + 7`` with
+    the CLI's seed 42, by step; the draw is timed with the step, as the
+    trainer's step time has it): one warm-up, then 5 steps counted and
+    timed alone, then 6 with the trainer's prefetch thread pinning and
+    copying the next host batches meanwhile. What a trainer step takes
+    beyond the last is its loader processes'. Returns the scan launches
+    of the 5 counted steps."""
+    shape = batch["image"].shape
+
+    def step(b, i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = augment_device.draw_params(
+            shape, augment_device.augment_generator(42 + 7, i),
+            device="cuda")
+        m = train_step(state, b, augment=params)
+        torch.cuda.synchronize()
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"augmented step {i}: loss {m['loss']}")
+        return time.perf_counter() - t0
+
+    step(batch, 0)                                     # warm-up
+    alone = []
+    reset_counts()
+    for i in range(1, 6):
+        before = launch_counts()
+        alone.append(step(batch, i))
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != per_step:
+            raise AssertionError(f"augmented step {i}: scan launches "
+                                 f"{delta}, expected {per_step}")
+    launches = launch_counts()
+    host = {k: v.cpu().numpy() for k, v in batch.items()}
+    prefetched = [step(b, 6 + i) for i, b in enumerate(
+        _prefetch(iter([host] * 6), torch.device("cuda")))]
+    log(f"train step with the device chain (same batch, the trainer's "
+        f"draws): alone {statistics.median(alone):.4f} s/step (median of "
+        f"5: {', '.join(f'{t:.4f}' for t in alone)}; the bare step "
+        f"{bare_sec:.4f}); with the prefetch thread copying host batches "
+        f"{statistics.median(prefetched):.4f} s/step (median of 6: "
+        f"{', '.join(f'{t:.4f}' for t in prefetched)}); launches over the "
+        f"5 counted steps {launches}")
+    return launches
+
+
+AUG_FIRE = ("rot", "scale_fire", "noise", "blur", "blur_channel",
+            "brightness", "contrast", "lowres", "lowres_channel",
+            "gamma_inv", "gamma", "mirror")
+
+
+def all_firing(params, shape, device):
+    """``params`` with every coin set, and a noise field on ``device``."""
+    for name in AUG_FIRE:
+        setattr(params, name, torch.ones_like(getattr(params, name)))
+    params.noise_field = torch.randn(
+        shape, generator=torch.Generator(device=device).manual_seed(7),
+        device=device)
+    return params
+
+
+def phase_device_augment(raw):
+    """The on-device chain on a raw sampler batch: times (default draws,
+    all coins firing), the host's draw time, and one all-firing sample on
+    the card against the CPU."""
+    image = torch.from_numpy(raw["data"]).cuda()
+    label = torch.from_numpy(raw["seg"][:, 0].astype(np.int64)).cuda()
+    shape = tuple(image.shape)
+
+    def timed(params):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        out = augment_device.device_augment(image, label, params)
+        e[1].record()
+        e[1].synchronize()
+        if not bool(torch.isfinite(out[0]).all()) or int(out[1].min()) < 0:
+            raise AssertionError("device chain: non-finite image or a "
+                                 "negative label")
+        return e[0].elapsed_time(e[1])
+
+    t0 = time.perf_counter()
+    draws = [augment_device.draw_params(
+        shape, torch.Generator().manual_seed(s), device="cuda")
+        for s in range(6)]
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t0) * 1e3 / len(draws)
+    timed(draws[0])                                    # warm-up
+    default_ms = [timed(p) for p in draws[1:]]
+    fired = [" ".join(n for n in AUG_FIRE[:-1] if bool(getattr(p, n).any()))
+             for p in draws[1:]]
+    forced = all_firing(augment_device.draw_params(
+        shape, torch.Generator().manual_seed(9), device="cuda"), shape,
+        "cuda")
+    timed(forced)
+    all_ms = [timed(forced) for _ in range(5)]
+    log(f"device augmentation (2 x 4 x {ROI[0]}^3 raw sampler batch, "
+        f"CUDA events): default draws median {statistics.median(default_ms):.3f}"
+        f" ms ({', '.join(f'{t:.3f}' for t in default_ms)}; fired: "
+        f"{' | '.join(f or 'mirror only' for f in fired)}); every coin "
+        f"firing median {statistics.median(all_ms):.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in all_ms)}); host draw of a batch's "
+        f"parameters {draw_ms:.3f} ms")
+
+    # one all-firing sample: the card against the port's CPU run
+    one = forced.select([0])
+    got_img, got_seg = augment_device.device_augment(image[:1], label[:1],
+                                                     one)
+    cpu = forced.select([0])
+    cpu.noise_field = cpu.noise_field.cpu()
+    t0 = time.perf_counter()
+    want_img, want_seg = augment_device.device_augment(
+        image[:1].cpu(), label[:1].cpu(), cpu)
+    t_cpu = time.perf_counter() - t0
+    scale = float(want_img.abs().max())
+    err = float((got_img.cpu() - want_img).abs().max())
+    ok_img = bool(torch.all((got_img.cpu() - want_img).abs()
+                            <= 1e-4 * scale + 1e-4 * want_img.abs()))
+    mat = (augment_device._rotation_matrix(cpu.angles)
+           * cpu.scale[:, None, None])
+    v = augment_device._warp_affine_shear(
+        label[:1].cpu().float()[:, None], mat, 1, -1.0)[:, 0]
+    amb = torch.flip((v - torch.floor(v) - 0.5).abs() < 1e-4, (1, 2, 3))
+    miss = int(((got_seg.cpu() != want_seg) & ~amb).sum())
+    log(f"device augmentation, one all-firing sample, card vs CPU: image "
+        f"max |err| {err:.3e} at max|cpu| {scale:.3f}; labels differing "
+        f"{miss} (near-half voxels not compared: {int(amb.sum())}); CPU run "
+        f"{t_cpu:.2f} s")
+    if not ok_img or miss:
+        raise AssertionError("device augmentation: the card's sample "
+                             "misses the CPU's (rtol 1e-4, atol 1e-4 x "
+                             f"max; image err {err:.3e}, labels {miss})")
 
 
 def phase_trainer():
-    """The host augmentation chain timed on one core, then
-    ``segmamba_tpu_torch.train`` end to end on synthetic cases and resumed
-    for one more epoch."""
+    """The host augmentation chain timed in this process, the device chain
+    (``phase_device_augment``), then ``segmamba_tpu_torch.train`` end to
+    end on synthetic cases with the host loaders (noaug) and with the
+    device chain, each resumed for one more epoch."""
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         t0 = time.perf_counter()
@@ -1234,37 +1377,47 @@ def phase_trainer():
             t0 = time.perf_counter()
             chain(batch, np.random.default_rng(seed))
             aug.append(time.perf_counter() - t0)
-        log(f"host augmentation (default chain, 2 x 4 x {ROI[0]}^3, one "
-            f"process): {', '.join(f'{t:.2f}' for t in aug)} s per batch")
-        logdir = os.path.join(tmp, "logs")
-        common = ["--data-dir", data, "--logdir", logdir, "--batch-size",
-                  "2", "--val-every", "1", "--steps-per-epoch", "4",
-                  "--val-number", "2", "--num-workers", "4", "--split",
-                  "0.5", "0.5", "0.0", "--patch", *map(str, ROI),
-                  "--augmentation", "noaug"]
-        t0 = time.perf_counter()
-        tr = train_main(common + ["--max-epochs", "1"])
-        t_first = time.perf_counter() - t0
-        names = sorted(os.listdir(os.path.join(logdir, "model")))
-        if ([n.rsplit("_", 1)[0] for n in names]
-                != ["best_model", "final_model"] or tr.epoch != 0
-                or tr.global_step != 4 or not np.isfinite(tr.last_loss)):
-            raise AssertionError(f"trainer run: checkpoints {names}, epoch "
-                                 f"{tr.epoch}, step {tr.global_step}, loss "
-                                 f"{tr.last_loss}")
-        # as the JAX trainer, resume continues at the saved epoch (0) and
-        # step (4): epochs 0 and 1 run, to step 12
-        t0 = time.perf_counter()
-        tr = train_main(common + ["--max-epochs", "2", "--resume"])
-        t_resume = time.perf_counter() - t0
-        if (tr.epoch != 1 or tr.global_step != 12
-                or not np.isfinite(tr.last_loss)):
-            raise AssertionError(f"resumed run: epoch {tr.epoch}, step "
-                                 f"{tr.global_step}, loss {tr.last_loss}")
-        log(f"trainer: data {t_data:.1f} s, epoch 0 (4 steps + validation) "
-            f"{t_first:.1f} s, resumed at epoch 0 step 4 for epochs 0-1 "
-            f"{t_resume:.1f} s; "
-            f"checkpoints {sorted(os.listdir(os.path.join(logdir, 'model')))}")
+        log(f"host augmentation (default chain, native resampler, 2 x 4 x "
+            f"{ROI[0]}^3, one process): "
+            f"{', '.join(f'{t:.2f}' for t in aug)} s per batch")
+        phase_device_augment(sampler.generate_train_batch())
+        for mode in ("noaug", "device"):
+            logdir = os.path.join(tmp, f"logs_{mode}")
+            common = ["--data-dir", data, "--logdir", logdir,
+                      "--batch-size", "2", "--val-every", "1",
+                      "--steps-per-epoch", "4", "--val-number", "2",
+                      "--num-workers", "2", "--split", "0.5", "0.5", "0.0",
+                      "--patch", *map(str, ROI), "--augmentation", mode]
+            t0 = time.perf_counter()
+            tr = train_main(common + ["--max-epochs", "1"])
+            t_first = time.perf_counter() - t0
+            first = tr.timer.stats()
+            names = sorted(os.listdir(os.path.join(logdir, "model")))
+            if ([n.rsplit("_", 1)[0] for n in names]
+                    != ["best_model", "final_model"] or tr.epoch != 0
+                    or tr.global_step != 4 or not np.isfinite(tr.last_loss)):
+                raise AssertionError(f"trainer run ({mode}): checkpoints "
+                                     f"{names}, epoch {tr.epoch}, step "
+                                     f"{tr.global_step}, loss {tr.last_loss}")
+            # as the JAX trainer, resume continues at the saved epoch (0)
+            # and step (4): epochs 0 and 1 run, to step 12
+            t0 = time.perf_counter()
+            tr = train_main(common + ["--max-epochs", "2", "--resume"])
+            t_resume = time.perf_counter() - t0
+            if (tr.epoch != 1 or tr.global_step != 12
+                    or not np.isfinite(tr.last_loss)):
+                raise AssertionError(f"resumed run ({mode}): epoch "
+                                     f"{tr.epoch}, step {tr.global_step}, "
+                                     f"loss {tr.last_loss}")
+            resumed = tr.timer.stats()
+            log(f"trainer --augmentation {mode}: data {t_data:.1f} s, "
+                f"epoch 0 (4 steps + validation) {t_first:.1f} s (step p50 "
+                f"{first['step_time']['p50']:.4f} s, data wait max "
+                f"{first['data_wait']['max']:.4f} s), resumed at epoch 0 "
+                f"step 4 for epochs 0-1 {t_resume:.1f} s (step p50 "
+                f"{resumed['step_time']['p50']:.4f} s, data wait max "
+                f"{resumed['data_wait']['max']:.4f} s); checkpoints "
+                f"{sorted(os.listdir(os.path.join(logdir, 'model')))}")
     torch.cuda.empty_cache()
 
 
@@ -3056,23 +3209,48 @@ def layer_split():
 
 
 def breakdown_child_main(name):
-    """``--breakdown NAME``: one warm-up call, then the one profiler session
-    of this process around one call; prints {kernel name: device ms} (empty
-    when the profiler recorded no device kernel) as the last line. With
-    ``GPU_LOCK_ENV`` set the child takes that file's lock before its first
-    CUDA call: children started together import in parallel and use the
-    card one at a time."""
+    """``--breakdown NAME``: the one profiler session of this process, a
+    warm-up call in its warm-up step and one call in its active step;
+    prints {kernel name: device ms} (empty when the profiler recorded no
+    device kernel) as the last line. With ``GPU_LOCK_ENV`` set the child
+    holds that file's lock from its inputs to the end of the profiled call:
+    children started together import, make their CUDA contexts and start
+    their profilers (none runs a kernel) in parallel, use the card one at
+    a time, and read their traces after letting go of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.empty(1, device="cuda")          # the context; no kernel runs
     lock_path = os.environ.get(GPU_LOCK_ENV)
-    if lock_path:
-        lock = open(lock_path, "a")
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    lock = open(lock_path, "a") if lock_path else None
     if name == "conv":
+        if lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
         print(json.dumps(conv_device_breakdown()), flush=True)
         return
-    fn = breakdown_call(name)
-    fn()
-    torch.cuda.synchronize()
-    print(json.dumps(kernel_breakdown(name, fn)), flush=True)
+    kernels = []
+
+    def ready(prof):   # the kernels; not the step's own device annotation
+        kernels.extend(e for e in prof.key_averages()
+                       if getattr(e, "device_type", None) == DeviceType.CUDA
+                       and e.self_device_time_total > 0
+                       and not e.key.startswith("ProfilerStep"))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        if lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+        fn = breakdown_call(name)
+        fn()                                  # warm-up (not recorded)
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+        if lock:
+            lock.close()                      # the card is free again
+        prof.step()
+    print(json.dumps(kernel_parts(kernels)), flush=True)
 
 
 def breakdowns_in_children(jobs, tries=2):
@@ -3467,7 +3645,8 @@ def main():
 
     t0 = time.perf_counter()
     phase_trainer()
-    log(f"phase 8 (trainer end to end): {time.perf_counter() - t0:.1f} s")
+    log(f"phase 8 (augmentation chains, trainer end to end): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3563,7 +3742,9 @@ def main():
                     torch.bfloat16)
                 launches = case_launches[wrapper]
                 by_path = {"inference_case": launches,
-                           "train_5_steps": train_launches[wrapper]}
+                           "train_5_steps": train_launches[wrapper],
+                           "train_5_steps_device_aug":
+                               train_stats["aug_launches"][wrapper]}
                 by_path.update({name: wv_stats[name]["launches"][wrapper]
                                 for name in WV_RUNS})
                 by_path["deploy_case"] = wv_stats["deploy"]["launches"][
@@ -3578,7 +3759,9 @@ def main():
             else:
                 bound, bound_by = main_row["bound_ms"], main_row["bound_by"]
                 launches = train_launches[f"{wrapper}_bwd"]
-                by_path = {"train_5_steps": launches}
+                by_path = {"train_5_steps": launches,
+                           "train_5_steps_device_aug":
+                               train_stats["aug_launches"][f"{wrapper}_bwd"]}
                 extra = dict(
                     device_ms=main_row.get("device_ms"),
                     device_ms_by_variant={

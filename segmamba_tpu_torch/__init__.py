@@ -17,15 +17,23 @@ layout and is held against it by ``tests/test_torch_port_*.py``:
                  SGD chain), checkpoints, the Trainer;
                  ``python -m segmamba_tpu_torch.train``.
 - ``data``     — copies of the JAX package's dataset, patch sampler,
-                 augmentation and loader (numpy + scipy).
+                 host augmentation, loader and SDM/edge dataset (numpy +
+                 scipy), and the on-device augmentation chain
+                 (``augment_device``, torch on the batch's device).
+- ``native``   — the C++/OpenMP host resampler and crop of the data path
+                 (a copy of the JAX package's source), built with g++ on
+                 first use.
+- ``examples`` — the dataset recipes (AbdomenAtlas, AIIB23, Liver-2017).
 - ``utils``    — flax param tree <-> ``state_dict`` bridge, metric logging,
                  determinism, step timing.
 - ``inference`` — ``python -m segmamba_tpu_torch.inference``: model forward
                  or the bench case's sliding-window inference on one card.
-- ``benchmarks`` — twins of the JAX package's two benchmark scripts that
-                 hold TPU kernels: the scan probes K10 (``bench_scan_lb``)
-                 and K11 (``bench_scan_flat``), with their Hopper kernels
-                 (``csrc/scan_lb_fwd.cu``, ``csrc/scan_flat_fwd.cu``).
+- ``benchmarks`` — twins of the JAX package's benchmark scripts: the scan
+                 probes K10 (``bench_scan_lb``) and K11
+                 (``bench_scan_flat``), with their Hopper kernels
+                 (``csrc/scan_lb_fwd.cu``, ``csrc/scan_flat_fwd.cu``), the
+                 conv (``bench_conv``) and the training-dynamics drive
+                 (``train_dynamics``).
 
 Layouts: ``ops`` keep the JAX package's time-major ``(R, L, D)`` sequences
 and ``(R, L, N)`` B/C; ``models``, ``infer``, ``train`` and ``data`` use

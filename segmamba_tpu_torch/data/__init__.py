@@ -2,11 +2,12 @@
 datasets, patch sampling, augmentation and the host-side loader pipeline.
 
 Copies of ``segmamba_tpu/data``'s ``nifti``, ``preprocessing``,
-``planning``, ``dataset``, ``patch_sampler``, ``augment`` and ``loader``
-modules (numpy and scipy only): the port imports
-nothing of the JAX package. Batches come out NCDHW for the port's model.
-On-device augmentation (``segmamba_tpu/data/augment_device.py``) is not
-ported yet.
+``planning``, ``dataset``, ``patch_sampler``, ``augment``, ``loader``
+and ``sdm_edge`` modules (numpy and scipy; the resampler and the crop in
+``segmamba_tpu_torch.native``): the port imports nothing of the JAX
+package. Batches come out NCDHW for the port's model.
+``augment_device`` is the port of the on-device augmentation chain
+(torch, on the batch's device).
 """
 
 from segmamba_tpu_torch.data.augment import (
@@ -28,6 +29,7 @@ from segmamba_tpu_torch.data.preprocessing import (
     resample_to_shape,
     run_case_npy,
 )
+from segmamba_tpu_torch.data.sdm_edge import SdmEdgeDataset, precompute_sdm
 
 __all__ = [
     "DataLoader",
@@ -42,6 +44,8 @@ __all__ = [
     "read_nifti",
     "resample_to_shape",
     "run_case_npy",
+    "SdmEdgeDataset",
+    "precompute_sdm",
     "unpack_dataset",
     "write_nifti",
 ]

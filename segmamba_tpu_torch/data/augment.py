@@ -1,4 +1,4 @@
-"""Training-time augmentation (numpy + scipy).
+"""Training-time augmentation on the host (numpy, scipy, native resampler).
 
 A copy of ``segmamba_tpu/data/augment.py``. Each transform is a callable
 ``(batch_dict, rng) -> batch_dict`` on ``{'data': (B, C, Z, Y, X), 'seg':
@@ -12,12 +12,12 @@ A copy of ``segmamba_tpu/data/augment.py``. Each transform is a callable
   Gamma(.7-1.5, retain stats, p=.3)
   Mirror(axes 0,1,2) -> RemoveLabel(-1 -> 0)
 
-Two differences from the JAX package, neither in the numbers drawn from
-``rng``: the rotation/scaling resampler is ``scipy.ndimage.affine_transform``
-(the JAX package's scipy fallback; its optional C++ resampler interpolates
-order 3 with Catmull-Rom instead of the B-spline), and the chains are
-``functools.partial`` objects rather than closures, so that they pickle to
-the loader's spawned worker processes.
+The rotation/scaling resampler is ``native.affine_transform_3d``, as in
+the JAX package: the C++ extension (order 3 by Catmull-Rom), or scipy's
+B-spline when ``SEGMAMBA_DISABLE_NATIVE=1`` asks for it. One difference
+from the JAX package, not in the numbers drawn from ``rng``: the chains
+are ``functools.partial`` objects rather than closures, so that they
+pickle to the loader's spawned worker processes.
 """
 
 from __future__ import annotations
@@ -27,12 +27,7 @@ import functools
 import numpy as np
 from scipy import ndimage
 
-
-def affine_transform_3d(volume, matrix, offset, order=1, cval=0.0):
-    """out[o] = in[matrix @ o + offset], scipy's convention, float32."""
-    return ndimage.affine_transform(
-        np.asarray(volume, np.float32), matrix, offset=offset, order=order,
-        mode="constant", cval=cval).astype(np.float32)
+from segmamba_tpu_torch.native import affine_transform_3d
 
 
 # -- individual transforms ---------------------------------------------------

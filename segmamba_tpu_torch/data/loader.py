@@ -3,11 +3,19 @@
 A copy of ``segmamba_tpu/data/loader.py``: worker processes each own a
 ``PatchSampler`` + transform chain and push finished batches into a
 bounded queue; the consumer side is a fixed-length iterator per epoch.
-Two differences: batches leave in the port's layout (image NCDHW float32,
-label (B, Z, Y, X) int64), and workers start with the ``spawn`` method (the
-trainer's process has threads and a CUDA context, which ``fork`` would copy
-half-made), so the sampler and the transform are pickled to them. numpy
-only.
+Three differences: batches leave in the port's layout (image NCDHW
+float32, label (B, Z, Y, X) int64); workers start with the ``spawn``
+method (the trainer's process has threads and a CUDA context, which
+``fork`` would copy half-made), so the sampler and the transform are
+pickled to them; and a worker puts each batch's arrays in shared memory
+(torch's CPU tensors), so the queue carries handles, not bytes.
+
+Through a pipe, a 2 x 4 x 128^3 batch is 84 MB that the trainer's
+prefetch thread reads in pipe-sized chunks and unpickles, contending for
+the interpreter lock with the thread that launches the train step: on an
+H100 the step took 1.6-2.3 s with four workers against 0.59 s with the
+batches made inline. The arrays come out as numpy views of the shared
+memory.
 """
 
 from __future__ import annotations
@@ -18,6 +26,26 @@ import threading
 import time
 
 import numpy as np
+import torch
+import torch.multiprocessing  # noqa: F401  (tensors cross queues by handle)
+
+
+def _shared(batch):
+    """The batch's arrays copied into shared-memory CPU tensors."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            t = torch.empty(v.shape, dtype=torch.from_numpy(v[:0]).dtype)
+            t.share_memory_()
+            t.numpy()[...] = v
+            v = t
+        out[k] = v
+    return out
+
+
+def _unshared(batch):
+    return {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in batch.items()}
 
 
 def _worker_loop(sampler, transform, out_queue, seed, stop_event):
@@ -27,7 +55,7 @@ def _worker_loop(sampler, transform, out_queue, seed, stop_event):
         batch = sampler.generate_train_batch()
         if transform is not None:
             batch = transform(batch, rng)
-        batch.pop("properties", None)  # not needed downstream
+        batch = _shared(DataLoader._to_device_layout(batch))
         while not stop_event.is_set():
             try:
                 out_queue.put(batch, timeout=0.5)
@@ -94,6 +122,8 @@ class DataLoader:
                 self._queue.get(timeout=0.05)
             except queue_mod.Empty:
                 pass
+            except (OSError, EOFError):
+                pass    # a batch whose worker has exited: its memory is gone
         for w in self._workers:
             if hasattr(w, "terminate") and w.is_alive():
                 w.terminate()
@@ -115,19 +145,16 @@ class DataLoader:
             batch = self.sampler.generate_train_batch()
             if self.transform is not None:
                 batch = self.transform(batch, self._rng)
-            batch.pop("properties", None)
-        else:
-            while True:
-                try:
-                    batch = self._queue.get(timeout=5.0)
-                    break
-                except queue_mod.Empty:
-                    dead = [w for w in self._workers if not w.is_alive()]
-                    if dead:
-                        raise RuntimeError(
-                            f"{len(dead)} data worker(s) died; see the "
-                            "workers' stderr") from None
-        return self._to_device_layout(batch)
+            return self._to_device_layout(batch)
+        while True:
+            try:
+                return _unshared(self._queue.get(timeout=5.0))
+            except queue_mod.Empty:
+                dead = [w for w in self._workers if not w.is_alive()]
+                if dead:
+                    raise RuntimeError(
+                        f"{len(dead)} data worker(s) died; see the "
+                        "workers' stderr") from None
 
     @staticmethod
     def _to_device_layout(batch):

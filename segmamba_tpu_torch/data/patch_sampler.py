@@ -4,26 +4,16 @@ A copy of ``segmamba_tpu/data/patch_sampler.py``: random case selection
 with replacement, the last 33% of each batch forced to contain foreground,
 center voxel drawn from the precomputed ``class_locations``, crop-then-pad
 to the patch size (image and seg padded 0; out-of-image voxels were marked
--1 by preprocessing). ``crop_pad`` is the numpy form of the JAX package's
-``native.crop_pad`` (the same values). numpy only.
+-1 by preprocessing). The crop is ``native.crop_pad``, as in the JAX
+package: the C++ extension, or numpy when ``SEGMAMBA_DISABLE_NATIVE=1``
+asks for it (the same values).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-
-def crop_pad(data, lb, patch, cval=0.0):
-    """Extract ``patch`` starting at (possibly negative) ``lb`` from
-    (C, Z, Y, X), padding out-of-range with ``cval``."""
-    data = np.asarray(data, np.float32)
-    shape = data.shape[1:]
-    ub = [lb[i] + patch[i] for i in range(3)]
-    vlb = [max(0, lb[i]) for i in range(3)]
-    vub = [min(shape[i], ub[i]) for i in range(3)]
-    sl = (slice(None),) + tuple(slice(a, b) for a, b in zip(vlb, vub))
-    padding = [(vlb[i] - lb[i], ub[i] - vub[i]) for i in range(3)]
-    return np.pad(data[sl], ((0, 0), *padding), constant_values=cval)
+from segmamba_tpu_torch.native import crop_pad
 
 
 class PatchSampler:

@@ -8,8 +8,10 @@ TC/WT/ET dice, keep-best checkpoints; the full-width BraTS model with
     python -m segmamba_tpu_torch.train --data-dir ./data/fullres/train \\
         --logdir ./logs/segmamba [--max-epochs 1000] [--device cuda]
 
-``--device`` defaults to ``cuda`` and never falls back to the CPU;
-``--device cpu`` runs on the CPU (small configurations only).
+``--augmentation device`` runs the augmentation chain on the card inside
+the train step instead of in the loader processes. ``--device`` defaults
+to ``cuda`` and never falls back to the CPU; ``--device cpu`` runs on the
+CPU (small configurations only).
 """
 
 from __future__ import annotations
@@ -81,7 +83,11 @@ def build_parser():
     ap.add_argument("--loss", default="ce", choices=["ce", "dice_ce"])
     ap.add_argument("--augmentation", default="default",
                     choices=["default", "device", "nomirror", "onlymirror",
-                             "onlyspatial", "noaug"])
+                             "onlyspatial", "noaug"],
+                    help="default: the host chain in the loader processes; "
+                         "device: the same chain on the card inside the "
+                         "train step (the loaders only crop); the others: "
+                         "host chains with fewer transforms")
     ap.add_argument("--num-workers", type=int, default=8)
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])

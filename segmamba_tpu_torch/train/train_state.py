@@ -17,6 +17,10 @@ The update is the optax chain of the JAX package, in its order:
 4. the LR of update k (from 0, as optax counts) is ``schedule(k)``.
 
 The reported ``grad_norm`` is the norm before clipping.
+
+With ``augment`` (a batch's ``data.augment_device.AugmentParams``), the
+on-device augmentation chain runs on the raw patches before the forward,
+as the JAX ``_train_step(augment=True)`` does.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Callable
 
 import torch
 
+from segmamba_tpu_torch.data.augment_device import device_augment
 from segmamba_tpu_torch.train.losses import (
     cross_entropy_loss,
     dice_and_ce_loss,
@@ -103,14 +108,19 @@ def apply_gradients(state: TrainState):
 
 
 def train_step(state: TrainState, batch: dict, *, num_classes=4,
-               loss="ce") -> dict:
+               loss="ce", augment=None) -> dict:
     """One optimization step on ``batch`` ({"image": (B, C, D, H, W),
-    "label": (B, D, H, W)} on the model's device). Returns {"loss",
-    "grad_norm"} as 0-d tensors on the card (no host sync)."""
+    "label": (B, D, H, W)} on the model's device). ``augment``: the batch's
+    drawn augmentation parameters; when given, the device chain runs on
+    the raw patches (labels -1 where the crop padded) first. Returns
+    {"loss", "grad_norm"} as 0-d tensors on the card (no host sync)."""
     model = state.model
     model.train()
+    image, label = batch["image"], batch["label"]
+    if augment is not None:
+        image, label = device_augment(image, label, augment)
     loss_fn = make_loss_fn(loss, num_classes)
-    loss_val = loss_fn(model(batch["image"]), batch["label"])
+    loss_val = loss_fn(model(image), label)
     state.optimizer.zero_grad(set_to_none=True)
     loss_val.backward()
     gnorm = apply_gradients(state)

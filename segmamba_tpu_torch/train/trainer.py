@@ -5,7 +5,7 @@ steps of batch ``batch_size`` per epoch, validation every ``val_every``
 epochs on ``val_number`` patches with per-class dice, keep-best and final
 checkpoints (full state: model, optimizer, step, epoch, metric), resume,
 and the subclass hooks ``get_input`` / ``validation_step`` /
-``validation_end``. The model computes in its own ``dtype`` with float32
+``validation_end`` (and ``on_step``, after every step). The model computes in its own ``dtype`` with float32
 parameters; the step is ``train_state.train_step``.
 
 Host batches come from ``data.DataLoader`` worker processes; a prefetch
@@ -14,8 +14,11 @@ so the host's batch work overlaps the previous step. ``device`` defaults to
 ``"cuda"``; ``"cpu"`` runs everything on the CPU (the scans' plain
 versions). Resume continues at the saved epoch and step, as the JAX
 trainer does (the saved epoch, finished before its checkpoint, runs once
-more). ``augmentation="device"`` raises: on-device augmentation is not
-ported yet.
+more). With ``augmentation="device"`` the loader passes the raw patches
+(labels -1 where the crop padded) and the augmentation chain runs on the
+card inside the train step (``data/augment_device.py``); each step's
+parameters are drawn from a generator seeded by (seed + 7, step), so a
+resumed run draws what an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ from segmamba_tpu_torch.data.augment import (
     get_train_transforms_onlyspatial,
     get_validation_transforms,
 )
+from segmamba_tpu_torch.data.augment_device import (
+    augment_generator,
+    draw_params,
+)
 from segmamba_tpu_torch.data.loader import DataLoader
 from segmamba_tpu_torch.data.patch_sampler import PatchSampler
 from segmamba_tpu_torch.train import checkpoint as ckpt
@@ -53,15 +60,12 @@ from segmamba_tpu_torch.utils.logging import MetricLogger
 from segmamba_tpu_torch.utils.misc import set_determinism
 from segmamba_tpu_torch.utils.profiling import StepTimer
 
-DEVICE_AUGMENTATION_MISSING = (
-    "augmentation='device' (segmamba_tpu/data/augment_device.py, the "
-    "on-device augmentation chain) is not ported yet; it waits for a later "
-    "slice of the port (ROADMAP A6). Use the host chain ('default').")
-
 
 def _pick_transform(augmentation):
     if augmentation == "device":
-        raise NotImplementedError(DEVICE_AUGMENTATION_MISSING)
+        # raw patches go to the card; the chain (RemoveLabel included) runs
+        # inside the train step
+        return None
     if augmentation in (True, "default"):
         return get_train_transforms()
     if augmentation == "nomirror":
@@ -140,8 +144,6 @@ class Trainer:
                  learning_rate=1e-2, scheduler_type="poly", loss="ce",
                  num_classes=4, num_workers=8, seed=42, resume=False,
                  device="cuda"):
-        if augmentation == "device":
-            raise NotImplementedError(DEVICE_AUGMENTATION_MISSING)
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.logdir = logdir
@@ -171,6 +173,15 @@ class Trainer:
 
     def get_input(self, batch):
         return batch["image"], batch["label"]
+
+    def on_step(self, metrics):
+        """After each step (``global_step`` counted, its time recorded):
+        logs the loss and gradient norm every 10 steps."""
+        if self.global_step % 10 == 0:
+            self.logger.log("training_loss", metrics["loss"],
+                            self.global_step)
+            self.logger.log("grad_norm", metrics["grad_norm"],
+                            self.global_step)
 
     def predict(self, image):
         """Argmax labels of one batch (inference mode)."""
@@ -301,24 +312,28 @@ class Trainer:
 
     def train_epoch(self, state, train_loader):
         """One epoch of ``train_step``s. The timer records each step
-        (``step_time``, the card synchronized) and the wait for its batch
-        (``data_wait``)."""
+        (``step_time``, the card synchronized; with the device chain it
+        includes the chain) and the wait for its batch (``data_wait``)."""
         t_epoch = time.time()
         metrics = None
+        device_aug = self.augmentation == "device"
         self.timer.mark("data")
         for batch in _prefetch(iter(train_loader), self.device):
             self.timer.elapsed("data_wait", "data")
             self.timer.mark("step")
+            augment = None
+            if device_aug:
+                augment = draw_params(
+                    batch["image"].shape,
+                    augment_generator(self.seed + 7, self.global_step),
+                    device=self.device)
             metrics = train_step(
                 state, {"image": batch["image"], "label": batch["label"]},
-                num_classes=self.num_classes, loss=self.loss)
+                num_classes=self.num_classes, loss=self.loss,
+                augment=augment)
             self.global_step += 1
-            if self.global_step % 10 == 0:
-                self.logger.log("training_loss", metrics["loss"],
-                                self.global_step)
-                self.logger.log("grad_norm", metrics["grad_norm"],
-                                self.global_step)
             self.timer.elapsed("step_time", "step")
+            self.on_step(metrics)
             self.timer.mark("data")
         loss = float(metrics["loss"]) if metrics is not None else float("nan")
         stats = self.timer.stats()

@@ -38,6 +38,10 @@ class StepTimer:
             self._series[name].pop(0)
         return dt
 
+    def last(self, name):
+        """The latest time recorded under ``name``."""
+        return self._series[name][-1]
+
     def stats(self):
         return {k: {"mean": float(np.mean(v)), "p50": float(np.median(v)),
                     "max": float(np.max(v))}

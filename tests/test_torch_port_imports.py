@@ -6,7 +6,8 @@ tools ``tools/scan_fwd_timeline.py``, ``tools/scan_bwd_probe.py``,
 with ``ast``
 (a ``sys.modules`` check would be wrong wherever something imports jax at
 interpreter start-up) and fails on any import of jax, flax, optax or the
-JAX package. Also checks that importing the port builds nothing.
+JAX package. Also checks that importing the port builds nothing: no
+kernel library and not the native host resampler.
 """
 
 import ast
@@ -45,12 +46,15 @@ def test_no_jax_imports(path):
 
 
 def test_import_builds_nothing():
-    """Importing every module of the port loads no kernel library."""
+    """Importing every module of the port loads no kernel library and
+    does not build the native resampler."""
     code = (
         "import pkgutil, importlib, segmamba_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'segmamba_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from segmamba_tpu_torch.ops import _build\n"
-        "assert not _build._LIBS and not _build.BUILD_INFO\n")
+        "from segmamba_tpu_torch import native\n"
+        "assert not _build._LIBS and not _build.BUILD_INFO\n"
+        "assert native._MODULE is None\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

@@ -18,9 +18,13 @@
   JAX ``train_step`` from the same weights and batches (JAX state built
   from the port's init, one JAX compile). Loss and grad_norm per step at
   rtol 1e-4; parameters after step 3 at rtol 1e-3 / atol 1e-5.
+- The same with the on-device augmentation chain: JAX's ``train_step(
+  augment_key=...)`` against the port's ``train_step(augment=...)`` given
+  the same draws, on raw patches with crop padding (-1) in the labels
+  (a second JAX train-step compile), at the same tolerances.
 
-CPU time: about 45 s with a warm JAX cache, most of it the JAX train-step
-and MambaV3 grad compiles.
+CPU time: about 70 s with a warm JAX cache, most of it the two JAX
+train-step compiles and the MambaV3 grad compile.
 """
 
 import numpy as np
@@ -231,6 +235,50 @@ def test_train_step_matches_jax():
             np.testing.assert_allclose(float(tm[key]), float(jm_[key]),
                                        rtol=1e-4, err_msg=f"{key} {step}")
     assert tstate.step == 3
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.array,
+                                                     jstate.params))
+    for k, p in model.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), want[k].numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_train_step_with_device_augment_matches_jax():
+    """The augmented step: JAX's ``train_step(augment_key=fold_in(k,
+    step))`` against the port's ``train_step(augment=...)`` given the same
+    draws (``params_from_key`` of the chain's test), on raw patches whose
+    labels hold crop padding (-1). Three steps at the tolerances of
+    ``test_train_step_matches_jax``."""
+    from test_torch_port_augment_device import params_from_key
+
+    model = SegMamba(generator=torch.Generator().manual_seed(0),
+                     remat="convs", **CFG)
+    tree = convert_segmamba_state_dict(model.state_dict(),
+                                       depths=CFG["depths"])
+    schedule = dict(base_lr=1e-2, max_steps=10)
+    jm = JSegMamba(scan_impl="chunked", **CFG)
+    jstate = create_train_state(
+        jm, None, None, params=jax.tree_util.tree_map(jnp.asarray, tree),
+        optimizer=j_default_opt(js.poly_schedule(**schedule)))
+    tstate = t_create_state(model,
+                            learning_rate=ts.poly_schedule(**schedule))
+    rng = np.random.default_rng(4)
+    base = jax.random.key(9)
+    for step in range(3):
+        x = rng.standard_normal((2, 2, 32, 32, 32)).astype(np.float32)
+        y = rng.integers(0, 3, (2, 32, 32, 32)).astype(np.int64)
+        y[:, :, :, :5] = -1                    # the crop's padding
+        key = jax.random.fold_in(base, step)
+        jstate, jm_ = j_train_step(jstate, {
+            "image": jnp.asarray(np.moveaxis(x, 1, -1)),
+            "label": jnp.asarray(y.astype(np.int32))}, num_classes=3,
+            augment_key=key)
+        tm = t_train_step(tstate, {"image": torch.from_numpy(x),
+                                   "label": torch.from_numpy(y)},
+                          num_classes=3,
+                          augment=params_from_key(key, x.shape))
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(tm[k]), float(jm_[k]),
+                                       rtol=1e-4, err_msg=f"{k} {step}")
     want = flax_to_state_dict(jax.tree_util.tree_map(np.array,
                                                      jstate.params))
     for k, p in model.state_dict().items():

@@ -3,17 +3,26 @@
 - The copied data modules (``segmamba_tpu_torch.data``) give arrays
   identical to ``segmamba_tpu.data``'s for one seed: the patch sampler, the
   augmentation chains and the loader (channels-last in JAX, NCDHW in the
-  port). The JAX package's optional C++ resampler is switched off for the
-  comparison, so both sides resample with scipy.
+  port). The chains run with each side's default resampler (the C++
+  extensions, Catmull-Rom at order 3) and, through ``scipy_only``, with
+  both sides on scipy (the JAX extension switched off, the port's through
+  ``SEGMAMBA_DISABLE_NATIVE=1``); the sampler and loader tests use
+  ``scipy_only``.
 - ``python -m segmamba_tpu_torch.train`` (its ``main``) at the tiny config
   on a synthetic preprocessed dataset written to ``tmp_path``: 2 epochs x 2
-  steps, validation every epoch; the loss is finite, ``best_model_*`` and
-  ``final_model_*`` appear, and ``--resume`` continues at the saved epoch
-  and step, as the JAX trainer does.
+  steps, validation every epoch, with the host chain and with
+  ``--augmentation device`` (raw patches, the chain inside the step); the
+  loss is finite, ``best_model_*`` and ``final_model_*`` appear, and
+  ``--resume`` continues at the saved epoch and step, as the JAX trainer
+  does.
+- ``Trainer(augmentation="device")`` leaves the loader's patches raw and
+  draws each step's parameters from (seed + 7, step).
+- The loader's worker processes pass batches through shared memory and
+  they arrive as the workers made them.
 - A dataset pickles (to a loader process) as its case list.
 - The flags whose machinery is not ported raise and name it.
 
-CPU time: about 15 s.
+CPU time: about 25 s.
 """
 
 import glob
@@ -52,8 +61,10 @@ def cases(tmp_path_factory):
 
 @pytest.fixture
 def scipy_only(monkeypatch):
-    """The JAX package resamples with scipy, as the port does."""
+    """Both packages resample and crop with scipy / numpy: the JAX
+    extension switched off, the port's by its variable."""
     monkeypatch.setattr(jax_native, "_native", None)
+    monkeypatch.setenv("SEGMAMBA_DISABLE_NATIVE", "1")
 
 
 def _paths(folder):
@@ -73,9 +84,14 @@ def test_sampler_matches_jax(cases, scipy_only):
         np.testing.assert_array_equal(a["seg"], b["seg"])
 
 
+@pytest.mark.parametrize("resampler", ["native", "scipy"])
 @pytest.mark.parametrize("chain", ["default", "spatial_always", "onlymirror",
                                    "validation"])
-def test_augmentation_matches_jax(cases, scipy_only, chain):
+def test_augmentation_matches_jax(cases, request, chain, resampler):
+    if resampler == "scipy":
+        request.getfixturevalue("scipy_only")
+    else:
+        assert jax_native.NATIVE_AVAILABLE, "the JAX package's default"
     td = MedicalDataset(_paths(cases))
     batch = PatchSampler(td, (24, 24, 24), batch_size=2,
                          rng=np.random.default_rng(1)).generate_train_batch()
@@ -111,6 +127,47 @@ def test_loader_matches_jax_in_ncdhw(cases, scipy_only):
         assert b["label"].dtype == np.int64
 
 
+def test_loader_processes_pass_batches_in_shared_memory(cases):
+    """With worker processes each batch crosses the queue as shared-memory
+    tensors and comes out as the arrays the worker made: numpy, the port's
+    layout and dtypes, equal to one of the workers' own first batches."""
+    sampler = PatchSampler(MedicalDataset(_paths(cases)), (24, 24, 24))
+    loader = DataLoader(sampler, num_workers=2, steps_per_epoch=3, seed=7)
+    try:
+        got = list(loader)
+    finally:
+        loader.stop()
+    want = []
+    for i in range(2):
+        sampler.rng = np.random.default_rng(7 + i)
+        want += [DataLoader._to_device_layout(sampler.generate_train_batch())
+                 for _ in range(3)]
+    for b in got:
+        assert isinstance(b["image"], np.ndarray)
+        assert b["image"].dtype == np.float32 and b["label"].dtype == np.int64
+        assert any(all(np.array_equal(b[k], w[k]) for k in w) for w in want)
+
+
+def test_loader_stops_with_batches_of_exited_workers(cases):
+    """``stop`` drains the queue while workers remain; a queued batch whose
+    worker has already exited (its shared memory gone) is dropped, not
+    raised."""
+    import time
+
+    loader = DataLoader(PatchSampler(MedicalDataset(_paths(cases)),
+                                     (16, 16, 16)),
+                        num_workers=2, num_cached=4, seed=1)
+    loader.start()
+    deadline = time.monotonic() + 60
+    while loader._queue.qsize() < 3 and time.monotonic() < deadline:
+        time.sleep(0.1)
+    first = loader._workers[0]
+    first.terminate()
+    first.join(timeout=10)
+    loader.stop()
+    assert loader._workers == [] and loader._queue is None
+
+
 def test_dataset_pickles_as_its_case_list(cases):
     """A loader process gets the dataset through a pipe: it must not carry
     the properties (megabytes of class_locations), and must rebuild them."""
@@ -128,6 +185,35 @@ def test_dataset_pickles_as_its_case_list(cases):
     np.testing.assert_array_equal(back[1]["data"], ds[1]["data"])
 
 
+def test_trainer_device_augmentation(cases, tmp_path, monkeypatch):
+    """``augmentation="device"``: no host transform, so the loader's labels
+    keep the crop's -1; the step's parameters come from (seed + 7,
+    step)."""
+    from segmamba_tpu_torch.data import augment_device
+    from segmamba_tpu_torch.models import SegMamba
+    from segmamba_tpu_torch.train import trainer as trainer_mod
+
+    assert trainer_mod._pick_transform("device") is None
+    drawn = []
+    real = augment_device.augment_generator
+
+    def spy(seed, step):
+        drawn.append((seed, step))
+        return real(seed, step)
+
+    monkeypatch.setattr(trainer_mod, "augment_generator", spy)
+    model = SegMamba(in_chans=4, out_chans=4, depths=(1, 1, 1, 1),
+                     feat_size=(4, 8, 16, 32), hidden_size=64,
+                     num_slices_list=(8, 4, 2, 1),
+                     generator=torch.Generator().manual_seed(0))
+    tr = Trainer(model, str(tmp_path / "logs"), max_epochs=1,
+                 num_step_per_epoch=2, patch_size=(32, 32, 32),
+                 augmentation="device", num_workers=0, seed=3, device="cpu")
+    tr.train(MedicalDataset(_paths(cases)))
+    assert drawn == [(10, 0), (10, 1)]
+    assert tr.global_step == 2 and np.isfinite(tr.last_loss)
+
+
 def _run(cases, logdir, *extra):
     return train_main(["--data-dir", cases, "--logdir", logdir,
                        "--batch-size", "2", "--val-every", "1",
@@ -137,9 +223,12 @@ def _run(cases, logdir, *extra):
                        "--device", "cpu", *TINY, *extra])
 
 
-def test_train_cli_trains_saves_and_resumes(cases, tmp_path, capsys):
+@pytest.mark.parametrize("augmentation", ["default", "device"])
+def test_train_cli_trains_saves_and_resumes(cases, tmp_path, capsys,
+                                            augmentation):
     logdir = str(tmp_path / "logs")
-    trainer = _run(cases, logdir, "--max-epochs", "2")
+    aug = ["--augmentation", augmentation]
+    trainer = _run(cases, logdir, "--max-epochs", "2", *aug)
     assert np.isfinite(trainer.last_loss)
     assert trainer.global_step == 4 and trainer.epoch == 1
     names = sorted(os.listdir(os.path.join(logdir, "model")))
@@ -151,7 +240,7 @@ def test_train_cli_trains_saves_and_resumes(cases, tmp_path, capsys):
     assert (saved["epoch"], saved["step"]) == (1, 4)
 
     # as the JAX trainer: the saved epoch 1 runs again, then epoch 2
-    trainer = _run(cases, logdir, "--max-epochs", "3", "--resume")
+    trainer = _run(cases, logdir, "--max-epochs", "3", "--resume", *aug)
     assert "at epoch 1, step 4" in capsys.readouterr().out
     assert trainer.global_step == 8 and trainer.epoch == 2
     assert np.isfinite(trainer.last_loss)
@@ -181,8 +270,3 @@ def test_plan_sets_patch_and_slices(tmp_path, capsys, plan_patch, patch):
     assert cfg["num_slices"] == [max(1, patch[0] // 2 ** (i + 1))
                                  for i in range(4)]
 
-
-def test_device_augmentation_raises():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Trainer(torch.nn.Linear(1, 1), "unused", augmentation="device",
-                device="cpu")
