@@ -264,6 +264,55 @@ Phases, in order; any failure raises and the script exits non-zero:
    in {0..3}; ``compute_metrics`` on it against the seg (finite); the
    case's seconds by step (preprocessing, device prediction, inverse +
    write).
+19. Parallelism (``segmamba_tpu_torch.parallel``, ``ops/scan_sharded.py``)
+   through the local launcher (``parallel.multihost.launch``), phase 7's
+   model and batch (bf16, remat "convs", seed 0). First K6 forward and
+   backward at the sequence-parallel shard shapes (2 ranks, R = 2: L =
+   131,072 / 16,384 / 2,048 / 256 at D = 96 / 192 / 384 / 768, float32):
+   CUDA events and bounds, at stage 0 also against the plain versions
+   (ddelta, where the float32 versions differ beyond the tier, against a
+   float64 run on those channels: within the tier or within 4x the plain
+   float32 version's share of it, phase 14's rule);
+   and the fix-up (``scan_sharded.fixup``) forward + backward at each,
+   summed per SP step. Then, in this process, the references (every
+   step cudnn deterministic): the plain train step twice (its run-to-run
+   spread), the "mxu" composition's step (two compositions of one
+   computation: the rounding a bf16 step carries), the split step (the
+   plain step on each sample alone, gradients averaged: DP's arithmetic
+   without its collective), the float32 plain step on a 2 x 4 x 64^3
+   batch and a float32 stage-0 MambaV3 (d_model 48, L = 262,144, 64
+   slices, batch 2) forward and backward.
+   a. A world of 1 over NCCL on cuda:0: ``train_step(mesh=)`` equals the
+      plain step within the plain step's own run-to-run spread (0 when it
+      is deterministic); 16 / 8 / 16 / 8 dir2 launches.
+   b. A world of 2 over gloo with both ranks on cuda:0 (NCCL refuses two
+      ranks on one device; gloo is named here only): the SP step (("data",
+      "seq") of (1, 2): 24 K6 launches each way a step and rank, no
+      other scan), the DP step (("data",) of 2, one sample a rank) and the
+      TP step (("model",) of 2, dir2 at d_inner / 2: 16 / 8 / 16 / 8),
+      each held on rank 0 against the plain batch-2 step: loss and
+      gradient norm at rtol 3e-2, every parameter gradient elementwise at
+      rtol 3e-2 / atol 5e-2 x the larger of its max |grad| and 1e-3 of the
+      model's (the instance-norm-fed biases against the model's max) or
+      within twice the mxu
+      composition's distance on it, all together within the larger of
+      3e-2 and twice the mxu composition's relative L2; the DP step
+      within 1e-4 relative L2 of the split step; the same three steps in
+      float32 on the 64^3 batch against the float32 plain step (DP
+      against the float32 split step), where rounding is small and a
+      gradient's wrong scope is not: every parameter at rtol 2e-3 / atol
+      1e-2 x its scale, all within 1e-3 relative L2 (no mxu clause); the
+      parameters (under TP those outside the shards) bit-equal on both
+      ranks after the checked step and a timed one (s/step, host clock
+      after synchronize: two ranks sharing one H100, not a scaling
+      number; the host seconds, calls and bytes of its collectives);
+      each rank's peak GiB over the timed step; an SP forward (one
+      window) launches 24 K6.
+   c. In the same world, the float32 stage-0 MambaV3 under SP 2 against
+      the unsharded layer (dir2): output and input gradient at 6e-4 /
+      2e-3, the parameter gradients with the absolute part scaled by
+      max(1, max|ref|), each tensor's error printed beside its max;
+      3 K6 launches each way.
 
 Times: kernels by CUDA events, median of several runs after a warm-up;
 the plain versions one run each, right after the run their check made.
@@ -347,7 +396,11 @@ from segmamba_tpu_torch.ops import (
     scan_fused,
     scan_mxu,
     scan_proj,
+    scan_sharded,
 )
+from segmamba_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from segmamba_tpu_torch.parallel.multihost import launch
+from segmamba_tpu_torch.parallel.tp import tp_gather_state
 from segmamba_tpu_torch.train import poly_schedule
 from segmamba_tpu_torch.train.__main__ import main as train_main
 from segmamba_tpu_torch.train.losses import cross_entropy_loss
@@ -3585,6 +3638,621 @@ def phase_deploy(model):
                 metrics=arr[0].tolist())
 
 
+# ---------------------------------------------------------------------------
+# phase 19: parallelism (data, sequence and tensor) through the launcher
+
+PAR_SHAPES = {   # K6 at the sequence-parallel shard shapes (2 ranks, R=2)
+    "sp_stage0": (2, 131072, 96), "sp_stage1": (2, 16384, 192),
+    "sp_stage2": (2, 2048, 384), "sp_stage3": (2, 256, 768)}
+PAR_STEPS = {    # name: (mesh axes, shape, model axis, scan launches a step)
+    "sp": (("data", "seq"), (1, 2), None,
+           dict(scan_core=24, scan_core_bwd=24)),
+    "dp": (("data",), (2,), None, dict(scan_dir=16, scan_fused=8,
+                                       scan_dir_bwd=16, scan_fused_bwd=8)),
+    "tp": (("model",), (2,), "model", dict(scan_dir=16, scan_fused=8,
+                                           scan_dir_bwd=16,
+                                           scan_fused_bwd=8)),
+}
+PAR_LAYER = (2, 262144, 48, 64)   # (c): batch, L, d_model, nslices (f32)
+PAR_BF16_TIER = (3e-2, 5e-2)      # rtol; atol x a parameter's max |grad|
+PAR_F32_ROI = (64, 64, 64)        # (b)'s float32 steps: 2 x 4 x 64^3
+PAR_F32_TIER = (2e-3, 1e-2)       # rtol; atol x a parameter's max |grad|
+PAR_F32_REL = 1e-3                # their gradients' relative L2, at most
+PAR_SPLIT_REL = 1e-4              # the DP step's from the split plain step
+PAR_TIMED_STEPS = 1
+# conv biases that feed an instance norm: their gradient is rounding noise
+IN_FED_BIASES = tuple(f"vit.gscs.{i}.{name}.bias" for i in range(4)
+                      for name in ("proj", "proj2", "proj3", "proj4"))
+
+
+def par_batch(device, roi=None, seed=0):
+    """Phase 7's batch (2 x 4 x 128^3 from default_rng(0)); (b)'s float32
+    steps take 2 x 4 x 64^3 from default_rng(1)."""
+    roi = ROI if roi is None else roi
+    rng = np.random.default_rng(seed)
+    return {"image": torch.from_numpy(rng.standard_normal(
+                (2, 4, *roi)).astype(np.float32)).to(device),
+            "label": torch.from_numpy(rng.integers(0, 4, (2, *roi))).to(
+                device)}
+
+
+def par_model(device, mesh=None, model_axis=None, scan_impl="dir2",
+              dtype=torch.bfloat16):
+    """Phase 7's model: full BraTS width, bf16, remat convs, seed 0."""
+    return SegMamba(in_chans=4, out_chans=4, dtype=dtype,
+                    remat="convs", scan_impl=scan_impl,
+                    generator=torch.Generator().manual_seed(0),
+                    device=device, mesh=mesh, seq_axis="seq",
+                    model_axis=model_axis)
+
+
+def par_step(state, batch, mesh=None):
+    """One counted step (cudnn deterministic): (metrics as floats, the
+    gradients it applied)."""
+    with torch.backends.cudnn.flags(deterministic=True):
+        m = train_step(state, batch, mesh=mesh)
+    grads = {n: p.grad.detach() for n, p in state.model.named_parameters()}
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}, \
+        grads
+
+
+def par_layer(device, mesh=None):
+    """(c)'s float32 stage-0 MambaV3, seed 0, and its input and
+    cotangent."""
+    b, L, d, S = PAR_LAYER
+    layer = MambaV3(d, nslices=S, generator=torch.Generator().manual_seed(0),
+                    device=device, mesh=mesh, seq_axis="seq")
+    g = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(b, L, d, generator=g, device=device)
+    cot = torch.randn(b, L, d, generator=g, device=device)
+    return layer, x.requires_grad_(), cot
+
+
+def par_layer_run(layer, x, cot):
+    y = layer(x)
+    (y.float() * cot).sum().backward()
+    return {"y": y.detach(), "x": x.grad.detach(),
+            **{n: p.grad.detach() for n, p in layer.named_parameters()}}
+
+
+def par_distance(grads, want):
+    """Relative L2 of ``grads`` from ``want`` over every parameter, and the
+    largest elementwise difference."""
+    num = den = top = 0.0
+    for k, w in want.items():
+        d = grads[k].float().cpu().double() - w.double()
+        num += float(d.square().sum())
+        den += float(w.double().square().sum())
+        top = max(top, float(d.abs().max()))
+    return (num / den) ** 0.5, top
+
+
+def par_split_step(device, batch, dtype):
+    """The plain step on each sample of ``batch`` alone from seed 0, the
+    losses and the gradients averaged in float32 (the DP step's arithmetic
+    without its collective)."""
+    parts, losses = [], []
+    for i in range(2):
+        model = par_model(device, dtype=dtype)
+        state = create_train_state(model, learning_rate=1e-2)
+        metrics, grads = par_step(state, {k: v[i:i + 1]
+                                          for k, v in batch.items()})
+        parts.append({k: v.float().cpu() for k, v in grads.items()})
+        losses.append(metrics["loss"])
+        del model, state, grads
+    grads = {k: (parts[0][k] + parts[1][k]) / 2 for k in parts[0]}
+    norm = float(torch.linalg.vector_norm(torch.cat(
+        [g.reshape(-1) for g in grads.values()])))
+    return {"loss": sum(losses) / 2, "grad_norm": norm, "grads": grads}
+
+
+def par_references(path, device="cuda"):
+    """The single-process references, in this process, saved to ``path``:
+    the plain step (twice: its own run-to-run spread), the mxu composition's
+    step (two compositions of one computation: the rounding a bf16 step
+    carries), the split step (the plain step on each sample alone, the
+    gradients averaged in float32: the DP step's arithmetic without its
+    collective), the float32 plain step on (b)'s 64^3 batch, and (c)'s
+    unsharded layer."""
+    batch = par_batch(device)
+    ref = {}
+    for run in ("plain", "plain_again", "mxu"):
+        model = par_model(device, scan_impl="mxu" if run == "mxu" else "dir2")
+        state = create_train_state(model, learning_rate=1e-2)
+        metrics, grads = par_step(state, batch)
+        ref[run] = dict(metrics, grads={k: v.cpu() for k, v in grads.items()})
+        if run != "mxu":
+            ref[run]["params"] = {k: v.detach().cpu() for k, v in
+                                  model.state_dict().items()}
+        del model, state, grads
+        torch.cuda.empty_cache()
+    f32_batch = par_batch(device, PAR_F32_ROI, seed=1)
+    ref["split"] = par_split_step(device, batch, torch.bfloat16)
+    ref["f32_split"] = par_split_step(device, f32_batch, torch.float32)
+    model = par_model(device, dtype=torch.float32)
+    state = create_train_state(model, learning_rate=1e-2)
+    metrics, grads = par_step(state, f32_batch)
+    ref["f32"] = dict(metrics, grads={k: v.cpu() for k, v in grads.items()})
+    del model, state, grads, f32_batch
+    torch.cuda.empty_cache()
+    layer, x, cot = par_layer(device)
+    reset_counts()
+    ref["layer"] = {k: v.cpu() for k, v in par_layer_run(layer, x,
+                                                          cot).items()}
+    del layer, x, cot
+    torch.save(ref, path)
+    for run in ("plain", "plain_again", "mxu"):
+        log(f"parallel reference {run}: loss {ref[run]['loss']:.6f}, grad "
+            f"norm {ref[run]['grad_norm']:.6f}")
+    spread = {k: float((ref["plain_again"]["grads"][k] - g).abs().max())
+              for k, g in ref["plain"]["grads"].items()}
+    log(f"parallel reference: plain step twice, gradients differ by at most "
+        f"{max(spread.values()):.3e} (cudnn deterministic)")
+    for run, plain in (("mxu", "plain"), ("split", "plain"),
+                       ("f32_split", "f32")):
+        rel, top = par_distance(ref[run]["grads"], ref[plain]["grads"])
+        log(f"parallel reference: {run} step vs the {plain} step: gradients' "
+            f"relative L2 {rel:.3e}, max |diff| {top:.3e}")
+    log(f"parallel reference f32 (2 x 4 x 64^3): loss "
+        f"{ref['f32']['loss']:.6f}, grad norm {ref['f32']['grad_norm']:.6f}")
+    del ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def par_hold(tag, metrics, grads, ref):
+    """A step against the single-process step: loss and gradient norm at
+    the bf16 tier's rtol; each parameter's gradient within the larger of
+    the bf16 tier elementwise (rtol 3e-2, atol 5e-2 x the larger of its
+    max |grad| and 1e-3 of the model's, phase 6's floor; the
+    instance-norm-fed biases' atol by the model's) and twice the mxu
+    composition's distance from the plain step on it; all together within the larger of 3e-2 and twice
+    that composition's relative L2. Returns the worst share of the tier
+    (above 1 where a parameter passed by the mxu bound)."""
+    rtol, atol = PAR_BF16_TIER
+    plain, mxu = ref["plain"], ref["mxu"]
+    for key in ("loss", "grad_norm"):
+        want = plain[key]
+        if not abs(metrics[key] - want) <= rtol * abs(want):
+            raise AssertionError(f"{tag}: {key} {metrics[key]} vs the "
+                                 f"single-process step's {want}")
+    top = max(float(w.abs().max()) for w in plain["grads"].values())
+    worst, num, den, cal_num = 0.0, 0.0, 0.0, 0.0
+    for k, w in plain["grads"].items():
+        g = grads[k].float().cpu()
+        err = (g - w).abs()
+        cal = float((mxu["grads"][k] - w).abs().max())
+        scale = top if k in IN_FED_BIASES else max(float(w.abs().max()),
+                                                   1e-3 * top)
+        share = float((err / (atol * scale + rtol * w.abs()).clamp_min(
+            1e-30)).max())
+        if not (share <= 1.0 or float(err.max()) <= 2 * cal):
+            raise AssertionError(
+                f"{tag}: gradient {k} max |err| {float(err.max()):.4e}, "
+                f"{share:.2f}x the bf16 tier (mxu vs plain {cal:.4e})")
+        worst = max(worst, share)
+        num += float((g - w).double().square().sum())
+        cal_num += float((mxu["grads"][k] - w).double().square().sum())
+        den += float(w.double().square().sum())
+    rel, cal_rel = (num / den) ** 0.5, (cal_num / den) ** 0.5
+    if tag.startswith("dp"):
+        # DP's distance is the batch split's rounding: the plain step on
+        # each sample alone, averaged, is DP without its collective
+        split_rel, split_top = par_distance(grads, ref["split"]["grads"])
+        log(f"  {tag}: vs the split plain step: relative L2 {split_rel:.3e}, "
+            f"max |diff| {split_top:.3e}")
+        if not split_rel <= PAR_SPLIT_REL:
+            raise AssertionError(f"{tag}: {split_rel:.3e} from the split "
+                                 "plain step")
+    if not rel <= max(3e-2, 2 * cal_rel):
+        raise AssertionError(f"{tag}: gradients' relative L2 {rel:.3e} "
+                             f"(mxu vs plain {cal_rel:.3e})")
+    log(f"  {tag}: loss {metrics['loss']:.6f} (single {plain['loss']:.6f}), "
+        f"grad norm {metrics['grad_norm']:.6f} ({plain['grad_norm']:.6f}); "
+        f"gradients' relative L2 {rel:.3e} (mxu vs plain {cal_rel:.3e}), "
+        f"worst share of the bf16 tier by a parameter {worst:.3f} (over 1: "
+        "within twice the mxu composition's distance)")
+    return worst
+
+
+def par_hold_f32(tag, metrics, grads, want):
+    """A float32 step against its float32 single-process reference
+    ``want`` (the plain step; for DP the split step, since splitting the
+    batch reorders the convs' weight-gradient sums), where rounding is
+    small and a gradient's wrong scope (a missing or doubled sum over
+    ranks) is not: loss and gradient norm at rtol 2e-3, every parameter's
+    gradient at rtol 2e-3 / atol 1e-2 x the larger of its max |grad| and
+    1e-3 of the model's (the instance-norm-fed biases' atol by the
+    model's), all together within ``PAR_F32_REL`` relative L2. Returns
+    (relative L2, worst share of the tier)."""
+    rtol, atol = PAR_F32_TIER
+    for key in ("loss", "grad_norm"):
+        if not abs(metrics[key] - want[key]) <= rtol * abs(want[key]):
+            raise AssertionError(f"{tag}: {key} {metrics[key]} vs the "
+                                 f"float32 reference's {want[key]}")
+    top = max(float(w.abs().max()) for w in want["grads"].values())
+    worst = 0.0
+    for k, w in want["grads"].items():
+        err = (grads[k].float().cpu() - w).abs()
+        scale = top if k in IN_FED_BIASES else max(float(w.abs().max()),
+                                                   1e-3 * top)
+        share = float((err / (atol * scale + rtol * w.abs()).clamp_min(
+            1e-30)).max())
+        if not share <= 1.0:
+            raise AssertionError(f"{tag}: gradient {k} max |err| "
+                                 f"{float(err.max()):.4e}, {share:.2f}x the "
+                                 "f32 tier")
+        worst = max(worst, share)
+    rel, _ = par_distance(grads, want["grads"])
+    if not rel <= PAR_F32_REL:
+        raise AssertionError(f"{tag}: gradients' relative L2 {rel:.3e} from "
+                             "the float32 reference")
+    log(f"  {tag}: loss {metrics['loss']:.6f} ({want['loss']:.6f}), grad "
+        f"norm {metrics['grad_norm']:.6f} ({want['grad_norm']:.6f}); "
+        f"gradients' relative L2 {rel:.3e}, worst share of the f32 tier "
+        f"{worst:.3f}")
+    return rel, worst
+
+
+@contextlib.contextmanager
+def par_comm_timer(stats):
+    """Add the calls, bytes (of this rank's input) and host seconds of
+    every ``all_gather`` / ``all_reduce`` inside the block to ``stats``
+    (gloo on CUDA tensors returns when the collective is done)."""
+    dist = torch.distributed
+    saved = dist.all_gather, dist.all_reduce
+
+    def timed(fn, arg):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            stats["sec"] += time.perf_counter() - t0
+            stats["calls"] += 1
+            stats["bytes"] += args[arg].numel() * args[arg].element_size()
+            return out
+        return call
+
+    dist.all_gather, dist.all_reduce = timed(saved[0], 1), timed(saved[1], 0)
+    try:
+        yield stats
+    finally:
+        dist.all_gather, dist.all_reduce = saved
+
+
+def par_identical(tensors, group=None):
+    """Whether every rank holds bit-equal ``tensors``."""
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    parts = [torch.empty_like(flat)
+             for _ in range(torch.distributed.get_world_size(group))]
+    torch.distributed.all_gather(parts, flat, group=group)
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
+def par_rank_nccl(rank, world_size, device, path):
+    """(a): a world of 1 over NCCL: ``train_step(mesh=)`` on phase 7's
+    batch equals the single-process step up to that step's own
+    run-to-run spread (0 when it is deterministic)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(path, weights_only=True)
+    plain, again = ref["plain"], ref["plain_again"]
+    mesh = make_mesh(1, ("data",), device=device)
+    model = par_model(device, mesh)
+    state = create_train_state(model, learning_rate=1e-2, mesh=mesh)
+    reset_counts()
+    with torch.backends.cudnn.flags(deterministic=True):
+        metrics, grads = par_step(state, par_batch(device), mesh)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts != PAR_STEPS["dp"][3]:
+        raise AssertionError(f"(a) scan launches {counts}")
+    worst = 0.0
+    for kind, got, key in (("gradient", grads, "grads"),
+                           ("parameter", model.state_dict(), "params")):
+        for k, w in plain[key].items():
+            err = float((got[k].cpu() - w).abs().max())
+            spread = float((again[key][k] - w).abs().max())
+            if not err <= spread:
+                raise AssertionError(f"(a) {kind} {k}: {err:.3e} from the "
+                                     f"single-process step (its own spread "
+                                     f"{spread:.3e})")
+            worst = max(worst, err)
+    for key in ("loss", "grad_norm"):
+        if metrics[key] != plain[key] and plain[key] == again[key]:
+            raise AssertionError(f"(a) {key} {metrics[key]} != "
+                                 f"{plain[key]}")
+    return dict(metrics, worst_abs=worst, counts=counts,
+                backend=torch.distributed.get_backend())
+
+
+def par_rank_shared(rank, world_size, device, path):
+    """(b) and (c): two ranks over gloo on one shared card. For each of
+    the SP, DP and TP steps: one counted step from seed 0 held against the
+    single-process step (rank 0), then ``PAR_TIMED_STEPS`` timed steps
+    (host clock after synchronize; the collectives' host seconds, calls
+    and bytes), then the parameters bit-equal on both ranks; the SP model
+    also runs one counted forward (an SP window). Then (c)'s
+    float32 stage-0 layer under SP 2 against the unsharded layer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(path, weights_only=True) if rank == 0 else None
+    global_batch = par_batch("cpu")
+    out = {}
+    for name, (axes, shape, model_axis, per_step) in PAR_STEPS.items():
+        mesh = make_mesh(world_size, axes, shape=shape, device=device)
+        model = par_model(device, mesh, model_axis)
+        state = create_train_state(model, learning_rate=1e-2, mesh=mesh,
+                                   model_axis=model_axis)
+        batch = shard_batch(global_batch, mesh)
+        reset_counts()
+        metrics, grads = par_step(state, batch, mesh)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if counts != per_step:
+            raise AssertionError(f"{name}: scan launches {counts}, "
+                                 f"expected {per_step}")
+        if state.sharded:
+            grads = tp_gather_state(grads, mesh, state.sharded)
+        row = dict(metrics, counts=counts)
+        if rank == 0:
+            row["worst"] = par_hold(f"{name} step (rank 0)", metrics, grads,
+                                    ref)
+        del grads
+        # the peak of a training step (the checked one ran cudnn's
+        # deterministic algorithms, whose workspaces differ)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, comm_stats = [], dict(calls=0, bytes=0, sec=0.0)
+        for _ in range(PAR_TIMED_STEPS):
+            torch.cuda.synchronize()
+            torch.distributed.barrier()   # rank 0 held the step just now
+            t0 = time.perf_counter()
+            with par_comm_timer(comm_stats):
+                train_step(state, batch, mesh=mesh)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        # a tensor-parallel shard is this rank's own; the rest is shared
+        params = [p for n, p in model.named_parameters()
+                  if n not in state.sharded]
+        if not par_identical(params):
+            raise AssertionError(f"{name}: parameters differ across ranks "
+                                 "after the steps")
+        row.update(sec=statistics.median(times), times=times,
+                   comm={k: v / PAR_TIMED_STEPS
+                         for k, v in comm_stats.items()},
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if name == "sp":
+            reset_counts()
+            with torch.no_grad():
+                model(batch["image"][:1])
+            row["window_counts"] = {k: v for k, v in
+                                    launch_counts().items() if v}
+            if row["window_counts"] != dict(scan_core=24):
+                raise AssertionError(f"SP window launches "
+                                     f"{row['window_counts']}")
+        out[name] = row
+        del model, state, batch, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the same steps in float32 on a 64^3 batch against the float32 plain
+    # step: what rounding leaves of the bf16 distances
+    f32_batch = par_batch("cpu", PAR_F32_ROI, seed=1)
+    for name, (axes, shape, model_axis, per_step) in PAR_STEPS.items():
+        mesh = make_mesh(world_size, axes, shape=shape, device=device)
+        model = par_model(device, mesh, model_axis, dtype=torch.float32)
+        state = create_train_state(model, learning_rate=1e-2, mesh=mesh,
+                                   model_axis=model_axis)
+        reset_counts()
+        metrics, grads = par_step(state, shard_batch(f32_batch, mesh), mesh)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        if counts != per_step:
+            raise AssertionError(f"{name} f32: scan launches {counts}, "
+                                 f"expected {per_step}")
+        if state.sharded:
+            grads = tp_gather_state(grads, mesh, state.sharded)
+        if rank == 0:
+            want = ref["f32_split" if name == "dp" else "f32"]
+            out[name]["f32_rel"], out[name]["f32_worst"] = par_hold_f32(
+                f"{name} f32 step (rank 0)", metrics, grads, want)
+            out[name]["f32_plain_rel"] = par_distance(
+                grads, ref["f32"]["grads"])[0]
+        del model, state, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (c): float32 stage-0 layer under SP 2 against the unsharded layer
+    mesh = make_mesh(world_size, ("seq",), device=device)
+    layer, x, cot = par_layer(device, mesh)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    got = par_layer_run(layer, x, cot)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts != dict(scan_core=3, scan_core_bwd=3):
+        raise AssertionError(f"(c) scan launches {counts}")
+    row = dict(counts=counts,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if rank == 0:
+        rtol, atol = TOL[torch.float32]
+        errs = {}
+        for k, w in ref["layer"].items():
+            a = atol if k in ("y", "x") else atol * max(
+                1.0, float(w.abs().max()))
+            errs[k] = (check_close(f"(c) {k}", got[k].cpu(), w, rtol, a),
+                       float(w.abs().max()))
+        row["max_abs_err"] = max(e for e, _ in errs.values())
+        row["errs"] = errs
+    out["layer"] = row
+    return out
+
+
+def par_ddelta(name, got, plain32, operands):
+    """K6's ddelta at an SP shard shape: at the f32 tier against the plain
+    float32 version, or, on the channels where the two differ by more,
+    against a float64 run of the plain version there: within the tier, or
+    within ``DDELTA_PLAIN_MULT`` times the plain float32 version's share
+    of it (phase 14's rule). ddelta = sum_n A g x
+    a + u sum_n g B sums each state's adjoint over the steps after it, and
+    on long sequences a few values cancel terms far larger than
+    themselves (ROADMAP C5). Returns the max abs error against the plain
+    float32 version."""
+    rtol, atol = TOL[torch.float32]
+    diff = (got.float() - plain32.float()).abs()
+    bad = diff > atol + rtol * plain32.float().abs()
+    if not bad.any():
+        return float(diff.max())
+    ch = bad.any(0).any(0).nonzero()[:, 0]
+    u, delta, A, B, C, dy, dlast = operands
+    leaves = [t.double().requires_grad_()
+              for t in (u[..., ch], delta[..., ch], A[ch], B, C)]
+    y, last = scan_core.selective_scan_core_ref(
+        *leaves, chunk_size=scan_core.DEF_CHUNK)
+    want64 = torch.autograd.grad((y, last), leaves, (
+        dy[..., ch].double(), dlast[:, ch].double()))[1]
+    share = tier_use(got[..., ch], want64, rtol, atol)
+    plain_share = tier_use(plain32[..., ch], want64, rtol, atol)
+    limit = max(1.0, DDELTA_PLAIN_MULT * plain_share)
+    log(f"K6 {name} ddelta: {int(bad.sum())} of {bad.numel()} values over "
+        f"the f32 tier against the plain float32 version (max abs err "
+        f"{float(diff.max()):.3e}), on {len(ch)} channel(s); there against "
+        f"float64 the kernel uses {share:.3f} of the tier, the plain float32 "
+        f"version {plain_share:.3f} (held to {limit:.3f})")
+    if not share <= limit:
+        raise AssertionError(f"K6 {name} ddelta: {share:.3f} of the f32 tier "
+                             f"against float64, over {limit:.3f}")
+    return float(diff.max())
+
+
+def par_kernels(rows):
+    """K6 forward and backward at the SP shard shapes (float32): CUDA
+    events, bounds; at stage 0 also against the plain version (one run
+    each) and the fix-up's forward + backward."""
+    T = scan_core.DEF_CHUNK
+    rtol, atol = TOL[torch.float32]
+    fix_ms = 0.0
+    for name, (R, L, D) in PAR_SHAPES.items():
+        u, delta, A, B, C = core_inputs(R, L, D, seed=L + D + 3)
+        g = torch.Generator(device=DEVICE).manual_seed(L)
+        dy = torch.randn(R, L, D, generator=g, device=DEVICE)
+        dlast = torch.randn(R, D, N, generator=g, device=DEVICE)
+        y, st = scan_core._launch(u, delta, A, B, C, T)
+        row = dict(shape=name, R=R, L=L, D=D)
+        row["fwd_ms"] = cuda_ms(lambda: scan_core._launch(u, delta, A, B, C,
+                                                          T), 10)
+        row["bwd_ms"] = cuda_ms(lambda: scan_core._launch_bwd(
+            u, delta, A, B, C, dy, dlast, st, T), 10)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = core_bound("fwd", R, L, D)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = core_bound("bwd", R, L, D)
+        if name == "sp_stage0":
+            y_p, st_p = scan_core.selective_scan_core_ref(
+                u, delta, A, B, C, T, return_states=True)
+            err = max(check_close(f"K6 {name} y", y, y_p, rtol, atol),
+                      check_close(f"K6 {name} states", st, st_p, rtol, atol))
+            row["fwd_plain_ms"] = cuda_ms(
+                lambda: scan_core.selective_scan_core_ref(
+                    u, delta, A, B, C, T, return_states=True), 1, warmup=0)
+            got = scan_core._launch_bwd(u, delta, A, B, C, dy, dlast, st, T)
+            want = scan_core.selective_scan_core_bwd_ref(u, delta, A, B, C,
+                                                         dy, dlast, T)
+            for gname, gk, w in zip(CORE_GRADS, got, want):
+                a = atol * max(1.0, float(w.abs().max())) \
+                    if gname in ("dA", "dB", "dC") else atol
+                if gname == "ddelta":
+                    err = max(err, par_ddelta(name, gk, w, (u, delta, A, B,
+                                                           C, dy, dlast)))
+                    continue
+                err = max(err, check_close(f"K6 {name} {gname}", gk, w,
+                                           rtol, a))
+            row["max_abs_err"] = err
+            del got, want, y_p, st_p
+            row["bwd_plain_ms"] = cuda_ms(
+                lambda: scan_core.selective_scan_core_bwd_ref(
+                    u, delta, A, B, C, dy, dlast, T), 1, warmup=0)
+        # the fix-up at this shard's shape, forward + backward
+        fix_in = [C.clone(), torch.cumsum(delta, 1), A.clone(),
+                  torch.randn(R, D, N, generator=g, device=DEVICE)]
+        fix_in = [t.requires_grad_() for t in fix_in]
+
+        def fix():
+            out = scan_sharded.fixup(*fix_in)
+            torch.autograd.grad(out, fix_in, dy)
+        row["fixup_ms"] = cuda_ms(fix, 3)
+        fix_ms += LAYERS_PER_STAGE * 3 * row["fixup_ms"]
+        log(f"K6 SP shard {name} {(R, L, D)}: fwd {row['fwd_ms']:.4f} ms "
+            f"(bound {row['fwd_bound_ms']:.4f}, {row['fwd_bound_by']}), bwd "
+            f"{row['bwd_ms']:.4f} ms (bound {row['bwd_bound_ms']:.4f}, "
+            f"{row['bwd_bound_by']}); fix-up fwd + bwd "
+            f"{row['fixup_ms']:.4f} ms"
+            + (f"; plain fwd {row['fwd_plain_ms']:.2f} ms, bwd "
+               f"{row['bwd_plain_ms']:.2f} ms, max_abs_err "
+               f"{row['max_abs_err']:.3e}" if "max_abs_err" in row else ""))
+        rows.append(row)
+        del u, delta, A, B, C, y, st, dy, dlast, fix_in
+        torch.cuda.empty_cache()
+    log(f"fix-up per SP step and rank (3 directions x 2 layers a stage, "
+        f"alone on the card): {fix_ms:.2f} ms")
+    return fix_ms
+
+
+def phase_parallel():
+    """Phase 19 (module docstring)."""
+    rows = []
+    fix_ms = par_kernels(rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        path = os.path.join(tmp, "references.pt")
+        t0 = time.perf_counter()
+        par_references(path)
+        log(f"  references: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        nccl, = launch(par_rank_nccl, 1, path, backend="nccl",
+                       timeout_s=600, threads=4)
+        log(f"(a) world 1 over {nccl['backend']}: loss {nccl['loss']:.6f}, "
+            f"grad norm {nccl['grad_norm']:.6f}; largest distance from the "
+            f"single-process step {nccl['worst_abs']:.3e}; launches "
+            f"{nccl['counts']} ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        ranks = launch(par_rank_shared, 2, path, backend="gloo",
+                       device="cuda:0", timeout_s=900, threads=4)
+        log(f"(b, c) world 2 over gloo, both ranks on cuda:0: "
+            f"{time.perf_counter() - t0:.1f} s")
+    for name in PAR_STEPS:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        log(f"  {name} step: worst share of the bf16 tier {r0['worst']:.3f}; "
+            f"launches a step and rank {r0['counts']}; peak GiB by rank "
+            f"{r0['peak_gib']:.2f}, {r1['peak_gib']:.2f}; s/step (2 ranks "
+            f"sharing one H100, one step after the checked one) "
+            f"{r0['sec']:.4f}, {r1['sec']:.4f}, of it in collectives "
+            f"{r0['comm']['sec']:.4f}, {r1['comm']['sec']:.4f} s "
+            f"({r0['comm']['calls']:.0f} calls, "
+            f"{r0['comm']['bytes'] / 2 ** 30:.3f} GiB a rank)"
+            + (f"; SP window launches {r0['window_counts']}"
+               if name == "sp" else ""))
+        log(f"  {name} f32 step (2 x 4 x 64^3): gradients' relative L2 from "
+            f"its float32 reference {r0['f32_rel']:.3e} (from the plain step "
+            f"{r0['f32_plain_rel']:.3e}), worst share of the f32 tier "
+            f"{r0['f32_worst']:.3f}")
+    lay = ranks[0]["layer"]
+    log(f"  (c) f32 stage-0 MambaV3 under SP 2: max_abs_err "
+        f"{lay['max_abs_err']:.3e}; launches {lay['counts']}; peak GiB by "
+        f"rank {lay['peak_gib']:.2f}, {ranks[1]['layer']['peak_gib']:.2f}")
+    log("  (c) by tensor, max |err| / max |ref|: " + "; ".join(
+        f"{k} {e:.3e} / {m:.3e} ({e / max(m, 1e-30):.2e})"
+        for k, (e, m) in sorted(lay["errs"].items(),
+                                key=lambda kv: -kv[1][0])[:8]))
+    return dict(rows=rows, fix_ms=fix_ms, nccl=nccl, ranks=ranks)
+
+
+def par_launches(par, counter):
+    """Phase 19's launches of one counter a step and rank, by path."""
+    ranks = par["ranks"][0]
+    out = {f"{name}_train_step_rank": ranks[name]["counts"].get(counter, 0)
+           for name in PAR_STEPS}
+    out["nccl_world1_step"] = par["nccl"]["counts"].get(counter, 0)
+    out["sp_window_rank"] = ranks["sp"]["window_counts"].get(counter, 0)
+    out["sp_stage0_layer_rank"] = ranks["layer"]["counts"].get(counter, 0)
+    return out
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3716,6 +4384,13 @@ def main():
     wv_stats = phase_whole_volume(results)
     log(f"phase 18 (whole volume and case pipeline): "
         f"{time.perf_counter() - t0:.1f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    par = phase_parallel()
+    log(f"phase 19 (parallelism: NCCL world 1, gloo world 2 on one card): "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s; ms per window "
         f"{model_stats['ms_per_window']:.2f}; s/step "
         f"{train_stats['sec']:.4f}; LM decode ms/token "
@@ -3749,6 +4424,7 @@ def main():
                                 for name in WV_RUNS})
                 by_path["deploy_case"] = wv_stats["deploy"]["launches"][
                     wrapper]
+                by_path.update(par_launches(par, wrapper))
                 extra = dict(wholevol_shapes={
                     f"{r['shape']} {r['dtype']} {r['variant']}": dict(
                         {k: r[k] for k in ("ms", "plain_ms", "max_abs_err")},
@@ -3761,7 +4437,8 @@ def main():
                 launches = train_launches[f"{wrapper}_bwd"]
                 by_path = {"train_5_steps": launches,
                            "train_5_steps_device_aug":
-                               train_stats["aug_launches"][f"{wrapper}_bwd"]}
+                               train_stats["aug_launches"][f"{wrapper}_bwd"],
+                           **par_launches(par, f"{wrapper}_bwd")}
                 extra = dict(
                     device_ms=main_row.get("device_ms"),
                     device_ms_by_variant={
@@ -3782,6 +4459,7 @@ def main():
     for direction in ("fwd", "bwd"):
         rows = [r for r in core_results if r["direction"] == direction]
         main_row = next(r for r in rows if r["shape"] == "prefill")
+        counter = "scan_core" + ("" if direction == "fwd" else "_bwd")
         if direction == "fwd":
             by_path = {"lm_generate": lm_stats["gen_counts"]["scan_core"],
                        "lm_prefill_f32":
@@ -3790,6 +4468,7 @@ def main():
         else:
             launches = lm_stats["grad_counts"]["scan_core_bwd"]
             by_path = {"lm_prefill_grad": launches}
+        by_path.update(par_launches(par, counter))
         kernels.append(dict(
             name=f"gated_scan_{direction}[scan_core]", route="cuda",
             source=SOURCES[direction], replaces=CORE_REPLACES[direction],
@@ -3798,6 +4477,14 @@ def main():
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=None, variant="core", launches_by_path=by_path,
+            sp_shard_shapes={r["shape"]: {
+                "R_L_D": [r["R"], r["L"], r["D"]],
+                "ms": r[f"{direction}_ms"],
+                "bound_ms": r[f"{direction}_bound_ms"],
+                "bound_by": r[f"{direction}_bound_by"],
+                **({"plain_ms": r[f"{direction}_plain_ms"],
+                    "max_abs_err": r["max_abs_err"]}
+                   if "max_abs_err" in r else {})} for r in par["rows"]},
             **({"device_ms": main_row.get("device_ms")}
                if direction == "bwd" else {})))
     for direction in ("fwd", "bwd"):

@@ -6,7 +6,8 @@ Copy of ``segmamba_tpu/config.py`` (``ModelConfig``, ``DataConfig``,
 the same fields and defaults, so a file written by the JAX package's
 ``Config.to_json`` loads here unchanged (unknown keys are dropped, as
 there). ``Config.build_model`` returns the port's ``SegMamba``, on the card
-unless the caller asks for the CPU.
+unless the caller asks for the CPU; ``Config.build_mesh`` the data mesh of
+``train.data_parallel`` over the launched ranks.
 
 ``ModelConfig.scan_impl`` takes the JAX package's names (see
 ``models/mamba.py``): "auto" and "pallas" are the chained "dir2"
@@ -118,9 +119,19 @@ class Config:
                    train=build(TrainConfig, raw.get("train", {})),
                    infer=build(InferConfig, raw.get("infer", {})))
 
-    def build_model(self, device="cuda", generator=None):
+    def build_mesh(self, device=None):
+        """``train.data_parallel``'s mesh: ("data",) over every launched
+        rank (the default process group must exist, as under ``torchrun``
+        after ``parallel.multihost.initialize_multihost``), or None."""
+        if not self.train.data_parallel:
+            return None
+        from segmamba_tpu_torch.parallel.mesh import make_mesh
+        return make_mesh(device=device)
+
+    def build_model(self, device="cuda", generator=None, mesh=None):
         """The port's ``SegMamba`` for this model config, with random
-        weights from ``generator`` (seed 0 by default), on ``device``."""
+        weights from ``generator`` (seed 0 by default), on ``device``;
+        ``mesh`` (``build_mesh``'s) goes to its Mamba layers."""
         from segmamba_tpu_torch.models import SegMamba
 
         m = self.model
@@ -132,4 +143,4 @@ class Config:
             hidden_size=m.hidden_size,
             num_slices_list=tuple(m.num_slices_list),
             scan_impl=m.scan_impl, remat=m.remat, dtype=DTYPES[m.dtype],
-            generator=generator, device=device)
+            generator=generator, device=device, mesh=mesh)

@@ -36,11 +36,31 @@ a CUDA input, where the JAX package says TPU:
   (its plain version) on the CPU. ``"per_direction"`` is the port's alias
   of this branch with ``mamba_inner``'s "auto".
 
+Parallel forms (JAX ``mamba.py:395-419``), given a ``mesh``
+(``parallel.mesh``), on this rank's rows:
+
+- sequence parallelism over ``seq_axis`` when its ``n`` ranks each get at
+  least ``d_conv`` tokens (``L % n == 0``, ``L // n >= d_conv``): the
+  forward and flip orientations run ``ops.scan_sharded.mamba_inner_sharded``
+  (K6 locally, ``reverse`` for the flip) on this rank's token shard of the
+  replicated ``xz``; the slice orientation interleaves the whole ``xz``,
+  then shards it, and its output is gathered and de-interleaved; ``out_proj``
+  runs on the shard and the output is gathered. The parameters used on the
+  shard get their gradients summed over the sequence group.
+- tensor parallelism over ``model_axis`` otherwise, when its ranks divide
+  d_inner: the layer holds this rank's channel slice of the inner
+  parameters (``parallel.tp.tp_shard``) and runs the dir2 composition on
+  it (its kernels on the card, at d_inner / n channels); the row-parallel
+  ``x_proj``'s partial sums are all-reduced in the projections of every
+  orientation and the ``out_proj`` partial products after it
+  (``parallel.comm``).
+
 Sequences are time-major (batch, L, d_model).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -58,6 +78,8 @@ from segmamba_tpu_torch.ops.causal_conv1d import (
     causal_conv1d_grouped,
 )
 from segmamba_tpu_torch.ops.mamba_inner import mamba_inner
+from segmamba_tpu_torch.ops.scan_sharded import mamba_inner_sharded
+from segmamba_tpu_torch.parallel import comm
 
 SCAN_IMPLS = ("auto", "pallas", "dir2", "dir", "proj", "fused", "chunked",
               "ref", "mxu", "per_direction")
@@ -109,8 +131,11 @@ class MambaV3(nn.Module):
     """Tri-oriented selective-state-space mixer.
 
     Arguments mirror the JAX ``MambaV3`` (and the reference
-    ``Mamba(d_model, d_state, d_conv, expand, bimamba_type, nslices)``),
-    without the mesh arguments. ``scan_chunk`` is the scan kernels' chunk
+    ``Mamba(d_model, d_state, d_conv, expand, bimamba_type, nslices)``).
+    ``mesh``, ``seq_axis`` and ``model_axis`` select the parallel forms
+    (module note); JAX's ``batch_axis`` has no counterpart, since a data
+    rank holds its own rows and the layer does no collective over them.
+    ``scan_chunk`` is the scan kernels' chunk
     length; ``slice_kernel`` opts ``scan_impl="dir"`` into the slice-order
     kernel. ``dtype`` is the compute dtype; parameters stay float32.
     ``bias`` adds an ``out_proj.bias`` (JAX's ``out_proj_bias``).
@@ -120,7 +145,8 @@ class MambaV3(nn.Module):
                  dt_min=0.001, dt_max=0.1, dt_init_floor=1e-4,
                  conv_bias=True, bias=False, bimamba_type="v3", nslices=None,
                  scan_impl="dir2", scan_chunk=128, slice_kernel=False, *,
-                 dtype=torch.float32, generator=None, device=None):
+                 dtype=torch.float32, generator=None, device=None,
+                 mesh=None, seq_axis="seq", model_axis=None):
         super().__init__()
         if bimamba_type not in ("v2", "v3"):
             raise ValueError(f"bimamba_type={bimamba_type!r}; the port has "
@@ -130,7 +156,8 @@ class MambaV3(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         g = generator
-        self.d_model, self.d_state = d_model, d_state
+        self.d_model, self.d_state, self.d_conv = d_model, d_state, d_conv
+        self.mesh, self.seq_axis, self.model_axis = mesh, seq_axis, model_axis
         self.d_inner = E = expand * d_model
         self.dt_rank = R = dt_rank or math.ceil(d_model / 16)
         self.bimamba_type, self.nslices = bimamba_type, nslices
@@ -158,19 +185,28 @@ class MambaV3(nn.Module):
         if device is not None:
             self.to(device)
 
-    def _direction_params(self, suf):
+    def _direction_params(self, suf, p=None):
         """One direction's parameters in the JAX ops' layout:
         conv (W, E), conv bias, x_proj (E, R+2N), dt_proj (R, E), dt bias,
-        A = -exp(A_log) (E, N) float32, D float32."""
+        A = -exp(A_log) (E, N) float32, D float32. ``p``: the parameters
+        by name, to use in place of the module's own."""
         dt = self.dtype
-        conv, xp, dp = (getattr(self, f"conv1d{suf}"),
-                        getattr(self, f"x_proj{suf}"),
-                        getattr(self, f"dt_proj{suf}"))
-        return (conv.weight[:, 0, :].t().to(dt),
-                None if conv.bias is None else conv.bias.to(dt),
-                xp.weight.t().to(dt), dp.weight.t().to(dt), dp.bias.float(),
-                -torch.exp(getattr(self, f"A{suf}_log").float()),
-                getattr(self, f"D{suf}").float())
+        if p is None:
+            conv, xp, dp = (getattr(self, f"conv1d{suf}"),
+                            getattr(self, f"x_proj{suf}"),
+                            getattr(self, f"dt_proj{suf}"))
+            conv_w, conv_b, xp_w, dp_w, dp_b = (
+                conv.weight, conv.bias, xp.weight, dp.weight, dp.bias)
+            A_log, D = getattr(self, f"A{suf}_log"), getattr(self, f"D{suf}")
+        else:
+            conv_w, conv_b, xp_w, dp_w, dp_b, A_log, D = (
+                p[f"conv1d{suf}.weight"], p.get(f"conv1d{suf}.bias"),
+                p[f"x_proj{suf}.weight"], p[f"dt_proj{suf}.weight"],
+                p[f"dt_proj{suf}.bias"], p[f"A{suf}_log"], p[f"D{suf}"])
+        return (conv_w[:, 0, :].t().to(dt),
+                None if conv_b is None else conv_b.to(dt),
+                xp_w.t().to(dt), dp_w.t().to(dt), dp_b.float(),
+                -torch.exp(A_log.float()), D.float())
 
     def _stacked(self, sufs):
         """The named directions' conv weight, conv bias, x_proj, dt_proj,
@@ -179,35 +215,42 @@ class MambaV3(nn.Module):
         return tuple(None if p[0] is None else torch.stack(p)
                      for p in zip(*ps))
 
-    def _run_direction(self, xz, suf, impl):
+    def _run_direction(self, xz, suf, impl, reduce=None):
         conv_w, conv_b, x_proj, dt_proj, dt_bias, A, D = (
             self._direction_params(suf))
         return mamba_inner(xz, conv_w, conv_b, x_proj, dt_proj, dt_bias, A,
                            D, d_state=self.d_state, impl=impl,
-                           chunk_size=self.scan_chunk)
+                           chunk_size=self.scan_chunk, reduce=reduce)
 
-    def _projections(self, xc, x_proj3, dt_proj3):
-        """Grouped projections of the conv output (g, b, L, E): dt, B, C."""
+    def _projections(self, xc, x_proj3, dt_proj3, group=None):
+        """Grouped projections of the conv output (g, b, L, E): dt, B, C.
+        With a tensor-parallel ``group``, E is this rank's channel slice
+        and x_proj's partial sums are all-reduced over the group."""
         R, N = self.dt_rank, self.d_state
         x_dbl = torch.einsum("gbld,gde->gble", xc, x_proj3)
+        if group is not None:
+            x_dbl = comm.sum_shares(x_dbl, group, grad_sum=True)
         dt = torch.einsum("gblr,grd->gbld", x_dbl[..., :R], dt_proj3)
         return dt, x_dbl[..., R:R + N], x_dbl[..., R + N:]
 
-    def _slice_orientation(self, xz):
+    def _slice_orientation(self, xz, group=None):
         """The slice orientation on an interleaved copy of xz, through
-        ``mamba_inner`` "fused", de-interleaved."""
+        ``mamba_inner`` "fused" (x_proj's partial sums reduced over a
+        tensor-parallel ``group``), de-interleaved."""
+        reduce = None if group is None else functools.partial(
+            comm.sum_shares, group=group, grad_sum=True)
         out_s = self._run_direction(slice_interleave(xz, self.nslices), "_s",
-                                    "fused")
+                                    "fused", reduce)
         return slice_deinterleave(out_s, self.nslices)
 
-    def _run_directions_dir2(self, xz):
-        E = self.d_inner
+    def _run_directions_dir2(self, xz, group=None):
+        E = xz.shape[-1] // 2
         conv_w2, conv_b2, x_proj2, dt_proj2, bias2, A2, D2 = self._stacked(
             ("", "_b"))
         x, z = xz[..., :E], xz[..., E:]
         xc = causal_conv1d_directional(x, conv_w2, conv_b2,
                                        activation="silu")   # (2, b, L, E)
-        dt, Bm, Cm = self._projections(xc, x_proj2, dt_proj2)
+        dt, Bm, Cm = self._projections(xc, x_proj2, dt_proj2, group)
 
         def run(i, **kw):
             return scan_dir.mamba_scan_fused_dir(
@@ -217,8 +260,32 @@ class MambaV3(nn.Module):
         acc = run(1, reverse=True, gate=False)
         combined = run(0, acc=acc, z=z, gate=True)
         if self.bimamba_type == "v3":
-            combined = combined + self._slice_orientation(xz)
+            combined = combined + self._slice_orientation(xz, group)
         return combined
+
+    def _run_directions_sp(self, xz, group):
+        """The three orientations on this rank's token shard (module
+        note). Returns (this rank's combined (b, L / n, E), the parameters
+        by name with their gradients summed over ``group``)."""
+        names = [n for n, _ in self.named_parameters()
+                 if not n.startswith("in_proj.")]
+        p = dict(zip(names, comm.sum_grads(
+            group, *[self.get_parameter(n) for n in names])))
+
+        def run(xz_loc, suf, reverse=False):
+            return mamba_inner_sharded(
+                xz_loc, *self._direction_params(suf, p), d_state=self.d_state,
+                group=group, chunk_size=self.scan_chunk, reverse=reverse)
+
+        xz_loc = comm.shard(xz, 1, group)
+        combined = run(xz_loc, "") + run(xz_loc, "_b", reverse=True)
+        if self.bimamba_type == "v3":
+            S = self.nslices
+            out_s = comm.unshard(run(comm.shard(slice_interleave(xz, S), 1,
+                                                group), "_s"), 1, group)
+            combined = combined + comm.shard(slice_deinterleave(out_s, S), 1,
+                                             group)
+        return combined, p
 
     def _run_directions_dir(self, xz):
         E, L, S = self.d_inner, xz.shape[1], self.nslices
@@ -321,6 +388,27 @@ class MambaV3(nn.Module):
             return "proj"
         return "dir2" if impl in ("dir2", "auto", "pallas") else "dir"
 
+    def parallel(self, L):
+        """The parallel form a sequence of ``L`` tokens takes: "sp", "tp"
+        or None (JAX ``mamba.py:395-410``)."""
+        if self.mesh is None:
+            return None
+        n_seq = self.mesh.size(self.seq_axis)
+        n_model = (self.mesh.size(self.model_axis)
+                   if self.model_axis is not None else 1)
+        if n_seq > 1 and n_model > 1:
+            raise ValueError("sequence and tensor parallelism together are "
+                             "not supported: use one of the two axes")
+        if n_seq > 1 and L % n_seq == 0 and L // n_seq >= self.d_conv:
+            return "sp"
+        if n_model > 1 and self.d_inner % n_model == 0:
+            if self.in_proj.weight.shape[0] != 2 * self.d_inner // n_model:
+                raise ValueError("tensor parallelism needs this rank's "
+                                 "shard of the layer: call "
+                                 "parallel.tp.tp_shard first")
+            return "tp"
+        return None
+
     def forward(self, hidden_states):
         """hidden_states: (batch, L, d_model) -> same shape, in ``dtype``."""
         L = hidden_states.shape[1]
@@ -328,7 +416,24 @@ class MambaV3(nn.Module):
                                           or L % self.nslices != 0):
             raise ValueError(f"nslices={self.nslices} must divide L={L}")
         dt = self.dtype
+        mode = self.parallel(L)
+        if mode == "tp":
+            group = self.mesh.group(self.model_axis)
+            # the replicated input feeds this rank's columns of in_proj
+            hidden_states, = comm.sum_grads(group, hidden_states)
         xz = F.linear(hidden_states.to(dt), self.in_proj.weight.to(dt))
+        out_w, out_b = self.out_proj.weight, self.out_proj.bias
+        if mode == "sp":
+            group = self.mesh.group(self.seq_axis)
+            combined, p = self._run_directions_sp(xz, group)
+            out_w, out_b = p["out_proj.weight"], p.get("out_proj.bias")
+            y = F.linear(combined, out_w.to(dt),
+                         None if out_b is None else out_b.to(dt))
+            return comm.unshard(y, 1, group)
+        if mode == "tp":
+            y = F.linear(self._run_directions_dir2(xz, group), out_w.to(dt))
+            y = comm.sum_shares(y, group, grad_sum=False)
+            return y if out_b is None else y + out_b.to(dt)
         comp = self.composition(xz.device)
         if comp == "dir2":
             combined = self._run_directions_dir2(xz)
@@ -342,6 +447,5 @@ class MambaV3(nn.Module):
             impl = ("auto" if self.scan_impl == "per_direction"
                     else self.scan_impl)
             combined = self._run_directions_per_direction(xz, impl)
-        out_bias = self.out_proj.bias
-        return F.linear(combined, self.out_proj.weight.to(dt),
-                        None if out_bias is None else out_bias.to(dt))
+        return F.linear(combined, out_w.to(dt),
+                        None if out_b is None else out_b.to(dt))

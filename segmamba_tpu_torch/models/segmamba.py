@@ -1,7 +1,12 @@
 """SegMamba: tri-oriented Mamba encoder + UNETR-style CNN decoder, NCDHW.
 
 Port of ``segmamba_tpu/models/segmamba.py`` (``MambaLayer``, ``MlpChannel``,
-``GSC``, ``MambaEncoder``, ``SegMamba``) without the mesh arguments.
+``GSC``, ``MambaEncoder``, ``SegMamba``). ``mesh``, ``seq_axis`` and
+``model_axis`` go down to every ``MambaV3``, which runs its sequence- or
+tensor-parallel form (``models/mamba.py``); everything outside the Mamba
+layers is replicated over those groups (every rank computes it whole),
+which is the torch form of the JAX layer and block pins (:73-92,
+:221-242).
 ``scan_impl`` goes down to every ``MambaV3`` (``models/mamba.py`` lists the
 compositions); the port's default is ``"dir2"``.
 ``remat`` is the JAX ``remat`` policy (:140-159, :199-213) through
@@ -62,12 +67,12 @@ class MambaLayer(nn.Module):
     reshape back, residual."""
 
     def __init__(self, dim, num_slices=None, scan_impl="dir2", *,
-                 dtype=torch.float32, generator):
+                 dtype=torch.float32, generator, **parallel):
         super().__init__()
         self.dim, self.dtype = dim, dtype
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.mamba = MambaV3(dim, nslices=num_slices, scan_impl=scan_impl,
-                             dtype=dtype, generator=generator)
+                             dtype=dtype, generator=generator, **parallel)
 
     def forward(self, x):
         b, c = x.shape[:2]
@@ -123,7 +128,7 @@ class MambaEncoder(nn.Module):
     def __init__(self, in_chans=1, depths=(2, 2, 2, 2),
                  dims=(48, 96, 192, 384), num_slices_list=(64, 32, 16, 8),
                  out_indices=(0, 1, 2, 3), scan_impl="dir2", *, remat=False,
-                 dtype=torch.float32, generator):
+                 dtype=torch.float32, generator, **parallel):
         super().__init__()
         g = generator
         self.remat_layers = remat is True
@@ -140,7 +145,7 @@ class MambaEncoder(nn.Module):
             [nn.Sequential(*[MambaLayer(dims[i],
                                         num_slices=num_slices_list[i],
                                         scan_impl=scan_impl, dtype=dtype,
-                                        generator=g)
+                                        generator=g, **parallel)
                              for _ in range(depths[i])])
              for i in range(4)])
         self.out_indices = tuple(out_indices)
@@ -162,13 +167,16 @@ class MambaEncoder(nn.Module):
 class SegMamba(nn.Module):
     """Full segmentation model: (B, in_chans, D, H, W) float ->
     (B, out_chans, D, H, W) float32 logits. Defaults are the BraTS config
-    (4 -> 4 channels, depths 2/2/2/2, feats 48/96/192/384, hidden 768)."""
+    (4 -> 4 channels, depths 2/2/2/2, feats 48/96/192/384, hidden 768).
+    ``mesh``, ``seq_axis``, ``model_axis``: the parallel forms of the
+    Mamba layers (module note)."""
 
     def __init__(self, in_chans=4, out_chans=4, depths=(2, 2, 2, 2),
                  feat_size: Sequence[int] = (48, 96, 192, 384),
                  hidden_size=768, num_slices_list=(64, 32, 16, 8),
                  scan_impl="dir2", *, remat=False, dtype=torch.float32,
-                 generator=None, device=None):
+                 generator=None, device=None, mesh=None, seq_axis="seq",
+                 model_axis=None):
         super().__init__()
         if remat not in REMAT:
             raise ValueError(f"remat={remat!r}; one of {REMAT}")
@@ -177,7 +185,9 @@ class SegMamba(nn.Module):
         f, kw = feat_size, dict(dtype=dtype, generator=generator)
         self.dtype, self.remat = dtype, remat
         self.vit = MambaEncoder(in_chans, depths, f, num_slices_list,
-                                scan_impl=scan_impl, remat=remat, **kw)
+                                scan_impl=scan_impl, remat=remat, mesh=mesh,
+                                seq_axis=seq_axis, model_axis=model_axis,
+                                **kw)
         self.encoder1 = UnetrBasicBlock(in_chans, f[0], **kw)
         self.encoder2 = UnetrBasicBlock(f[0], f[1], **kw)
         self.encoder3 = UnetrBasicBlock(f[1], f[2], **kw)

@@ -5,7 +5,8 @@ norms, and the wrappers of the hand-written Hopper kernels
 ``csrc/proj_scan_*.cu``: K8 through ``scan_proj``; ``csrc/mxu_scan_*.cu``:
 the ratio-form scan K7 through ``scan_mxu``; ``csrc/conv3d_k3s1_fwd.cu``
 and ``csrc/conv3d_k3s1_dw.cu``: the channels-last 3x3x3 conv K9 and its
-weight gradient through ``conv3d``).
+weight gradient through ``conv3d``); the sequence-parallel scan and inner
+op on K6 (``scan_sharded``).
 
 Counterpart of ``segmamba_tpu/ops``. Importing this package builds nothing;
 the kernel library is compiled at its first launch (``_build.py``).
@@ -45,6 +46,10 @@ from segmamba_tpu_torch.ops.scan_mxu import (
     selective_scan_mxu_core_bwd_ref,
     selective_scan_mxu_core_ref,
 )
+from segmamba_tpu_torch.ops.scan_sharded import (
+    mamba_inner_sharded,
+    selective_scan_sharded,
+)
 # the dispatcher ``selective_scan`` stays under its module's path:
 # ``segmamba_tpu_torch.ops.selective_scan`` names the module
 from segmamba_tpu_torch.ops.selective_scan import (
@@ -66,6 +71,7 @@ __all__ = [
     "conv3d_k3s1_v2",
     "layer_norm_fn",
     "mamba_inner",
+    "mamba_inner_sharded",
     "mamba_scan_fused",
     "mamba_scan_fused_bwd_ref",
     "mamba_scan_fused_ref",
@@ -81,5 +87,6 @@ __all__ = [
     "selective_scan_mxu_core_bwd_ref",
     "selective_scan_mxu_core_ref",
     "selective_scan_ref",
+    "selective_scan_sharded",
     "selective_state_update",
 ]

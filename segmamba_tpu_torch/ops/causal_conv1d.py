@@ -104,9 +104,10 @@ def causal_conv1d_directional(x, weight, bias, activation=None,
             off = -off
         if off == 0:
             return xf
+        k = min(abs(off), seqlen)     # a shift past the whole sequence
         if off < 0:
-            return F.pad(xf[:, :seqlen + off], (0, 0, -off, 0))
-        return F.pad(xf[:, off:], (0, 0, 0, off))
+            return F.pad(xf[:, :seqlen - k], (0, 0, k, 0))
+        return F.pad(xf[:, k:], (0, 0, 0, k))
 
     outs = []
     for g, direction in ((0, +1), (1, -1)):

@@ -1,4 +1,4 @@
-"""BraTS training on one card: SegMamba, SGD poly, CE over 4 classes.
+"""BraTS training: SegMamba, SGD poly, CE over 4 classes.
 
 Port of ``3_train.py`` (with its ``BraTSTrainer``): patch 128^3, batch 2,
 250 steps per epoch, validation every 2 epochs on 100 patches with the
@@ -12,12 +12,25 @@ TC/WT/ET dice, keep-best checkpoints; the full-width BraTS model with
 the train step instead of in the loader processes. ``--device`` defaults
 to ``cuda`` and never falls back to the CPU; ``--device cpu`` runs on the
 CPU (small configurations only).
+
+On several cards, one process a card under ``torchrun`` (NCCL; gloo with
+``--device cpu``)::
+
+    torchrun --nproc-per-node 4 -m segmamba_tpu_torch.train \
+        --data-parallel --seq-parallel 2 ...
+
+``--data-parallel`` and ``--seq-parallel N`` build the mesh as
+``3_train.py:148-159`` does, from the launched world size: ("data", "seq")
+of (world / N, N) with both, (1, N) with ``--seq-parallel`` alone (the
+world must then be N: every rank is in the mesh), ("data",) over the world
+with ``--data-parallel`` alone. ``--batch-size`` stays the global batch.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
@@ -25,12 +38,9 @@ import torch
 from segmamba_tpu_torch.data import get_train_val_test_loader_from_train
 from segmamba_tpu_torch.data.planning import load_plan
 from segmamba_tpu_torch.models import SegMamba
+from segmamba_tpu_torch.parallel.mesh import make_mesh
+from segmamba_tpu_torch.parallel.multihost import initialize_multihost
 from segmamba_tpu_torch.train.trainer import Trainer
-
-NOT_PORTED = {
-    "--data-parallel": "data parallelism is not ported yet (ROADMAP A9)",
-    "--seq-parallel": "sequence parallelism is not ported yet (ROADMAP A9)",
-}
 
 
 def brats_groups(labels):
@@ -60,11 +70,11 @@ class BraTSTrainer(Trainer):
     def validation_end(self, state, val_outputs):
         tc, wt, et = np.asarray(val_outputs).mean(axis=0)
         mean_dice = float((tc + wt + et) / 3)
-        print(f"dices: tc={tc:.4f} wt={wt:.4f} et={et:.4f} "
-              f"mean={mean_dice:.4f}")
+        self._print(f"dices: tc={tc:.4f} wt={wt:.4f} et={et:.4f} "
+                    f"mean={mean_dice:.4f}")
         for k, v in [("tc", tc), ("wt", wt), ("et", et),
                      ("mean_dice", mean_dice)]:
-            self.logger.log(k, v, self.epoch)
+            self._log(k, v, self.epoch)
         self.save_checkpoints(state, mean_dice)
         return mean_dice
 
@@ -104,9 +114,10 @@ def build_parser():
     ap.add_argument("--print-config", action="store_true",
                     help="print the resolved run config and exit")
     ap.add_argument("--device", default="cuda")
-    # flags of 3_train.py whose machinery is not ported: they raise
-    ap.add_argument("--data-parallel", action="store_true")
-    ap.add_argument("--seq-parallel", type=int, default=1, metavar="N")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="data parallelism over the launched ranks")
+    ap.add_argument("--seq-parallel", type=int, default=1, metavar="N",
+                    help="shard the Mamba layers' tokens over N ranks")
     ap.add_argument("--plan", default=None, metavar="PLAN_JSON")
     return ap
 
@@ -122,24 +133,51 @@ def apply_plan(args):
     args.num_slices = [max(1, patch[0] // (2 ** (i + 1))) for i in range(4)]
 
 
+def mesh_shape(args, world):
+    """({axis: ranks}, or None for one process) of ``--data-parallel`` /
+    ``--seq-parallel`` over ``world`` launched ranks (3_train.py:148-159)."""
+    sp = args.seq_parallel
+    if sp > 1:
+        if world % sp:
+            raise SystemExit(f"--seq-parallel {sp} does not divide "
+                             f"{world} devices")
+        if world // sp > 1 and not args.data_parallel:
+            raise SystemExit(f"--seq-parallel {sp} on {world} ranks needs "
+                             "--data-parallel: every rank is in the mesh")
+        return {"data": world // sp, "seq": sp}
+    if args.data_parallel:
+        return {"data": world}
+    if world != 1:
+        raise SystemExit(f"{world} ranks launched: pass --data-parallel or "
+                         "--seq-parallel")
+    return None
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    asked = {"--data-parallel": args.data_parallel,
-             "--seq-parallel": args.seq_parallel != 1}
-    for flag, on in asked.items():
-        if on:
-            raise SystemExit(f"{flag}: {NOT_PORTED[flag]}")
     if args.plan:
         apply_plan(args)
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    shape = mesh_shape(args, world)
     if args.print_config:
         print(json.dumps({"patch": list(args.patch),
                           "num_slices": list(args.num_slices),
                           "lr": args.lr, "loss": args.loss,
-                          "dtype": args.dtype, "device": args.device}))
+                          "dtype": args.dtype, "device": args.device,
+                          "mesh": shape}))
         return None
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    mesh = None
+    if shape is not None:
+        _, _, device = initialize_multihost(
+            "nccl" if device.type == "cuda" else "gloo",
+            device="cpu" if device.type == "cpu" else None)
+        mesh = make_mesh(world, tuple(shape), shape=tuple(shape.values()),
+                         device=device)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = SegMamba(in_chans=4, out_chans=4, depths=tuple(args.depths),
@@ -147,7 +185,8 @@ def main(argv=None):
                      hidden_size=args.hidden_size,
                      num_slices_list=tuple(args.num_slices), dtype=dtype,
                      remat="convs",
-                     generator=torch.Generator().manual_seed(args.seed))
+                     generator=torch.Generator().manual_seed(args.seed),
+                     mesh=mesh, seq_axis="seq")
     trainer = BraTSTrainer(
         model, args.logdir, max_epochs=args.max_epochs,
         batch_size=args.batch_size, val_every=args.val_every,
@@ -156,8 +195,8 @@ def main(argv=None):
         augmentation=(True if args.augmentation == "default"
                       else args.augmentation),
         learning_rate=args.lr, scheduler_type="poly", loss=args.loss,
-        num_classes=4, num_workers=args.num_workers, seed=args.seed,
-        resume=args.resume, device=device)
+        num_classes=4, num_workers=args.num_workers, mesh=mesh,
+        seed=args.seed, resume=args.resume, device=device)
     train_ds, val_ds, _ = get_train_val_test_loader_from_train(
         args.data_dir, train_rate=args.split[0], val_rate=args.split[1],
         test_rate=args.split[2])

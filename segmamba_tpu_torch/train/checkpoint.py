@@ -20,16 +20,25 @@ import math
 import os
 
 import torch
+import torch.distributed as dist
+
+from segmamba_tpu_torch.parallel.mesh import broadcast_tree
+from segmamba_tpu_torch.parallel.multihost import is_main_process
 
 
 def save_checkpoint(state, path, epoch=0, metric=None):
     """Write the full state to ``path`` (through a temporary file, so a
-    crash never leaves half a checkpoint under the final name)."""
+    crash never leaves half a checkpoint under the final name). Across
+    ranks every rank calls it (a tensor-parallel state is gathered whole)
+    and the main process writes."""
+    model_sd, opt_sd = state.whole_state()
     path = os.path.abspath(path)
+    if not is_main_process():
+        return path
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "model": model_sd,
+        "optimizer": opt_sd,
         "step": int(state.step),
         "epoch": int(epoch),
         "metric": float(metric) if metric is not None else math.nan,
@@ -40,22 +49,32 @@ def save_checkpoint(state, path, epoch=0, metric=None):
 
 def restore_checkpoint(state, path):
     """Load a checkpoint written by ``save_checkpoint`` into ``state``;
-    returns (state, epoch)."""
+    returns (state, epoch). Across ranks (a ``state`` on a mesh) every
+    rank calls it: rank 0 reads ``path`` and broadcasts what it read, so
+    the other ranks need no access to the file."""
     device = next(state.model.parameters()).device
-    ck = torch.load(path, map_location=device, weights_only=True)
-    state.model.load_state_dict(ck["model"])
-    state.optimizer.load_state_dict(ck["optimizer"])
+    if state.mesh is None:
+        ck = torch.load(path, map_location=device, weights_only=True)
+    else:
+        ck = (torch.load(path, map_location=device, weights_only=True)
+              if dist.get_rank() == 0 else None)
+        ck = broadcast_tree(ck, 0, device=device)
+    state.load_whole_state(ck["model"], ck["optimizer"])
     state.step = int(ck["step"])
     return state, int(ck["epoch"])
 
 
 def save_new_and_delete_last(state, model_dir, symbol, metric, epoch):
-    """Keep exactly one ``<symbol>_<metric:.4f>.pt`` per symbol."""
-    os.makedirs(model_dir, exist_ok=True)
+    """Keep exactly one ``<symbol>_<metric:.4f>.pt`` per symbol (files
+    written and removed by the main process)."""
     new_path = os.path.join(model_dir, f"{symbol}_{metric:.4f}.pt")
+    if is_main_process():
+        os.makedirs(model_dir, exist_ok=True)
     old = [p for p in glob.glob(os.path.join(model_dir, f"{symbol}_*.pt"))
            if os.path.abspath(p) != os.path.abspath(new_path)]
     save_checkpoint(state, new_path, epoch=epoch, metric=metric)
+    if not is_main_process():
+        return new_path
     for p in old:
         os.remove(p)
     return new_path

@@ -1,4 +1,4 @@
-"""Trainer: the epoch-driven training loop on one card.
+"""Trainer: the epoch-driven training loop, on one card or a mesh of ranks.
 
 Port of ``segmamba_tpu/train/trainer.py`` ``Trainer``: ``num_step_per_epoch``
 steps of batch ``batch_size`` per epoch, validation every ``val_every``
@@ -19,6 +19,22 @@ more). With ``augmentation="device"`` the loader passes the raw patches
 card inside the train step (``data/augment_device.py``); each step's
 parameters are drawn from a generator seeded by (seed + 7, step), so a
 resumed run draws what an uninterrupted one would.
+
+With a ``mesh`` (``parallel.mesh``; JAX ``trainer.py:112``) every rank runs
+this loop: ``batch_size`` stays the global batch, and each data
+coordinate draws its ``batch_size / n_data`` rows from its own stream,
+seeded by the coordinate. The ranks of one data coordinate (on the
+sequence or model axis) must hold the same rows, as their model needs: the
+first of them runs the loaders and broadcasts each batch to the others
+(``parallel.mesh.broadcast_tree``), whose worker processes would deliver
+in their own order. The device chain's draws are seeded by the data
+coordinate and the step, so those ranks draw the same. The parameters
+start as rank 0's; a resume reads the checkpoint that rank 0 finds and
+hands its contents to every rank. Validation splits ``val_number``
+patches over the data ranks as ``parallel.eval`` does (JAX
+``trainer.py:264-289``: shards, then the dice lists gathered); only the
+main process logs, prints and writes checkpoints. The streams differ from
+JAX's single stream, which one program feeds to every device.
 """
 
 from __future__ import annotations
@@ -30,6 +46,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from segmamba_tpu_torch.data.augment import (
     get_train_transforms,
@@ -45,6 +62,12 @@ from segmamba_tpu_torch.data.augment_device import (
 )
 from segmamba_tpu_torch.data.loader import DataLoader
 from segmamba_tpu_torch.data.patch_sampler import PatchSampler
+from segmamba_tpu_torch.parallel.eval import (
+    gather_shard_results,
+    sequential_shards,
+)
+from segmamba_tpu_torch.parallel.mesh import broadcast_tree
+from segmamba_tpu_torch.parallel.multihost import is_main_process
 from segmamba_tpu_torch.train import checkpoint as ckpt
 from segmamba_tpu_torch.train.lr_schedules import (
     constant_with_warmup_schedule,
@@ -137,13 +160,36 @@ def _prefetch(iterator, device, n=2):
         raise err[0]
 
 
+class _Received:
+    """The loader of a rank that receives its batches from another: their
+    count per epoch."""
+
+    def __init__(self, steps):
+        self.steps = steps
+
+    def __len__(self):
+        return self.steps
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+
 class Trainer:
     def __init__(self, model, logdir, *, max_epochs=1000, batch_size=2,
                  val_every=2, num_step_per_epoch=250, val_number=100,
                  patch_size=(128, 128, 128), augmentation=True,
                  learning_rate=1e-2, scheduler_type="poly", loss="ce",
-                 num_classes=4, num_workers=8, seed=42, resume=False,
-                 device="cuda"):
+                 num_classes=4, num_workers=8, mesh=None, seed=42,
+                 resume=False, device="cuda"):
+        self.mesh = mesh
+        self.n_data = 1 if mesh is None else mesh.size("data")
+        self.data_rank = 0 if mesh is None else mesh.index("data")
+        if batch_size % self.n_data:
+            raise ValueError(f"batch size {batch_size} does not divide over "
+                             f"{self.n_data} data ranks")
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.logdir = logdir
@@ -166,8 +212,21 @@ class Trainer:
         self.epoch = 0
         self.best_mean_dice = 0.0
         self.last_loss = float("nan")
-        self.logger = MetricLogger(logdir)
+        self.logger = MetricLogger(logdir) if is_main_process() else None
         self.timer = StepTimer(device=self.device)
+
+    def _log(self, key, value, step):
+        if self.logger is not None:
+            self.logger.log(key, value, step)
+
+    def _print(self, msg):
+        if is_main_process():
+            print(msg)
+
+    def _rank_seed(self, seed):
+        """``seed`` for this data rank's streams (``seed`` itself at data
+        rank 0, so a run without data ranks keeps its stream)."""
+        return seed + 7919 * self.data_rank
 
     # -- hooks ---------------------------------------------------------------
 
@@ -178,10 +237,8 @@ class Trainer:
         """After each step (``global_step`` counted, its time recorded):
         logs the loss and gradient norm every 10 steps."""
         if self.global_step % 10 == 0:
-            self.logger.log("training_loss", metrics["loss"],
-                            self.global_step)
-            self.logger.log("grad_norm", metrics["grad_norm"],
-                            self.global_step)
+            self._log("training_loss", metrics["loss"], self.global_step)
+            self._log("grad_norm", metrics["grad_norm"], self.global_step)
 
     def predict(self, image):
         """Argmax labels of one batch (inference mode)."""
@@ -209,13 +266,14 @@ class Trainer:
         means = per_class.mean(axis=0)
         mean_dice = float(means.mean())
         for i, m in enumerate(means):
-            self.logger.log(f"dice_class_{i + 1}", m, self.epoch)
-        self.logger.log("mean_dice", mean_dice, self.epoch)
+            self._log(f"dice_class_{i + 1}", m, self.epoch)
+        self._log("mean_dice", mean_dice, self.epoch)
         self.save_checkpoints(state, mean_dice)
         return mean_dice
 
     def save_checkpoints(self, state, mean_dice):
-        """Keep-best, final, and a ``tmp_model_ep*`` every 100 epochs."""
+        """Keep-best, final, and a ``tmp_model_ep*`` every 100 epochs
+        (every rank calls it; the main process writes)."""
         if mean_dice > self.best_mean_dice:
             self.best_mean_dice = mean_dice
             ckpt.save_new_and_delete_last(
@@ -248,40 +306,61 @@ class Trainer:
         raise ValueError(f"unknown scheduler {self.scheduler_type!r}")
 
     def _build_loaders(self, train_ds, val_ds):
+        """This data rank's loaders: its rows of each global batch, and
+        its shard of the validation patches (on a rank that receives its
+        batches, only their counts)."""
+        reps = None if self.mesh is None else self.mesh.replicas()
+        if reps is not None and reps[1] != self.mesh.rank:
+            n_val = len(sequential_shards(self.val_number, self.n_data)[0][
+                self.data_rank])
+            return (_Received(self.num_step_per_epoch),
+                    _Received(n_val) if val_ds is not None and len(val_ds)
+                    else None)
+        seed = self._rank_seed(self.seed)
         train_sampler = PatchSampler(
-            train_ds, self.patch_size, batch_size=self.batch_size,
-            rng=np.random.default_rng(self.seed))
+            train_ds, self.patch_size,
+            batch_size=self.batch_size // self.n_data,
+            rng=np.random.default_rng(seed))
         train_loader = DataLoader(
             train_sampler, transform=_pick_transform(self.augmentation),
             num_workers=self.num_workers,
-            steps_per_epoch=self.num_step_per_epoch, seed=self.seed)
+            steps_per_epoch=self.num_step_per_epoch, seed=seed)
         val_loader = None
         if val_ds is not None and len(val_ds) > 0:
+            shards, _ = sequential_shards(self.val_number, self.n_data)
             val_sampler = PatchSampler(
                 val_ds, self.patch_size, batch_size=1,
                 oversample_foreground_percent=1.0,
-                rng=np.random.default_rng(self.seed + 1))
+                rng=np.random.default_rng(seed + 1))
             val_loader = DataLoader(
                 val_sampler, transform=get_validation_transforms(),
                 num_workers=min(self.num_workers, 6),
-                steps_per_epoch=self.val_number, seed=self.seed + 1)
+                steps_per_epoch=len(shards[self.data_rank]), seed=seed + 1)
         return train_loader, val_loader
 
     def train(self, train_dataset, val_dataset=None):
         set_determinism(self.seed)
         state = create_train_state(self.model,
-                                   learning_rate=self._schedule())
+                                   learning_rate=self._schedule(),
+                                   mesh=self.mesh)
         n_params = sum(p.numel() for p in self.model.parameters())
-        print(f"model parameters: {n_params / 1e6:.2f} M")
+        self._print(f"model parameters: {n_params / 1e6:.2f} M")
 
         start_epoch = 0
         if self.resume:
-            path = ckpt.find_checkpoint(self.model_save_path, "final_model")
+            # the main process's checkpoint, so that every rank takes the
+            # same branch (and the others need not see the file)
+            path = (ckpt.find_checkpoint(self.model_save_path, "final_model")
+                    if is_main_process() else None)
+            if self.mesh is not None:
+                box = [path]
+                dist.broadcast_object_list(box, src=0)
+                path = box[0]
             if path:
                 state, start_epoch = ckpt.restore_checkpoint(state, path)
                 self.global_step = state.step
-                print(f"resumed from {path} at epoch {start_epoch}, step "
-                      f"{self.global_step}")
+                self._print(f"resumed from {path} at epoch {start_epoch}, "
+                            f"step {self.global_step}")
 
         train_loader, val_loader = self._build_loaders(train_dataset,
                                                        val_dataset)
@@ -302,13 +381,37 @@ class Trainer:
             train_loader.stop()
             if val_loader is not None:
                 val_loader.stop()
-            self.logger.close()
+            if self.logger is not None:
+                self.logger.close()
         return state
 
     def validate(self, state, val_loader):
-        """``validation_step`` over the validation stream (one card)."""
-        return [self.validation_step(state, b)
-                for b in _prefetch(iter(val_loader), self.device)]
+        """``validation_step`` over this data rank's shard of the
+        validation patches; with data ranks, every rank gets all of them
+        (in shard order, the wrap-around padding dropped)."""
+        own = [self.validation_step(state, b)
+               for b in self._batches(val_loader)]
+        if self.mesh is None:
+            return own
+        _, mask = sequential_shards(self.val_number, self.n_data)
+        return gather_shard_results(own, mask[self.data_rank],
+                                    self.mesh.group("data"))
+
+    def _batches(self, loader):
+        """``loader``'s batches on this rank's device, prefetched. Where
+        ranks share this rank's data coordinate, the first of them reads
+        ``loader`` and broadcasts each batch to the others."""
+        reps = None if self.mesh is None else self.mesh.replicas()
+        if reps is None:
+            yield from _prefetch(iter(loader), self.device)
+            return
+        group, src = reps
+        if self.mesh.rank == src:
+            for b in _prefetch(iter(loader), self.device):
+                yield broadcast_tree(b, src, group, self.device)
+        else:
+            for _ in range(len(loader)):
+                yield broadcast_tree(None, src, group, self.device)
 
     def train_epoch(self, state, train_loader):
         """One epoch of ``train_step``s. The timer records each step
@@ -318,18 +421,19 @@ class Trainer:
         metrics = None
         device_aug = self.augmentation == "device"
         self.timer.mark("data")
-        for batch in _prefetch(iter(train_loader), self.device):
+        for batch in self._batches(train_loader):
             self.timer.elapsed("data_wait", "data")
             self.timer.mark("step")
             augment = None
             if device_aug:
                 augment = draw_params(
                     batch["image"].shape,
-                    augment_generator(self.seed + 7, self.global_step),
+                    augment_generator(self._rank_seed(self.seed + 7),
+                                      self.global_step),
                     device=self.device)
             metrics = train_step(
                 state, {"image": batch["image"], "label": batch["label"]},
-                num_classes=self.num_classes, loss=self.loss,
+                mesh=self.mesh, num_classes=self.num_classes, loss=self.loss,
                 augment=augment)
             self.global_step += 1
             self.timer.elapsed("step_time", "step")
@@ -337,9 +441,10 @@ class Trainer:
             self.timer.mark("data")
         loss = float(metrics["loss"]) if metrics is not None else float("nan")
         stats = self.timer.stats()
-        print(f"epoch {self.epoch} done in {time.time() - t_epoch:.1f}s "
-              f"(loss {loss:.4f}; step p50 {stats['step_time']['p50']:.3f}s"
-              f", max {stats['step_time']['max']:.3f}s; data wait max "
-              f"{stats['data_wait']['max']:.3f}s)")
+        self._print(
+            f"epoch {self.epoch} done in {time.time() - t_epoch:.1f}s (loss "
+            f"{loss:.4f}; step p50 {stats['step_time']['p50']:.3f}s, max "
+            f"{stats['step_time']['max']:.3f}s; data wait max "
+            f"{stats['data_wait']['max']:.3f}s)")
         self.last_loss = loss
         return state

@@ -17,7 +17,8 @@ here:
 - LayerNorm scale / bias                       -> weight / bias
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` takes; no flax or
-JAX import is needed.
+JAX import is needed. ``tp_shard_state_dict`` takes a converted state to a
+rank's tensor-parallel shard.
 """
 
 from __future__ import annotations
@@ -174,3 +175,15 @@ def load_flax_params(model, params):
     """Load a JAX param tree into the port's ``SegMamba`` (strict)."""
     model.load_state_dict(flax_to_state_dict(params), strict=True)
     return model
+
+
+def tp_shard_state_dict(sd, index, n):
+    """Rank ``index``'s tensor-parallel shard (of ``n``) of a converted
+    ``state_dict``: the Mamba-inner tensors cut by ``parallel.tp``'s rules
+    (in_proj per half), the rest whole. ``parallel.tp.tp_gather_state``
+    undoes it, so a sharded state saves as the whole tree."""
+    from segmamba_tpu_torch.parallel.tp import shard_tensor, tp_specs
+
+    specs = tp_specs(sd, n)
+    return {k: shard_tensor(v, specs[k], index, n).clone()
+            for k, v in sd.items()}

@@ -20,9 +20,15 @@
 - The loader's worker processes pass batches through shared memory and
   they arrive as the workers made them.
 - A dataset pickles (to a loader process) as its case list.
-- The flags whose machinery is not ported raise and name it.
+- ``--data-parallel`` / ``--seq-parallel N`` build 3_train.py's mesh from
+  the launched world size (``--print-config`` shows it) and refuse a world
+  they cannot cover; ``--data-parallel --seq-parallel 2`` trains an epoch
+  on 4 spawned CPU ranks (gloo, ``parallel.multihost.launch``; the ranks
+  run ``parallel.workers.train_cli``). Sequence ranks with loader worker
+  processes train and validate on the same batches, and a resume that only
+  the main process can see reaches every rank.
 
-CPU time: about 25 s.
+CPU time: about 40 s.
 """
 
 import glob
@@ -45,6 +51,8 @@ from segmamba_tpu_torch.data import (
     PatchSampler,
 )
 from segmamba_tpu_torch.data.synthetic import write_synthetic_cases
+from segmamba_tpu_torch.parallel import workers
+from segmamba_tpu_torch.parallel.multihost import launch
 from segmamba_tpu_torch.train.__main__ import main as train_main
 from segmamba_tpu_torch.train.trainer import Trainer
 
@@ -247,11 +255,88 @@ def test_train_cli_trains_saves_and_resumes(cases, tmp_path, capsys,
     assert len(os.listdir(os.path.join(logdir, "model"))) == 2
 
 
-@pytest.mark.parametrize("flag", [["--data-parallel"],
-                                  ["--seq-parallel", "2"]])
-def test_unported_flags_raise(flag):
-    with pytest.raises(SystemExit, match="ROADMAP A"):
-        train_main(flag)
+@pytest.mark.parametrize("flags,world,mesh", [
+    (["--data-parallel"], 4, {"data": 4}),
+    (["--data-parallel", "--seq-parallel", "2"], 4, {"data": 2, "seq": 2}),
+    (["--seq-parallel", "4"], 4, {"data": 1, "seq": 4}),
+    ([], 1, None),
+])
+def test_parallel_flags_print_the_mesh(monkeypatch, capsys, flags, world,
+                                       mesh):
+    """The mesh of 3_train.py:148-159 from the launched world size
+    (``WORLD_SIZE``, as torchrun sets it)."""
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    train_main([*flags, "--print-config"])
+    cfg = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert cfg["mesh"] == mesh
+
+
+@pytest.mark.parametrize("flags,world,match", [
+    (["--seq-parallel", "3"], 2, "--seq-parallel 3 does not divide 2"),
+    (["--data-parallel", "--seq-parallel", "3"], 4, "does not divide 4"),
+    (["--seq-parallel", "2"], 4, "needs --data-parallel"),
+    ([], 2, "pass --data-parallel or --seq-parallel"),
+])
+def test_parallel_flags_reject_the_world(monkeypatch, flags, world, match):
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    with pytest.raises(SystemExit, match=match):
+        train_main([*flags, "--print-config"])
+
+
+def test_data_seq_parallel_epoch_on_four_ranks(cases, tmp_path):
+    """``--data-parallel --seq-parallel 2`` on 4 spawned CPU ranks (gloo):
+    one epoch of 2 steps (a sample a data rank) and a validation on 3
+    patches split over the 2 data ranks; every rank ends at the same
+    step and loss, and the main process alone writes the checkpoints."""
+    logdir = str(tmp_path / "logs")
+    argv = ["--data-dir", cases, "--logdir", logdir, "--batch-size", "2",
+            "--val-every", "1", "--steps-per-epoch", "2", "--val-number",
+            "3", "--patch", "32", "32", "32", "--num-workers", "0",
+            "--dtype", "float32", "--split", "0.5", "0.5", "0.0",
+            "--device", "cpu", "--max-epochs", "1", "--augmentation",
+            "noaug", "--data-parallel", "--seq-parallel", "2", *TINY]
+    ranks = launch(workers.train_cli, 4, argv, device="cpu", timeout_s=600)
+    assert [r["global_step"] for r in ranks] == [2] * 4
+    assert [r["batch_rows"] for r in ranks] == [1] * 4
+    assert np.isfinite(ranks[0]["last_loss"])
+    # a data rank's two sequence ranks train on the same rows
+    assert ranks[0]["last_loss"] == ranks[1]["last_loss"]
+    assert ranks[2]["last_loss"] == ranks[3]["last_loss"]
+    assert [n.rsplit("_", 1)[0] for n in ranks[0]["files"]] == [
+        "best_model", "final_model"]
+    assert sorted(os.listdir(os.path.join(logdir, "model"))) == ranks[0][
+        "files"]
+
+
+def test_sequence_ranks_train_on_the_same_batches(cases, tmp_path):
+    """Two sequence ranks of one data coordinate, with loader worker
+    processes (which deliver in their own order): both train and validate
+    on the same batches, so their losses agree step by step. A resume
+    where only the main process can see the checkpoint (each rank has its
+    own log directory) takes every rank to the same step and parameters."""
+    case = dict(shape=(1, 2), data_dir=cases, logdir=str(tmp_path),
+                model_kw=dict(in_chans=4, out_chans=4, depths=(1, 1, 1, 1),
+                              feat_size=(4, 8, 16, 32), hidden_size=64,
+                              num_slices_list=(8, 4, 2, 1)),
+                batch_size=1, steps=3, val_number=2, patch=(32, 32, 32),
+                num_workers=2)
+    r0, r1 = launch(workers.trainer_replicas, 2, case, device="cpu",
+                    timeout_s=600)
+    for a, b in zip(r0, r1):
+        assert a["seen"] == b["seen"]
+        assert a["losses"] == b["losses"]
+        assert a["global_step"] == b["global_step"]
+        for k, v in a["params"].items():
+            np.testing.assert_array_equal(v, b["params"][k])
+    first, resumed = r0
+    assert first["global_step"] == 3 and len(first["seen"]) == 3 + 2
+    assert len(set(first["seen"])) > 1
+    assert np.isfinite(first["losses"]).all()
+    # the resume starts from the saved step: epoch 0 again, then epoch 1
+    assert resumed["global_step"] == 3 + 2 * 3
+    assert [n.rsplit("_", 1)[0] for n in first["files"]] == [
+        "best_model", "final_model"]
+    assert r1[0]["files"] == r1[1]["files"] == []
 
 
 @pytest.mark.parametrize("plan_patch,patch", [
